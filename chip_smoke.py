@@ -16,14 +16,31 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    and GGX, and for backface culling with soft edges;
 4. the forward render (9 bounces, 512x512) through the kernels against the
    plain integrator on the card;
-5. the main path: ``render`` of Cornell at 1920x1080, 9 bounces, 4 frames,
-   with launch counts, image checks and ms/frame; then each kernel's time
-   against its plain version at 1080p.
+3b. each backward kernel against its plain version on the card, with
+   seeded cotangents, and against a second run of itself (bitwise): at the main path's shape (1080p, tile-ordered ids,
+   bounces 0-8 on the forward's winners and state), at 512x512 in the
+   three configurations of phase 3, and on a seeded soup of 2048
+   triangles (the mega path's limit) at 256x256;
+4. the forward render (9 bounces, 512x512) through the kernels against the
+   plain integrator on the card;
+5. the forward path under ``torch.no_grad()``: ``render`` of Cornell at
+   1920x1080, 9 bounces, 4 frames, with launch counts, image checks and
+   ms/frame; then each forward kernel's time against its plain version;
+6. the training step, the slice's main path: the loss of
+   ``mean(render_sample)`` and its gradients w.r.t. every float leaf of
+   the scene and the camera (``grad.loss_and_grads``) for Cornell at
+   1920x1080 with 9 bounces, with launch counts per step, finiteness, ms
+   per step and fwd+bwd rays/s; then each backward kernel's time against
+   its plain version;
+7. the slice against the oracle: ``scene_grad`` / ``camera_grad`` on mega
+   against bruteforce (torch autograd) at 512x512 x 9 bounces, central
+   finite differences at 256x256 x 9, and Adam steps on the diffuse
+   albedo against a 1080p target.
 
-Gate for kernel vs plain (phases 3 and 4): ops/cuda/parity.py.
+Gates (phases 3, 3b, 4, 7): ops/cuda/parity.py.
 
-The last lines are one JSON object per kernel run summary and the device
-line ``{"ok": true, "device": {...}}``.
+The last lines are one JSON object with a summary per kernel, the card's
+name and power limit, and the device line ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -34,11 +51,14 @@ import subprocess
 import sys
 import time
 
-SOURCE ="mini_opencl_raytracer_tpu_torch/csrc/megakernel.cu"
-REPLACES = {
-    "bounce0_fwd": "mini_opencl_raytracer_tpu/ops/pallas/megakernel.py:1134",
-    "bounce_fwd": "mini_opencl_raytracer_tpu/ops/pallas/megakernel.py:1041",
-}
+_CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
+_TPU = "mini_opencl_raytracer_tpu/ops/pallas/megakernel.py:"
+KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd")
+SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
+           "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
+           "bounce_bwd": _CSRC + "megakernel_bwd.cu"}
+REPLACES = {"bounce0_fwd": _TPU + "1134", "bounce_fwd": _TPU + "1041",
+            "bounce0_bwd": _TPU + "1173", "bounce_bwd": _TPU + "1329"}
 
 
 def log(msg: str) -> None:
@@ -87,6 +107,44 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def log_grads(label: str, stats: dict) -> None:
+    """One line per backward check: per output, max |diff| and either the
+    mean / tail fraction (per ray) or the ratio to the largest value."""
+    log(f"  {label}: " + "; ".join(
+        f"{k} max {v['max']:.2e} "
+        + (f"mean {v['mean']:.2e} frac {v['frac']:.2e} (s {v['scale']:.2e})"
+           if "mean" in v else f"rel {v['rel']:.2e} (s {v['scale']:.2e})")
+        for k, v in stats.items() if isinstance(v, dict)))
+
+
+def repeatable(label: str, first, second) -> None:
+    """The backward kernels sum without atomics, in a fixed order: two runs
+    on the same inputs must be bitwise equal."""
+    import torch
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two runs of the kernel differ")
+
+
+def soup_scene(mrt, torch, device, n: int = 2048, seed: int = 3):
+    """A seeded soup of ``n`` triangles in front of the camera, with the
+    Cornell materials and light."""
+    import numpy as np
+    rs = np.random.default_rng(seed)
+    centers = rs.uniform([-10.0, -5.0, -2.0], [10.0, 10.0, 18.0], (n, 3))
+    corners = [centers + rs.normal(0.0, 1.0, (n, 3)) for _ in range(3)]
+    normal = np.cross(corners[1] - corners[0], corners[2] - corners[0])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-12
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=device)
+    zeros2 = t(np.zeros((n, 2)))
+    geo = mrt.Geometry(v0=t(corners[0]), v1=t(corners[1]), v2=t(corners[2]),
+                       n0=t(normal), n1=t(normal), n2=t(normal),
+                       uv0=zeros2, uv1=zeros2, uv2=zeros2,
+                       mat_idx=t(rs.integers(0, 6, n), torch.int32))
+    base = mrt.cornell_scene(device=device)
+    return mrt.Scene(geometry=geo, materials=base.materials, lights=base.lights)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -96,6 +154,7 @@ def main() -> int:
     import mini_opencl_raytracer_tpu_torch as mrt
     from mini_opencl_raytracer_tpu_torch.ops import rng
     from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
+    from mini_opencl_raytracer_tpu_torch import grad
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
@@ -122,15 +181,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 3. Each kernel against its plain version: at the main path's shape
-    # (1080p, tile-ordered pixel ids, all 9 bounces), then at 512x512.
-    max_err = {"bounce0_fwd": 0.0, "bounce_fwd": 0.0}
+    # 3. Each forward kernel against its plain version: at the main path's
+    # shape (1080p, tile-ordered pixel ids, all 9 bounces), then at 512x512.
+    max_err = dict.fromkeys(KERNELS, 0.0)
     cam = mrt.Camera.default(device=dev)
     camv = mk.camera_vector(cam)
     main_cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+    main_ids = _swizzled_ids(main_cfg, dev)
     cases = (("main path 1920x1080 tiled ids", mrt.cornell_scene(device=dev),
-              main_cfg, _swizzled_ids(main_cfg, dev), 0,
-              range(1, main_cfg.bounces)),
+              main_cfg, main_ids, 0, range(1, main_cfg.bounces)),
              ("defaults", mrt.cornell_scene(device=dev), mrt.RenderConfig(), None,
               7, (1, 2)),
              ("2lights+shadow+dspec+ggx", two_light_scene(mrt, torch, dev),
@@ -163,6 +222,40 @@ def main() -> int:
             max_err["bounce_fwd"] = max(max_err["bounce_fwd"], stats["max_abs_err"])
             state = (p1[0], p1[1], p1[2], p1[3], k0[7])
 
+    # 3b. Each backward kernel against its plain version, on the forward
+    # kernels' winners and state, with seeded cotangents shared by both.
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    soup_cfg = mrt.RenderConfig(width=256, height=256)
+    bwd_cases = cases + (("soup of 2048 triangles", soup_scene(mrt, torch, dev),
+                          soup_cfg, None, 2, (1,)),)
+    for label, scene, cfg, pid, frame, bounces in bwd_cases:
+        table, tris, lv = mk._tables(scene, cfg, None)
+        if pid is None:
+            pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+        f0 = mk.bounce0_fwd(table, tris, lv, camv, pid, frame, cfg)
+        cot = parity.cotangents(f0[2], gen)
+        args = (table, lv, camv, pid, frame, f0[5], f0[6], cot, cfg)
+        k, pl = mk.bounce0_bwd(*args), mk.bounce0_bwd_plain(*args)
+        repeatable(f"bounce0_bwd, {label}", k, mk.bounce0_bwd(*args))
+        stats = parity.check_grads(f"bounce0_bwd, {label}", k, pl, parity.BOUNCE0_GRADS)
+        log(f"[3b kernel] bounce0_bwd, {label}, {cfg.width}x{cfg.height}, "
+            f"T={tris.shape[0]}")
+        log_grads("bounce0_bwd", stats)
+        max_err["bounce0_bwd"] = max(max_err["bounce0_bwd"], stats["max_abs_err"])
+        state, seeds = f0[:4], f0[7]
+        for b in bounces:
+            f1 = mk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg)
+            cot = parity.cotangents(f1[2], gen)
+            args = (table, lv, *state, seeds, f1[5], f1[6], cot, b, cfg)
+            k, pl = mk.bounce_bwd(*args), mk.bounce_bwd_plain(*args)
+            repeatable(f"bounce_bwd (bounce {b}), {label}", k, mk.bounce_bwd(*args))
+            stats = parity.check_grads(f"bounce_bwd (bounce {b}), {label}", k, pl,
+                                       parity.BOUNCE_GRADS)
+            log(f"[3b kernel] bounce_bwd (bounce {b}), {label}, {cfg.width}x{cfg.height}")
+            log_grads("bounce_bwd", stats)
+            max_err["bounce_bwd"] = max(max_err["bounce_bwd"], stats["max_abs_err"])
+            state = f1[:4]
+
     # 4. The forward render through the kernels against the plain integrator.
     for label, scene, cfg, _, _, _ in cases[1:]:
         cfg = dataclasses.replace(cfg, bounces=9, ray_chunk=1 << 16)
@@ -181,23 +274,25 @@ def main() -> int:
         log_stats("radiance", {"radiance": parity.check_float(
             f"render_radiance, {label}", img_k, img_p)})
 
-    # 5. The main path: Cornell 1080p, 9 bounces, 4 frames.
-    scene, cfg, main_ids = cases[0][1], cases[0][2], cases[0][3]
+    # 5. The forward path: Cornell 1080p, 9 bounces, 4 frames, no gradient.
+    scene, cfg = cases[0][1], main_cfg
     frames = 4
-    mrt.render(scene, cam, cfg, frames=1)  # warm-up
-    torch.cuda.synchronize()
-    for key in mk.LAUNCHES:
-        mk.LAUNCHES[key] = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    img = mrt.render(scene, cam, cfg, frames=frames)
-    end.record()
-    torch.cuda.synchronize()
+    with torch.no_grad():
+        mrt.render(scene, cam, cfg, frames=1)  # warm-up
+        torch.cuda.synchronize()
+        for key in mk.LAUNCHES:
+            mk.LAUNCHES[key] = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = mrt.render(scene, cam, cfg, frames=frames)
+        end.record()
+        torch.cuda.synchronize()
     launches = dict(mk.LAUNCHES)
     ms_frame = start.elapsed_time(end) / frames
-    log(f"[5 main] launches {launches}")
-    expect = {"bounce0_fwd": frames, "bounce_fwd": frames * (cfg.bounces - 1)}
+    log(f"[5 forward] launches {launches}")
+    expect = {"bounce0_fwd": frames, "bounce_fwd": frames * (cfg.bounces - 1),
+              "bounce0_bwd": 0, "bounce_bwd": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     if tuple(img.shape) != (1080, 1920, 3) or not torch.isfinite(img).all():
@@ -207,17 +302,17 @@ def main() -> int:
     nonzero = (img.amax(dim=-1) > 0).float().mean().item()
     third = cfg.width // 3
     left, right = img[:, :third].mean(dim=(0, 1)), img[:, -third:].mean(dim=(0, 1))
-    log(f"[5 main] nonzero {nonzero:.4f}; left third rgb {left.tolist()}; "
+    log(f"[5 forward] nonzero {nonzero:.4f}; left third rgb {left.tolist()}; "
         f"right third rgb {right.tolist()}")
     if nonzero <= 0.5:
         raise AssertionError(f"only {nonzero:.3f} of the pixels are nonzero")
     if not (left[0] > left[1] and right[1] > right[0]):
         raise AssertionError("Cornell box is not upright (red left, green right)")
     mrays = cfg.width * cfg.height * cfg.bounces / (ms_frame * 1e-3) / 1e6
-    log(f"[5 main] {ms_frame:.3f} ms/frame, {mrays:.1f} Mrays/s "
+    log(f"[5 forward] {ms_frame:.3f} ms/frame, {mrays:.1f} Mrays/s "
         f"(1920x1080, 9 bounces; {kind}; {card})")
 
-    # Kernel and plain version times at 1080p (outside the counted run).
+    # Kernel and plain version times at 1080p (outside the counted runs).
     table, tris, lv = mk._tables(scene, cfg, None)
     b0 = mk.bounce0_fwd(table, tris, lv, camv, main_ids, 0, cfg)
     state = (b0[0], b0[1], b0[2], b0[3], b0[7])
@@ -229,15 +324,119 @@ def main() -> int:
             time_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, 1, cfg), 20),
             time_ms(lambda: mk.bounce_fwd_plain(table, tris, lv, *state, 1, cfg), 3)),
     }
-    for name, (k_ms, p_ms) in times.items():
-        log(f"[5 main] {name} at 1080p: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+
+    # 6. The training step: loss and gradients w.r.t. every float leaf of
+    # the scene and the camera, Cornell 1080p x 9 bounces.
+    loss_fn = lambda im: im.mean()
+    grad.loss_and_grads(scene, cam, cfg, loss_fn)  # warm-up
+    torch.cuda.synchronize()
+    for key in mk.LAUNCHES:
+        mk.LAUNCHES[key] = 0
+    loss, g_scene, g_cam = grad.loss_and_grads(scene, cam, cfg, loss_fn)
+    torch.cuda.synchronize()
+    per_step = dict(mk.LAUNCHES)
+    log(f"[6 train] launches per step {per_step}; loss {loss.item():.6f}")
+    expect = {"bounce0_fwd": 1, "bounce_fwd": 8, "bounce0_bwd": 1, "bounce_bwd": 8}
+    if per_step != expect:
+        raise AssertionError(f"launch counts per step {per_step}, expected {expect}")
+    leaves = list(grad._leaves(g_scene)) + [(f"camera.{k}", v) for k, v in grad._leaves(g_cam)]
+    for name, g in leaves:
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"gradient of {name} is not finite")
+    for name in ("materials.diffuse", "lights.intensity", "camera.position"):
+        g = dict(leaves)[name]
+        log(f"[6 train] d loss / d {name} = {g.flatten()[:6].tolist()}")
+        if not bool((g != 0).any()):
+            raise AssertionError(f"gradient of {name} is zero")
+    steps = 5
+    for key in mk.LAUNCHES:
+        mk.LAUNCHES[key] = 0
+    start.record()
+    for _ in range(steps):
+        grad.loss_and_grads(scene, cam, cfg, loss_fn)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(mk.LAUNCHES)
+    if launches != {k: v * steps for k, v in expect.items()}:
+        raise AssertionError(f"launch counts over {steps} steps: {launches}")
+    ms_step = start.elapsed_time(end) / steps
+    rays = cfg.width * cfg.height * cfg.bounces / (ms_step * 1e-3)
+    log(f"[6 train] {ms_step:.3f} ms/step, {rays / 1e6:.1f} Mrays/s fwd+bwd "
+        f"(1920x1080, 9 bounces, {steps} steps; {kind}; {card})")
+
+    # Backward kernel and plain version times at 1080p (main path state).
+    cot0 = parity.cotangents(b0[2], gen)
+    b1 = mk.bounce_fwd(table, tris, lv, *state, 1, cfg)
+    cot1 = parity.cotangents(b1[2], gen)
+    bwd0 = (table, lv, camv, main_ids, 0, b0[5], b0[6], cot0, cfg)
+    bwd1 = (table, lv, *state, b1[5], b1[6], cot1, 1, cfg)
+    times["bounce0_bwd"] = (time_ms(lambda: mk.bounce0_bwd(*bwd0), 20),
+                            time_ms(lambda: mk.bounce0_bwd_plain(*bwd0), 3))
+    times["bounce_bwd"] = (time_ms(lambda: mk.bounce_bwd(*bwd1), 20),
+                           time_ms(lambda: mk.bounce_bwd_plain(*bwd1), 3))
+    for name in KERNELS:
+        k_ms, p_ms = times[name]
+        log(f"[5/6 time] {name} at 1080p: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
             f"({kind}; {card})")
 
+    # 7. The slice against the oracle, by finite differences, and in use.
+    cfg7 = mrt.RenderConfig(width=512, height=512, bounces=9, ray_chunk=1 << 16)
+    got = {}
+    for backend in ("mega", "bruteforce"):
+        c = dataclasses.replace(cfg7, backend=backend)
+        got[backend] = (dict(grad._leaves(grad.scene_grad(scene, cam, c, loss_fn))),
+                        dict(grad._leaves(grad.camera_grad(scene, cam, c, loss_fn))))
+    worst = 0.0
+    for part, prefix in ((0, ""), (1, "camera.")):
+        for name, g_m in got["mega"][part].items():
+            g_b = got["bruteforce"][part][name]
+            if not g_m.is_floating_point():
+                continue
+            st = parity.check_grad_sum(f"{prefix}{name} mega vs bruteforce", g_m, g_b)
+            worst = max(worst, st["rel"])
+    log(f"[7 oracle] scene_grad + camera_grad, mega vs bruteforce, 512x512x9: "
+        f"largest max|diff| / max|bruteforce| over leaves {worst:.3e} (gate 2e-3)")
+
+    cfg_fd = mrt.RenderConfig(width=256, height=256, bounces=9)
+
+    def with_leaf(group: str, leaf: str, index, value):
+        obj = getattr(scene, group)
+        t = getattr(obj, leaf).clone()
+        t[index] = value
+        return dataclasses.replace(scene, **{group: dataclasses.replace(obj, **{leaf: t})})
+
+    for group, leaf, index, eps in (("materials", "diffuse", (4, 0), 1e-2),
+                                    ("lights", "intensity", (0,), 1e-1)):
+        x0 = getattr(getattr(scene, group), leaf)[index].clone()
+        f = lambda v: mrt.render_radiance(with_leaf(group, leaf, index, v), cam,
+                                          cfg_fd).mean()
+        ad, fd, _ = grad.fd_check(f, x0, eps=eps)
+        rel = parity.check_fd(f"{group}.{leaf}{list(index)}", ad.item(), fd.item())
+        log(f"[7 fd] {group}.{leaf}{list(index)} 256x256x9: autodiff {ad.item():.6e}, "
+            f"central FD {fd.item():.6e}, relative error {rel:.3e} (gate 5e-2)")
+
+    with torch.no_grad():
+        target = mrt.render_radiance(scene, cam, cfg)
+    kd = (scene.materials.diffuse * 0.3 + 0.2).requires_grad_()
+    opt = torch.optim.Adam([kd], lr=5e-2)
+    history = []
+    for i in range(6):
+        s_kd = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, diffuse=kd))
+        loss = ((mrt.render_radiance(s_kd, cam, cfg) - target) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        history.append(loss.item())
+        log(f"[7 adam] step {i}: loss {history[-1]:.6e}")
+    if not history[-1] < history[0]:
+        raise AssertionError(f"Adam did not lower the loss: {history}")
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("bounce0_fwd", "bounce_fwd")]}))
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+        for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
 """mini_opencl_raytracer_tpu_torch — the PyTorch and CUDA port of the
 differentiable path tracer, beside the JAX package it is held against.
 
-This slice ports the forward render of the mega path: camera raygen, the
-counter-based RNG, the bounce recurrence, and the two fused bounce kernels
-written in CUDA for Hopper (csrc/megakernel.cu), each with a plain PyTorch
-version that runs on the CPU. Importing the package needs neither CUDA
-nor nvcc; the kernels build at first use on a CUDA device.
+Ported so far: the mega path's forward render and its gradient (camera
+raygen, the counter-based RNG, the bounce recurrence, ``grad.py``), on
+four fused bounce kernels written in CUDA for Hopper (csrc/megakernel.cu
+forward, csrc/megakernel_bwd.cu backward), each with a plain PyTorch
+version that runs on the CPU, and the brute-force oracle. Importing the
+package needs neither CUDA nor nvcc; the kernels build at first use on a
+CUDA device.
 
 Public API::
 
@@ -15,6 +17,9 @@ Public API::
     camera = mrt.Camera.default(device="cuda")
     cfg    = mrt.RenderConfig(width=1920, height=1080, bounces=9)
     image  = mrt.render(scene, camera, cfg, frames=4)   # [H, W, 3]
+
+    from mini_opencl_raytracer_tpu_torch import grad
+    g = grad.scene_grad(scene, camera, cfg, lambda img: img.mean())
 """
 
 from .config import BVHConfig, MeshConfig, RenderConfig

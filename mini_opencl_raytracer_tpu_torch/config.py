@@ -62,12 +62,15 @@ class RenderConfig:
     # "mega". "auto" and "mega" resolve to "mega" for eligible scenes
     # (render.resolve_backend), as in the JAX package.
     backend: str = "auto"
-    # Kept for parity with the JAX config; the forward render path does
-    # not read it (it selects rematerialisation in the JAX backward).
+    # Kept for parity with the JAX config; the port does not read it (it
+    # selects rematerialisation in the JAX backward).
     remat: bool = True
     # Generate camera rays and seeds inside the first bounce kernel.
     fused_raygen: bool = True
-    # Kept for parity with the JAX config; backward-only, unused here.
+    # Kept for parity with the JAX config, where it selects the backward's
+    # known-value residual rows. The port's backward recomputes the
+    # forward bounce for both values (the same gradients: the JAX tests
+    # hold the two modes within 1e-5).
     bwd_residuals: bool = False
     # Kept for parity with the JAX config; the sorted wavefront is not
     # on this path.

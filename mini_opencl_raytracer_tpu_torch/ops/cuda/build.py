@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-``csrc/*.cu`` compile into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds, not minutes), written to
+``csrc/*.cu`` compile in parallel, one ``nvcc`` per source, and link into
+one shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds, not minutes), written to
 ``build/torch_kernels/`` at the repository root under a name keyed by a
 hash of the sources and flags, so a stale library is never loaded. The
 build runs at first use, never at import: importing this module needs
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # -fmad=false: no multiply-add contraction, so the kernels round like
 # their plain PyTorch versions (csrc/megakernel.cu explains why).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,14 @@ _SIGNATURES = {
     # (params, table, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
     #  o, d, beta, alive, rad, idx, occ, stream)
     "mrt_bounce_fwd": ([_P] * 17, _I),
+    # (params, runs, table, lights, cam, pixel_ids, winner, occ,
+    #  co, cd, cbeta, crad, rows, row_part, light_part, cam_part,
+    #  d_table, d_lights, d_cam, stream)
+    "mrt_bounce0_bwd": ([_P, _I] + [_P] * 18, _I),
+    # (params, runs, table, lights, o, d, beta, alive, seeds, winner, occ,
+    #  co, cd, cbeta, crad, rows, row_part, light_part,
+    #  d_o, d_d, d_beta, d_table, d_lights, stream)
+    "mrt_bounce_bwd": ([_P, _I] + [_P] * 22, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -69,6 +78,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmrt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; return their output, or raise with the
+    first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources if their library is missing; return its path.
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
@@ -78,21 +99,18 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-I", str(CSRC), "-o", tmp] + cu
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        LAST_BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{LAST_BUILD_LOG}")
-        os.replace(tmp, out)   # atomic: a reader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, compiles = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            compiles.append([nvcc] + NVCC_FLAGS
+                            + (["-Xptxas", "-v"] if verbose else [])
+                            + ["-I", str(CSRC), "-c", "-o", objs[-1], str(src)])
+        LAST_BUILD_LOG = _run(compiles)
+        so = os.path.join(tmp, "lib.so")
+        LAST_BUILD_LOG += _run([[nvcc, "-shared", "-o", so] + objs])
+        os.replace(so, out)   # atomic: a reader never sees half a file
     return out
 
 

@@ -1,29 +1,39 @@
 """The fused bounce megakernel: one CUDA kernel per bounce, the whole
 bounce fused (closest hit, winner fetch, BRDF sampling, direct light with
-shadow rays, throughput update).
+shadow rays, throughput update), and its backward.
 
-Two kernels, written by hand in ``csrc/megakernel.cu``:
+Four kernels, written by hand in ``csrc/``:
 
 * ``bounce0_fwd`` generates the jittered camera rays and per-pixel seeds
   in-kernel and runs the first bounce (replaces the JAX package's
   ``ops/pallas/megakernel.py:_bounce0_fwd_kernel``);
 * ``bounce_fwd`` runs one bounce from the carried ray state, for bounces
-  1..B-1 (replaces ``_bounce_fwd_kernel``).
+  1..B-1 (replaces ``_bounce_fwd_kernel``);
+* ``bounce0_bwd`` and ``bounce_bwd`` are their vector-Jacobian products
+  with the winner indices and occlusion bits of the forward held fixed
+  (replace ``_bounce0_bwd_kernel`` and ``_bounce_bwd_kernel``).
 
-Each has a plain PyTorch version here, composed from ops/camera,
-ops/intersect, ops/shading, ops/brdf, ops/lights and ops/integrator. The
-wrappers run the plain version for tensors on the CPU and launch the
-kernel for tensors on a CUDA device; there is no fallback between the two.
-``LAUNCHES`` counts kernel launches (plain runs are not counted).
+Each has a plain PyTorch version here: the forward ones composed from
+ops/camera, ops/intersect, ops/shading, ops/brdf, ops/lights and
+ops/integrator, the backward ones ``torch.autograd.grad`` of a replay of
+the bounce that runs no intersection. The wrappers run the plain version
+for tensors on the CPU and launch the kernel for tensors on a CUDA
+device; there is no fallback between the two. ``LAUNCHES`` counts kernel
+launches (plain runs are not counted).
 
 Ray state is structure-of-arrays: o, d, beta and radiance as [3, R] f32,
 alive as [R] f32 (1.0 / 0.0), winner index and per-light occlusion bits
 as [R] int32, seeds as [R] int32 holding the u32 bits. Rays that are not
 alive report winner -1; occlusion bits are reported only for rays that
-stay alive (the only rays whose direct light counts).
+stay alive (the only rays whose direct light counts). Both are all the
+backward needs.
 
-Only the forward pass is ported: inputs that require grad are refused
-(the backward kernels come with the port of ``grad.py``).
+Gradients: ``_Bounce0`` and ``_Bounce`` are the ``torch.autograd.Function``
+counterparts of the JAX ``custom_vjp`` ``_bounce0`` / ``_bounce``;
+``trace_paths_mega_cam`` and ``trace_paths_mega`` go through them when an
+input requires grad, and call the forward wrappers alone otherwise. The
+triangle records (the accel) get no gradient: selection is discrete, and
+gradients reach the vertices through the winner's table row.
 """
 
 from __future__ import annotations
@@ -40,11 +50,11 @@ from .. import rng
 from ..camera import rays_from_basis, tan_half_fov
 from ..integrator import shade_hit
 from ..intersect import closest_hit_edges, occluded_edges
-from ..linalg import cross
+from ..linalg import cross, vmax
 from ..shading import winner_attributes
 from . import build
 
-LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0}
+LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0}
 
 # Scene limit of the mega path, kept equal to the JAX package's for
 # dispatch parity (there a TPU VMEM bound; re-deriving it from Hopper's
@@ -77,6 +87,11 @@ _F_SHADOW, _F_DSPEC, _F_CULL, _F_GGX, _F_SOFT = 1, 2, 4, 8, 16
 
 # Rays per chunk in the plain versions' [rays x tris] panels.
 _PLAIN_CHUNK = 1 << 16
+
+# Backward kernels: rays per block, and the cap on the table reduction's
+# [runs, T_pad, 32] partials (csrc/megakernel_bwd.cu).
+_BLOCK = 256
+_RUN_PART_FLOATS = 1 << 22
 
 
 class _Params(ctypes.Structure):
@@ -171,15 +186,12 @@ def camera_vector(camera: Camera) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Plain versions of the two kernels.
 
-def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
-                  bounce: int, cfg: RenderConfig):
-    """One bounce on [R, 3] ray state with the mega tables; returns the
-    kernel's outputs in its [3, R] / [R] layout."""
-    v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
-    best_t, best_idx = closest_hit_edges(o, d, v0, e1, e2, cfg.t_max,
-                                         cfg.backface_cull, _PLAIN_CHUNK)
-    hit = torch.isfinite(best_t)
-    rows = table_rows[torch.where(hit, best_idx, torch.zeros_like(best_idx))]
+def _shade_rows(table_rows, lights, o, d, beta, alive, seeds, idx, hit,
+                bounce: int, cfg: RenderConfig, occluder=None, occ=None):
+    """Everything after the closest hit, on the winners' table rows: the
+    (t, u, v) recompute on (v0, e1, e2), then ops/integrator.shade_hit.
+    ``occ`` replays recorded occlusion bits instead of ``occluder``."""
+    rows = table_rows[torch.where(hit, idx, torch.zeros_like(idx))]
 
     def c3(off):
         return rows[:, off:off + 3]
@@ -188,14 +200,27 @@ def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
                            c3(_N1), c3(_N2), c3(_KD), c3(_KS), c3(_KE),
                            rows[:, _NS], backface_cull=cfg.backface_cull,
                            soft_sigma=cfg.soft_edge_sigma)
+    return shade_hit(at, hit, o, d, beta, torch.zeros_like(beta), alive,
+                     seeds, bounce, unpack_lights(lights), cfg, occluder,
+                     occ_bits=occ)
+
+
+def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
+                  bounce: int, cfg: RenderConfig):
+    """One bounce on [R, 3] ray state with the mega tables; returns the
+    kernel's outputs in its [3, R] / [R] layout."""
+    v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    best_t, best_idx = closest_hit_edges(o, d, v0, e1, e2, cfg.t_max,
+                                         cfg.backface_cull, _PLAIN_CHUNK)
+    hit = torch.isfinite(best_t)
 
     def occluder(so, sd, t_limit):
         return occluded_edges(so, sd, t_limit, v0, e1, e2,
                               cfg.backface_cull, _PLAIN_CHUNK)
 
-    o_n, d_n, b_n, rad, alive_n, occ = shade_hit(
-        at, hit, o, d, beta, torch.zeros_like(beta), alive, seeds, bounce,
-        unpack_lights(lights), cfg, occluder)
+    o_n, d_n, b_n, rad, alive_n, occ = _shade_rows(
+        table_rows, lights, o, d, beta, alive, seeds, best_idx, hit, bounce,
+        cfg, occluder)
     winner = torch.where(alive & hit, best_idx, torch.full_like(best_idx, -1))
     occ = torch.where(alive_n, occ, torch.zeros_like(occ))
     return (o_n.T.contiguous(), d_n.T.contiguous(), b_n.T.contiguous(),
@@ -228,6 +253,61 @@ def bounce_fwd_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
                          alive > 0.0, rng.from_i32_bits(seeds), bounce, cfg)
 
 
+def _replay(table_rows, lights, o, d, beta, alive, seeds, winner, occ,
+            bounce: int, cfg: RenderConfig):
+    """One bounce with the forward's winners and occlusion bits frozen:
+    no intersection, [R, 3] state in, (o', d', beta', radiance) out."""
+    idx = winner.to(torch.int64)
+    o_n, d_n, b_n, rad, _, _ = _shade_rows(table_rows, lights, o, d, beta,
+                                           alive, seeds, idx, idx >= 0,
+                                           bounce, cfg, occ=occ)
+    return o_n, d_n, b_n, rad
+
+
+def _vjp(outs, inputs, cot):
+    """Cotangents [3, R] of the [R, 3] ``outs`` -> grads of ``inputs``."""
+    grads = torch.autograd.grad(outs, inputs,
+                                grad_outputs=[c.T for c in cot],
+                                allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(inputs, grads))
+
+
+def bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame: int,
+                      winner, occ, cot, cfg: RenderConfig):
+    """Plain version of the first bounce's VJP: autograd of raygen and the
+    replayed bounce. ``cot`` = cotangents of (o', d', beta', radiance),
+    each [3, R]. Returns (d_table [T_pad, 32], d_lights [L, 16],
+    d_camv [16])."""
+    with torch.enable_grad():
+        tab, lv, cv = (x.detach().requires_grad_()
+                       for x in (table_rows, lights, camv))
+        seeds = rng.pixel_seeds(pixel_ids, frame)
+        o, d = rays_from_basis(cv[_CAM_POS:_CAM_POS + 3],
+                               cv[_CAM_RIGHT:_CAM_RIGHT + 3],
+                               cv[_CAM_UP:_CAM_UP + 3],
+                               cv[_CAM_FRONT:_CAM_FRONT + 3],
+                               cfg, pixel_ids, seeds)
+        ones = torch.ones_like(d)
+        alive = torch.ones(ones.shape[:1], dtype=torch.bool, device=d.device)
+        outs = _replay(tab, lv, o, d, ones, alive, seeds, winner, occ, 0, cfg)
+        return _vjp(outs, (tab, lv, cv), cot)
+
+
+def bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds, winner,
+                     occ, cot, bounce: int, cfg: RenderConfig):
+    """Plain version of one bounce's VJP from the carried [3, R] state.
+    Returns (d_o, d_d, d_beta [3, R], d_table [T_pad, 32],
+    d_lights [L, 16]); the alive mask and the seeds carry no gradient."""
+    with torch.enable_grad():
+        tab, lv, oi, di, bi = (x.detach().requires_grad_()
+                               for x in (table_rows, lights, o, d, beta))
+        outs = _replay(tab, lv, oi.T, di.T, bi.T, alive > 0.0,
+                       rng.from_i32_bits(seeds), winner, occ, bounce, cfg)
+        g_tab, g_lv, g_o, g_d, g_b = _vjp(outs, (tab, lv, oi, di, bi), cot)
+    return g_o, g_d, g_b, g_tab, g_lv
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
@@ -243,23 +323,47 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_common(table_rows, tris, lights, cfg, device, tensors):
+def _check_tables(table_rows, lights, cfg, device, T_pad, tensors):
     for name, t in tensors.items():
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"{name} requires grad: the megakernel backward kernels are "
-                "not ported yet (ROADMAP.md Queue 1 item 4); render under "
-                "torch.no_grad() or detach the inputs")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(
+                f"{name} requires grad: a bounce wrapper alone is not "
+                "differentiable; go through trace_paths_mega_cam / "
+                "trace_paths_mega (the autograd Functions _Bounce0 and "
+                "_Bounce), or detach the inputs")
     if cfg.torch_dtype() != torch.float32:
         raise TypeError(f"the mega path renders in float32, not {cfg.dtype}")
-    T, L = tris.shape[0], lights.shape[0]
-    if not 0 < T <= _MAX_TRIS:
-        raise ValueError(f"mega path takes 1..{_MAX_TRIS} triangles, got {T}")
+    L = lights.shape[0]
     if L > _MAX_LIGHTS:
         raise ValueError(f"mega path takes at most {_MAX_LIGHTS} lights, got {L}")
-    _check(table_rows, "table_rows", torch.float32, (_tri_pad(T), _C_PAD), device)
-    _check(tris, "tris", torch.float32, (T, _TRI_COLS), device)
+    _check(table_rows, "table_rows", torch.float32, (T_pad, _C_PAD), device)
     _check(lights, "lights", torch.float32, (L, _LCOLS), device)
+
+
+def _check_common(table_rows, tris, lights, cfg, device, tensors):
+    T = tris.shape[0]
+    if not 0 < T <= _MAX_TRIS:
+        raise ValueError(f"mega path takes 1..{_MAX_TRIS} triangles, got {T}")
+    _check_tables(table_rows, lights, cfg, device, _tri_pad(T), tensors)
+    _check(tris, "tris", torch.float32, (T, _TRI_COLS), device)
+
+
+def _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot, tensors):
+    """Checks of a backward wrapper's inputs; returns T_pad."""
+    T_pad = table_rows.shape[0] if table_rows.dim() == 2 else -1
+    if not 0 < T_pad <= _tri_pad(_MAX_TRIS):
+        raise ValueError(f"table_rows has shape {tuple(table_rows.shape)}, "
+                         f"expected [T_pad <= {_tri_pad(_MAX_TRIS)}, {_C_PAD}]")
+    cot = tuple(cot)
+    if len(cot) != 4:
+        raise ValueError("cot holds the cotangents of (o, d, beta, radiance)")
+    named = dict(tensors, **{f"cot[{i}]": c for i, c in enumerate(cot)})
+    _check_tables(table_rows, lights, cfg, device, T_pad, named)
+    _check(winner, "winner", torch.int32, (R,), device)
+    _check(occ, "occ", torch.int32, (R,), device)
+    for i, c in enumerate(cot):
+        _check(c, f"cot[{i}]", torch.float32, (3, R), device)
+    return T_pad
 
 
 def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
@@ -293,11 +397,12 @@ def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
     return p
 
 
-def _launch(name: str, fn, device, params, tensors):
+def _launch(name: str, fn, device, params, tensors, *ints):
+    """Launch entry point ``fn``: (params, *ints, *tensor pointers, stream)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.addressof(params), *[t.data_ptr() for t in tensors],
-                 stream)
+        err = fn(ctypes.addressof(params), *ints,
+                 *[t.data_ptr() for t in tensors], stream)
     build.check(err, name)
     LAUNCHES[name] += 1
 
@@ -363,6 +468,140 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
     return out
 
 
+def _bwd_scratch(R: int, T_pad: int, L: int, device):
+    """Scratch of the backward kernels: per-ray table rows, the table
+    reduction's zeroed run partials and the per-block light partials;
+    returns them with the number of runs."""
+    runs = max(1, min(-(-R // _BLOCK), _RUN_PART_FLOATS // (T_pad * _C_PAD)))
+    f32 = dict(dtype=torch.float32, device=device)
+    return (runs, torch.empty((R, _C_PAD), **f32),
+            torch.zeros((runs, T_pad, _C_PAD), **f32),
+            torch.empty((-(-R // _BLOCK), L, _LCOLS), **f32))
+
+
+def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame: int, winner, occ,
+                cot, cfg: RenderConfig):
+    """VJP of ``bounce0_fwd`` with its winners and occlusion bits frozen.
+    ``cot`` = cotangents of (o', d', beta', radiance), each [3, R].
+    Returns (d_table [T_pad, 32], d_lights [L, 16], d_camv [16])."""
+    device = pixel_ids.device
+    R = pixel_ids.shape[0]
+    T_pad = _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot,
+                       {"table_rows": table_rows, "lights": lights,
+                        "camv": camv})
+    _check(camv, "camv", torch.float32, (_CAM_COLS,), device)
+    _check(pixel_ids, "pixel_ids", torch.int32, (R,), device)
+    if device.type == "cpu":
+        return bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame,
+                                 winner, occ, cot, cfg)
+    if device.type != "cuda":
+        raise ValueError(f"bounce0_bwd runs on cpu or cuda, not {device}")
+    L = lights.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    out = (torch.zeros((T_pad, _C_PAD), **f32), torch.zeros((L, _LCOLS), **f32),
+           torch.zeros((_CAM_COLS,), **f32))
+    if R:
+        runs, rows, row_part, light_part = _bwd_scratch(R, T_pad, L, device)
+        cam_part = torch.empty((light_part.shape[0], _CAM_COLS), **f32)
+        params = _params(cfg, R, T_pad, L, 0, frame)
+        _launch("bounce0_bwd", build.library().mrt_bounce0_bwd, device, params,
+                (table_rows, lights, camv, pixel_ids, winner, occ) + tuple(cot)
+                + (rows, row_part, light_part, cam_part) + out, runs)
+    return out
+
+
+def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
+               bounce: int, cfg: RenderConfig):
+    """VJP of ``bounce_fwd`` with its winners and occlusion bits frozen.
+    Returns (d_o, d_d, d_beta [3, R], d_table [T_pad, 32],
+    d_lights [L, 16]); the alive mask and the seeds carry no gradient."""
+    device = o.device
+    R = alive.shape[0]
+    T_pad = _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot,
+                       {"table_rows": table_rows, "lights": lights, "o": o,
+                        "d": d, "beta": beta})
+    for name, t in (("o", o), ("d", d), ("beta", beta)):
+        _check(t, name, torch.float32, (3, R), device)
+    _check(alive, "alive", torch.float32, (R,), device)
+    _check(seeds, "seeds", torch.int32, (R,), device)
+    if device.type == "cpu":
+        return bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds,
+                                winner, occ, cot, bounce, cfg)
+    if device.type != "cuda":
+        raise ValueError(f"bounce_bwd runs on cpu or cuda, not {device}")
+    L = lights.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    out = (torch.zeros((3, R), **f32), torch.zeros((3, R), **f32),
+           torch.zeros((3, R), **f32), torch.zeros((T_pad, _C_PAD), **f32),
+           torch.zeros((L, _LCOLS), **f32))
+    if R:
+        runs, rows, row_part, light_part = _bwd_scratch(R, T_pad, L, device)
+        params = _params(cfg, R, T_pad, L, bounce)
+        _launch("bounce_bwd", build.library().mrt_bounce_bwd, device, params,
+                (table_rows, lights, o, d, beta, alive, seeds, winner, occ)
+                + tuple(cot) + (rows, row_part, light_part) + out, runs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd: one Function per bounce (the JAX custom_vjp _bounce0 / _bounce,
+# megakernel.py:1288-1318, 1511-1550).
+
+def _cot(grads):
+    return tuple(g.contiguous() for g in grads)
+
+
+class _Bounce0(torch.autograd.Function):
+    """(table, lights, camera vector) -> bounce0_fwd's outputs; the
+    backward is bounce0_bwd."""
+
+    @staticmethod
+    def forward(ctx, table_rows, lights, camv, tris, pixel_ids, frame, cfg):
+        out = bounce0_fwd(table_rows.detach(), tris.detach(), lights.detach(),
+                          camv.detach(), pixel_ids, frame, cfg)
+        _, _, _, alive, _, winner, occ, seeds = out
+        ctx.save_for_backward(table_rows, lights, camv, pixel_ids, winner, occ)
+        ctx.frame, ctx.cfg = frame, cfg
+        ctx.mark_non_differentiable(alive, winner, occ, seeds)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, g_beta, _g_alive, g_rad, _g_w, _g_occ, _g_s):
+        table_rows, lights, camv, pixel_ids, winner, occ = ctx.saved_tensors
+        d_tab, d_lv, d_cam = bounce0_bwd(
+            table_rows.detach(), lights.detach(), camv.detach(), pixel_ids,
+            ctx.frame, winner, occ, _cot((g_o, g_d, g_beta, g_rad)), ctx.cfg)
+        return d_tab, d_lv, d_cam, None, None, None, None
+
+
+class _Bounce(torch.autograd.Function):
+    """(table, lights, o, d, beta) -> bounce_fwd's outputs; the backward is
+    bounce_bwd."""
+
+    @staticmethod
+    def forward(ctx, table_rows, lights, o, d, beta, tris, alive, seeds,
+                bounce, cfg):
+        out = bounce_fwd(table_rows.detach(), tris.detach(), lights.detach(),
+                         o.detach(), d.detach(), beta.detach(), alive, seeds,
+                         bounce, cfg)
+        _, _, _, alive_n, _, winner, occ = out
+        ctx.save_for_backward(table_rows, lights, o, d, beta, alive, seeds,
+                              winner, occ)
+        ctx.bounce, ctx.cfg = bounce, cfg
+        ctx.mark_non_differentiable(alive_n, winner, occ)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, g_beta, _g_alive, g_rad, _g_w, _g_occ):
+        table_rows, lights, o, d, beta, alive, seeds, winner, occ = \
+            ctx.saved_tensors
+        d_o, d_d, d_beta, d_tab, d_lv = bounce_bwd(
+            table_rows.detach(), lights.detach(), o.detach(), d.detach(),
+            beta.detach(), alive, seeds, winner, occ,
+            _cot((g_o, g_d, g_beta, g_rad)), ctx.bounce, ctx.cfg)
+        return d_tab, d_lv, d_o, d_d, d_beta, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # Path tracing on the kernels.
 
@@ -386,7 +625,19 @@ def _tables(scene: Scene, cfg: RenderConfig, accel):
     lv = pack_lights(scene.lights).contiguous()
     tris = (build_accel(scene.geometry) if accel is None
             else _check_accel(accel, scene.geometry))
-    return table_rows, tris, lv
+    return table_rows, tris.detach(), lv
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _bounce(grad: bool, table_rows, tris, lv, o, d, beta, alive, seeds,
+            b: int, cfg: RenderConfig):
+    if grad:
+        return _Bounce.apply(table_rows, lv, o, d, beta, tris, alive, seeds,
+                             b, cfg)
+    return bounce_fwd(table_rows, tris, lv, o, d, beta, alive, seeds, b, cfg)
 
 
 def trace_paths_mega_cam(scene: Scene, cfg: RenderConfig, camera: Camera,
@@ -394,27 +645,33 @@ def trace_paths_mega_cam(scene: Scene, cfg: RenderConfig, camera: Camera,
                          accel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(camera, pixel ids, frame) -> radiance [R, 3]: the raygen-fused
     first bounce, then ``bounce_fwd`` for bounces 1..B-1. Zero bounces
-    render black."""
+    render black. Differentiable w.r.t. the scene and the camera."""
     table_rows, tris, lv = _tables(scene, cfg, accel)
     R = pixel_ids.shape[0]
     if cfg.bounces == 0:
         return torch.zeros((R, 3), dtype=torch.float32, device=pixel_ids.device)
-    o, d, beta, alive, rad, _, _, seeds = bounce0_fwd(
-        table_rows, tris, lv, camera_vector(camera),
-        pixel_ids.to(torch.int32).contiguous(), frame, cfg)
+    camv = camera_vector(camera)
+    pid = pixel_ids.to(torch.int32).contiguous()
+    grad = _needs_grad(table_rows, lv, camv)
+    if grad:
+        out = _Bounce0.apply(table_rows, lv, camv, tris, pid, frame, cfg)
+    else:
+        out = bounce0_fwd(table_rows, tris, lv, camv, pid, frame, cfg)
+    o, d, beta, alive, rad, _, _, seeds = out
     for b in range(1, cfg.bounces):
-        o, d, beta, alive, rad_b, _, _ = bounce_fwd(
-            table_rows, tris, lv, o, d, beta, alive, seeds, b, cfg)
+        o, d, beta, alive, rad_b, _, _ = _bounce(
+            grad, table_rows, tris, lv, o, d, beta, alive, seeds, b, cfg)
         rad = rad + rad_b
     # Final clamp (kernel_bvh.cl:383).
-    return torch.clamp(rad, min=0.0).T
+    return vmax(rad, 0.0).T
 
 
 def trace_paths_mega(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
                      directions: torch.Tensor, seeds: torch.Tensor,
                      accel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ops/integrator.trace_paths on the bounce kernel:
-    origins/directions [R, 3], seeds [R] int64 u32 -> radiance [R, 3]."""
+    origins/directions [R, 3], seeds [R] int64 u32 -> radiance [R, 3].
+    Differentiable w.r.t. the scene, the origins and the directions."""
     table_rows, tris, lv = _tables(scene, cfg, accel)
     R = origins.shape[0]
     dev = origins.device
@@ -424,8 +681,9 @@ def trace_paths_mega(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
     alive = torch.ones((R,), dtype=torch.float32, device=dev)
     rad = torch.zeros((3, R), dtype=torch.float32, device=dev)
     seeds32 = rng.to_i32_bits(seeds.to(torch.int64)).contiguous()
+    grad = _needs_grad(table_rows, lv, o, d)
     for b in range(cfg.bounces):
-        o, d, beta, alive, rad_b, _, _ = bounce_fwd(
-            table_rows, tris, lv, o, d, beta, alive, seeds32, b, cfg)
+        o, d, beta, alive, rad_b, _, _ = _bounce(
+            grad, table_rows, tris, lv, o, d, beta, alive, seeds32, b, cfg)
         rad = rad + rad_b
-    return torch.clamp(rad, min=0.0).T
+    return vmax(rad, 0.0).T

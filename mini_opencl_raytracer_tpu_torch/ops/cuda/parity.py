@@ -1,11 +1,18 @@
 """The gate that holds a kernel's outputs against its plain version's on
 the same inputs (chip_smoke.py and tests/test_torch_cuda.py).
 
-Seeds bit-exact; winner indices equal on >= 99.99% of rays; every float
-output with mean |diff| <= 1e-4 and frac(|diff| > 1e-3) <= 1e-4 (the
-forward gate of benchmarks/VERIFY_TPU.md). Knife-edge decisions (a ray on
-a shared edge, a sample on a validity threshold) may flip under different
-float rounding; those flips are the gate's only allowed error.
+Forward: seeds bit-exact; winner indices equal on >= 99.99% of rays;
+every float output with mean |diff| <= 1e-4 and frac(|diff| > 1e-3) <=
+1e-4 (the forward gate of benchmarks/VERIFY_TPU.md). Knife-edge decisions
+(a ray on a shared edge, a sample on a validity threshold) may flip under
+different float rounding; those flips are the gate's only allowed error.
+
+Gradients: per-ray outputs (d_o, d_d, d_beta) take the forward gate
+scaled by s = max |plain|: mean |diff| <= 1e-4 s and frac(|diff| >
+1e-3 s) <= 1e-4. Sums over rays (d_table, d_lights, d_camv) and scene or
+camera gradients per leaf: max |diff| <= 2e-3 max |reference| (the
+gradient gate of benchmarks/VERIFY_TPU.md). Against central finite
+differences: relative error <= 5e-2. Every value must be finite.
 """
 
 from __future__ import annotations
@@ -13,7 +20,12 @@ from __future__ import annotations
 import torch
 
 MEAN_TOL, ERR_TOL, FRAC_TOL, WINNER_AGREE = 1e-4, 1e-3, 1e-4, 0.9999
+GRAD_TOL, FD_TOL = 2e-3, 5e-2
 BOUNCE_FLOATS = ("o", "d", "beta", "alive", "radiance")
+# Outputs of the backward wrappers, and which are per ray.
+BOUNCE0_GRADS = ("d_table", "d_lights", "d_camv")
+BOUNCE_GRADS = ("d_o", "d_d", "d_beta", "d_table", "d_lights")
+PER_RAY = ("d_o", "d_d", "d_beta")
 
 
 def check_float(label: str, kernel: torch.Tensor, plain: torch.Tensor) -> dict:
@@ -45,3 +57,61 @@ def check_bounce(label: str, k_out, p_out) -> dict:
         raise AssertionError(f"{label}: seeds are not bit-exact")
     stats["max_abs_err"] = max(stats[n]["max"] for n in BOUNCE_FLOATS)
     return stats
+
+
+def cotangents(next_beta: torch.Tensor, gen: torch.Generator):
+    """Seeded standard-normal cotangents of (o', d', beta', radiance), each
+    shaped like ``next_beta`` ([3, R]), on its device."""
+    return tuple(torch.randn(next_beta.shape, generator=gen,
+                             device=next_beta.device) for _ in range(4))
+
+
+def _finite(label: str, *tensors) -> None:
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite values")
+
+
+def check_grad_sum(label: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """max |diff| <= 2e-3 max |ref| for a sum over rays or a gradient
+    leaf; returns max |diff| and its ratio to max |ref|."""
+    _finite(label, got, ref)
+    err = (got.double() - ref.double()).abs().max().item() if got.numel() else 0.0
+    scale = ref.abs().max().item() if ref.numel() else 0.0
+    stats = {"max": err, "scale": scale, "rel": err / scale if scale else err}
+    if err > GRAD_TOL * scale:
+        raise AssertionError(f"{label}: gradient outside the gate {stats}")
+    return stats
+
+
+def check_grad_rays(label: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The forward gate scaled by s = max |ref| on a per-ray gradient."""
+    _finite(label, got, ref)
+    s = ref.abs().max().item()
+    err = (got.double() - ref.double()).abs()
+    stats = {"max": err.max().item(), "mean": err.mean().item(),
+             "frac": (err > ERR_TOL * s).double().mean().item(), "scale": s}
+    if not (stats["mean"] <= MEAN_TOL * s and stats["frac"] <= FRAC_TOL):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version "
+                             f"{stats}")
+    return stats
+
+
+def check_grads(label: str, k_out, p_out, names) -> dict:
+    """Gate a backward wrapper's outputs ``names`` against the plain
+    version's; returns per-output stats and ``max_abs_err``."""
+    stats = {}
+    for n, k, p in zip(names, k_out, p_out):
+        check = check_grad_rays if n in PER_RAY else check_grad_sum
+        stats[n] = check(f"{label}.{n}", k, p)
+    stats["max_abs_err"] = max(v["max"] for v in stats.values())
+    return stats
+
+
+def check_fd(label: str, ad: float, fd: float) -> float:
+    """|ad - fd| <= 5e-2 |fd|; returns the relative error."""
+    rel = abs(ad - fd) / max(abs(fd), 1e-12)
+    if not (rel <= FD_TOL and abs(fd) > 0):
+        raise AssertionError(f"{label}: autodiff {ad} vs finite difference {fd} "
+                             f"(relative error {rel})")
+    return rel

@@ -32,18 +32,22 @@ from ..models.scene import Lights, Scene
 from .brdf import sample_brdf
 from .intersect import Hit
 from .lights import direct_light
-from .linalg import dot
+from .linalg import dot, vmax
 from .shading import HitAttributes, build_shading_table, hit_attributes
 
 
 def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
               alive, seeds, bounce: int, lights: Lights, cfg: RenderConfig,
-              occluder_fn: Optional[Callable] = None):
+              occluder_fn: Optional[Callable] = None,
+              occ_bits: Optional[torch.Tensor] = None):
     """One bounce of the recurrence after the closest hit.
 
     Returns (o_next, d_next, beta_new, radiance, alive_next, occ_bits):
     ``radiance`` is the input plus this bounce's contributions, and
     ``occ_bits`` the per-light shadow-ray bitmask (0 without shadow rays).
+    With shadow rays on, ``occ_bits`` given as an input replays that
+    recorded visibility instead of calling ``occluder_fn`` (the backward
+    bounce's frozen occlusion).
     """
     sky = (torch.tensor(cfg.sky_color, dtype=cfg.torch_dtype(), device=o.device)
            * cfg.skybox_intensity)
@@ -78,7 +82,8 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     dl = direct_light(lights, at.pos, at.normal, wo, at.ns,
                       occluder_fn=occluder_fn if cfg.shadow_rays else None,
                       direct_specular=cfg.direct_specular,
-                      shadow_eps=cfg.ray_epsilon)
+                      shadow_eps=cfg.ray_epsilon,
+                      occ_bits=occ_bits if cfg.shadow_rays else None)
     direct = dl.diffuse_weight[:, None] * at.kd
     if cfg.direct_specular:
         direct = direct + dl.specular_weight[:, None] * at.ks
@@ -127,4 +132,4 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
     for bounce in range(cfg.bounces):
         carry = step(carry, bounce)
     # Final clamp (kernel_bvh.cl:383).
-    return torch.clamp(carry[3], min=0.0)
+    return vmax(carry[3], 0.0)

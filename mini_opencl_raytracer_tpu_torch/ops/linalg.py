@@ -24,15 +24,31 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         ax * by - ay * bx], dim=-1)
 
 
+def vmax(x: torch.Tensor, c: float) -> torch.Tensor:
+    """max(x, c) with ``jnp.maximum``'s gradient: at a tie each side takes
+    half (``torch.clamp`` would pass all of it to ``x``)."""
+    return torch.maximum(x, x.new_full((), c))
+
+
+def vmin(x: torch.Tensor, c: float) -> torch.Tensor:
+    """min(x, c), split at a tie like ``jnp.minimum``."""
+    return torch.minimum(x, x.new_full((), c))
+
+
+def vclip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), half the gradient at a bound."""
+    return vmin(vmax(x, lo), hi)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+    return torch.sqrt(vmax(dot(a, a), 0.0))
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize; returns a zero-safe unit vector. The inverse length
     is 1 / sqrt (both correctly rounded) rather than rsqrt, which is
     approximate on CUDA, so the plain path and the kernels agree."""
-    return a * (1.0 / torch.sqrt(torch.clamp(dot(a, a), min=eps)))[..., None]
+    return a * (1.0 / torch.sqrt(vmax(dot(a, a), eps)))[..., None]
 
 
 def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,9 @@ average from a gamma-encoded buffer every frame).
 
 Backends resolve as in the JAX package (``resolve_backend``). This port
 runs ``mega`` (the CUDA bounce kernels, or their plain versions on the
-CPU) and, on the CPU only, the ``bruteforce`` oracle. Every other
-resolution raises ``NotImplementedError``; nothing else runs instead.
+CPU) and the ``bruteforce`` oracle (plain PyTorch, on any device). Every
+other resolution raises ``NotImplementedError``; nothing else runs
+instead.
 """
 
 from __future__ import annotations
@@ -29,13 +30,13 @@ from .ops.camera import generate_rays
 from .ops.cuda import megakernel as mega_mod
 from .ops.integrator import trace_paths
 from .ops.intersect import intersect_brute, occluded_brute
+from .ops.linalg import vmax
 
 # Backends of the JAX package that are not ported yet, and where ROADMAP.md
 # queues them.
 _NOT_PORTED = {
     "pallas": "ROADMAP.md Queue 1 item 7 (panel kernel K5)",
     "bvh": "ROADMAP.md Queue 1 item 8 (ops/bvh.py)",
-    "bruteforce": "ROADMAP.md Queue 1 item 2 (brute-force oracle on the GPU)",
 }
 
 
@@ -48,7 +49,7 @@ def resolve_backend(scene: Scene, cfg: RenderConfig) -> str:
 
 
 def _require_ported(backend: str, device: torch.device) -> None:
-    if backend == "mega" or (backend == "bruteforce" and device.type == "cpu"):
+    if backend in ("mega", "bruteforce"):
         return
     where = _NOT_PORTED.get(backend)
     if where is None:
@@ -171,7 +172,7 @@ def to_image(state_or_radiance, gamma: float = 2.2) -> torch.Tensor:
     lin = (state_or_radiance.mean()
            if isinstance(state_or_radiance, RenderState)
            else state_or_radiance)
-    return torch.pow(torch.clamp(lin, min=0.0), 1.0 / gamma)
+    return torch.pow(vmax(lin, 0.0), 1.0 / gamma)
 
 
 def _accumulate_frames(scene, camera, cfg, frames, accel, device) -> RenderState:

@@ -192,11 +192,32 @@ def test_wrappers_check_inputs():
         pmk.bounce0_fwd(table, tris[:, :8].contiguous(), lv, camv, pid, 0, cfg)
     with pytest.raises(ValueError):
         pmk.bounce0_fwd(table.T, tris, lv, camv, pid, 0, cfg)
-    with pytest.raises(NotImplementedError, match="backward"):
+    # A wrapper alone is not differentiable: it refuses inputs that need
+    # grad, and trace_paths_mega_cam carries the gradient instead.
+    with pytest.raises(ValueError, match="autograd"):
         pmk.bounce0_fwd(table.clone().requires_grad_(), tris, lv, camv, pid, 0, cfg)
     out = pmk.bounce0_fwd(table, tris, lv, camv, pid, 0, cfg)
     o, d, beta, alive, _, _, _, seeds = out
     with pytest.raises(ValueError):
         pmk.bounce_fwd(table, tris, lv, o.T, d, beta, alive, seeds, 1, cfg)
-    with pytest.raises(NotImplementedError, match="backward"):
-        pmk.bounce_fwd(table, tris, lv, o.requires_grad_(), d, beta, alive, seeds, 1, cfg)
+    with pytest.raises(ValueError, match="autograd"):
+        pmk.bounce_fwd(table, tris, lv, o.clone().requires_grad_(), d, beta, alive,
+                       seeds, 1, cfg)
+    cot = (o, d, beta, o)
+    with pytest.raises(TypeError):
+        pmk.bounce_bwd(table, lv, o, d, beta, alive, seeds, out[5].long(), out[6],
+                       cot, 1, cfg)
+    with pytest.raises(ValueError):
+        pmk.bounce0_bwd(table, lv, camv, pid, 0, out[5], out[6], cot[:3], cfg)
+    # Gradients flow through trace_paths_mega_cam to the scene and camera.
+    kd = scene.materials.diffuse.clone().requires_grad_()
+    pos = P.Camera.default().position.clone().requires_grad_()
+    lit = P.Scene(scene.geometry,
+                  P.Materials(kd, *[getattr(scene.materials, k) for k in
+                                    ("specular", "emission", "roughness", "ior")]),
+                  scene.lights)
+    cam = P.Camera(pos, P.Camera.default().front, P.Camera.default().up)
+    rad = pmk.trace_paths_mega_cam(lit, cfg, cam, pid, 0)
+    g_kd, g_pos = torch.autograd.grad(rad.mean(), (kd, pos))
+    assert torch.isfinite(g_kd).all() and g_kd.abs().sum() > 0
+    assert torch.isfinite(g_pos).all() and g_pos.abs().sum() > 0

@@ -93,14 +93,28 @@ def test_unfused_raygen_matches_jax(scenes):
 
 
 def test_bruteforce_matches_jax_bruteforce(scenes):
-    """The plain integrator (backend="bruteforce", CPU only) against the
-    JAX oracle, with shadow rays and direct specular."""
+    """The plain integrator (backend="bruteforce") against the JAX oracle,
+    with shadow rays and direct specular."""
     js, ps = scenes
     kw = dict(width=16, height=16, bounces=2, backend="bruteforce",
               shadow_rays=True, direct_specular=True)
     ref = np.asarray(J.render_sample(js, J.Camera.default(), J.RenderConfig(**kw)))
     got = P.render_sample(ps, P.Camera.default(), P.RenderConfig(**kw))
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_bruteforce_renders_on_any_device(scenes):
+    """The bruteforce oracle is plain torch and runs on the test's device (a
+    CUDA device where there is one): it renders, and agrees with mega."""
+    _, ps = scenes
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    kw = dict(width=16, height=16, bounces=2, shadow_rays=True)
+    brute = P.render_sample(ps, P.Camera.default(), P.RenderConfig(backend="bruteforce", **kw),
+                            device=dev)
+    mega = P.render_sample(ps, P.Camera.default(), P.RenderConfig(backend="mega", **kw),
+                           device=dev)
+    assert brute.device.type == dev.type and brute.shape == (16, 16, 3)
+    np.testing.assert_allclose(brute.cpu().numpy(), mega.cpu().numpy(), atol=ATOL, rtol=RTOL)
 
 
 def test_zero_bounces_black_and_no_launch(scenes):
