@@ -7,18 +7,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 
 1. device: needs a CUDA device (never runs on the CPU instead); prints its
    name and ``nvidia-smi`` name and power limit;
-2. build: compiles csrc/*.cu with nvcc and prints the build time and the
-   per-kernel register / spill report;
+2. build: compiles csrc/*.cu with nvcc (one process per source, in
+   parallel) and the native SAH library with g++, and prints the build
+   times and the per-kernel register / spill report;
 3. each bounce kernel against its plain PyTorch version on the card: at
    the main path's shape (1920x1080, the tile-ordered pixel ids that
    ``render_sample`` passes, every bounce of 9), and at 512x512 for
    Cornell defaults, for two lights with shadow rays, direct specular
    and GGX, and for backface culling with soft edges;
-4. the forward render (9 bounces, 512x512) through the kernels against the
-   plain integrator on the card;
 3b. each backward kernel against its plain version on the card, with
-   seeded cotangents, and against a second run of itself (bitwise): at the main path's shape (1080p, tile-ordered ids,
-   bounces 0-8 on the forward's winners and state), at 512x512 in the
+   seeded cotangents, and against a second run of itself (bitwise): at
+   the main path's shape (1080p, tile-ordered ids, bounces 0-8 on the
+   forward's winners and state), at 512x512 in the
    three configurations of phase 3, and on a seeded soup of 2048
    triangles (the mega path's limit) at 256x256;
 4. the forward render (9 bounces, 512x512) through the kernels against the
@@ -35,11 +35,35 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 7. the slice against the oracle: ``scene_grad`` / ``camera_grad`` on mega
    against bruteforce (torch autograd) at 512x512 x 9 bounces, central
    finite differences at 256x256 x 9, and Adam steps on the diffuse
-   albedo against a 1080p target.
+   albedo against a 1080p target;
+8. the panel kernel (K5) against its plain version on Cornell: primary,
+   bounce-1 and shadow rays of the 1080p wavefront (render_sample's
+   tile-ordered ids), and the same at 512x512 with backface culling;
+9. the cluster-traversal kernel (K6) against its plain version: primary,
+   bounce-1 and shadow rays, rows included, on the bunny scene (SAH
+   layout) and the sponza scene at 512x512, and on bunny's Morton layout;
+10. path B, the wavefront on the panel: Cornell 1920x1080 x 9 with
+   ``backend="pallas"`` against the mega path (same frames; defaults, then
+   shadow rays and direct specular), its gradients at 512x512 x 9 against
+   mega's K3/K4, launch counts and ms/frame beside mega's;
+11. path A, large scenes on K6: ``build_accel`` of the bunny and sponza
+   scenes (SAH required), ``render(frames=4)`` at BASELINE config 3
+   (bunny, 512x512, 2 bounces) with launch counts, image checks, ms/frame
+   sorted and unsorted (bitwise equal images), against the plain K6 in
+   the same integrator, then bunny at 1920x1080 x 9 and sponza at
+   3840x2160 x 1 (config 5's single-GPU row);
+12. path C: ``grad.loss_and_grads`` on bunny at config 3 through K6 (all
+   leaves finite, diffuse gradient non-zero, ms/step), and a prebuilt
+   accel tracking a material update;
+13. K5 and K6 alone by CUDA events (20 launches) against their plain
+   versions (3 calls) at the paths' shapes, K6 on the bounce-1 rays in
+   pixel order, coherence-sorted and shuffled, with its Möller–Trumbore
+   tests per ray and the share of idle lanes per warp.
 
-Gates (phases 3, 3b, 4, 7): ops/cuda/parity.py.
+Gates (phases 3, 3b, 4, 7-12): ops/cuda/parity.py.
 
-The last lines are one JSON object with a summary per kernel, the card's
+The last lines are one JSON object with a summary per kernel (launches
+from the run of the path that uses it, errors, times, bound), the card's
 name and power limit, and the device line ``{"ok": true, "device": ...}``.
 """
 
@@ -52,13 +76,22 @@ import sys
 import time
 
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
-_TPU = "mini_opencl_raytracer_tpu/ops/pallas/megakernel.py:"
-KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd")
+_TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
+KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
-           "bounce_bwd": _CSRC + "megakernel_bwd.cu"}
-REPLACES = {"bounce0_fwd": _TPU + "1134", "bounce_fwd": _TPU + "1041",
-            "bounce0_bwd": _TPU + "1173", "bounce_bwd": _TPU + "1329"}
+           "bounce_bwd": _CSRC + "megakernel_bwd.cu",
+           "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu"}
+REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
+            "bounce0_bwd": _TPU + "megakernel.py:1173", "bounce_bwd": _TPU + "megakernel.py:1329",
+            "panel": _TPU + "panel.py:83", "clustered": _TPU + "clustered.py:350"}
+# The card's peaks for the bound (H100 SXM datasheet: f32 outside the
+# tensor cores, HBM3).
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Float operations of one Möller–Trumbore test (ops/intersect
+# .ray_triangle_edges: two crosses, four dots, a subtraction, a divide,
+# three products).
+MT_FLOPS = 45
 
 
 def log(msg: str) -> None:
@@ -144,8 +177,134 @@ def soup_scene(mrt, torch, device, n: int = 2048, seed: int = 3):
     base = mrt.cornell_scene(device=device)
     return mrt.Scene(geometry=geo, materials=base.materials, lights=base.lights)
 
+def events_ms(fn, count: int = 1) -> float:
+    """ms of one call of ``fn`` (which runs ``count`` units: frames,
+    steps) by CUDA events around it, divided by ``count``."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def reset_counts(*tables) -> None:
+    for table in tables:
+        for key in table:
+            table[key] = 0
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time of the work on the card: the larger of its bytes
+    over the memory rate and its operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def wavefront_rays(mrt, torch, scene, cam, cfg, closest, any_hit):
+    """The rays the wavefront integrator hands its intersector in a
+    render_sample of ``cfg`` (frame 0): primary rays in tile order; the
+    bounce-1 rays of the live paths in that order and coherence-sorted as
+    ops/integrator sorts them; the shadow rays of the primary hits toward
+    light 0 (origin, direction, t_limit)."""
+    from mini_opencl_raytracer_tpu_torch.ops import integrator, rng
+    from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
+    from mini_opencl_raytracer_tpu_torch.ops.shading import (build_shading_table,
+                                                              hit_attributes)
+    from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
+    dev = cam.position.device
+    pid = _swizzled_ids(cfg, dev)
+    seeds = rng.pixel_seeds(pid, 0)
+    o, d = generate_rays(cam, cfg, pid, seeds)
+    o = o.contiguous()
+    R = o.shape[0]
+    with torch.no_grad():
+        step = integrator.make_bounce_core(scene, cfg, closest, any_hit)
+        o1, d1, _, _, alive, _ = step((o, d, torch.ones_like(o), torch.zeros_like(o),
+                                       torch.ones((R,), dtype=torch.bool, device=dev),
+                                       seeds), 0)
+        o1, d1 = o1[alive].contiguous(), d1[alive].contiguous()
+        g = scene.geometry
+        pts = torch.cat([g.v0, g.v1, g.v2])
+        keys = integrator._ray_sort_keys(o1, d1, pts.amin(0), pts.amax(0))
+        perm = torch.sort(keys, stable=True).indices
+        h = closest(o, d)
+        at = hit_attributes(o, d, h, build_shading_table(g, scene.materials))
+        pos = at.pos[h.hit]
+        to_l = scene.lights.position[0] - pos
+        dist = torch.linalg.norm(to_l, dim=1)
+        l_unit = (to_l / dist[:, None]).contiguous()
+        shadow = ((pos + l_unit * cfg.ray_epsilon).contiguous(), l_unit,
+                  (dist - 2.0 * cfg.ray_epsilon).contiguous())
+    return {"primary": (o, d.contiguous()), "bounce1": (o1, d1),
+            "bounce1_sorted": (o1[perm].contiguous(), d1[perm].contiguous()),
+            "shadow": shadow}
+
+
+def check_intersector(label, torch, parity, closest_k, closest_p, any_k, any_p,
+                      rays, t_max) -> float:
+    """Closest hits of the primary and bounce-1 rays and occlusion of the
+    shadow rays, kernel against plain version; returns the largest
+    |diff| of the closest outputs."""
+    worst = 0.0
+    for kind in ("primary", "bounce1"):
+        o, d = rays[kind]
+        t_init = torch.full((o.shape[0],), t_max, device=o.device)
+        k, p = closest_k(o, d, t_init), closest_p(o, d, t_init)
+        torch.cuda.synchronize()
+        st = parity.check_hits(f"{label} {kind}", k, p)
+        worst = max(worst, st["max_abs_err"])
+        log(f"  {label} {kind} ({o.shape[0]} rays): winners agree "
+            f"{st['winner_agree']:.6f}, hit {st['hit_frac']:.4f}, t max/mean/frac "
+            f"{st['t']['max']:.2e}/{st['t']['mean']:.2e}/{st['t']['frac']:.2e}"
+            + (f", rows max {st['rows']['max']:.2e}" if "rows" in st else ""))
+    so, sd, tl = rays["shadow"]
+    st = parity.check_any(f"{label} shadow", any_k(so, sd, tl), any_p(so, sd, tl))
+    log(f"  {label} shadow ({so.shape[0]} rays): occlusion equal, blocked "
+        f"{st['blocked_frac']:.4f}")
+    return worst
+
+
+def plain_clustered(cl, torch, cg, cfg):
+    """The wavefront's (closest, any_hit) on K6's plain version, as
+    ops/cuda/clustered.make_intersectors builds them on the kernel."""
+    from mini_opencl_raytracer_tpu_torch.ops.intersect import Hit
+
+    def closest(o, d):
+        t_init = torch.full((o.shape[0],), cfg.t_max, device=o.device)
+        t, slot, rows = cl.run_clustered_plain(cg, o.contiguous(), d.contiguous(), t_init,
+                                               cfg.backface_cull, cg.attrs is not None)
+        hit = slot >= 0
+        tri = cg.slot_to_tri[slot.clamp(min=0).long()].long()
+        return Hit(t=t, tri_idx=torch.where(hit, tri, torch.zeros_like(tri)), hit=hit,
+                   rows=rows)
+
+    def any_hit(o, d, t_limit):
+        t_init = torch.where(torch.isfinite(t_limit), t_limit, torch.full_like(t_limit, 3e38))
+        return cl.run_clustered_plain(cg, o.contiguous(), d.contiguous(), t_init.contiguous(),
+                                      cfg.backface_cull)[1] >= 0
+
+    return closest, any_hit
+
+
+def idle_lanes(stats) -> dict:
+    """Mean Möller–Trumbore tests and cluster visits per ray, and the
+    share of idle lanes: per warp of 32 consecutive rays, 1 - mean / max
+    of the tests."""
+    import torch
+    tests = stats[:, 0].float()
+    pad = (-tests.shape[0]) % 32
+    warps = torch.nn.functional.pad(tests, (0, pad)).reshape(-1, 32)
+    busy = warps.sum() / (warps.amax(1).sum() * 32).clamp(min=1)
+    return {"tests": tests.mean().item(), "visits": stats[:, 1].float().mean().item(),
+            "total_tests": int(stats[:, 0].sum().item()), "idle": 1.0 - busy.item()}
+
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -155,8 +314,11 @@ def main() -> int:
     from mini_opencl_raytracer_tpu_torch.ops import rng
     from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
     from mini_opencl_raytracer_tpu_torch import grad
+    from mini_opencl_raytracer_tpu_torch import native
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
     from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import panel
     from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
     from mini_opencl_raytracer_tpu_torch.ops.integrator import trace_paths
     from mini_opencl_raytracer_tpu_torch.ops.intersect import (intersect_brute,
@@ -180,6 +342,11 @@ def main() -> int:
     for line in build.LAST_BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native SAH library (native/*.cpp) did not build")
+    log(f"[2 build] {native.library_path().name} (g++, native/) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 3. Each forward kernel against its plain version: at the main path's
     # shape (1080p, tile-ordered pixel ids, all 9 bounces), then at 512x512.
@@ -374,7 +541,7 @@ def main() -> int:
                             time_ms(lambda: mk.bounce0_bwd_plain(*bwd0), 3))
     times["bounce_bwd"] = (time_ms(lambda: mk.bounce_bwd(*bwd1), 20),
                            time_ms(lambda: mk.bounce_bwd_plain(*bwd1), 3))
-    for name in KERNELS:
+    for name in KERNELS[:4]:
         k_ms, p_ms = times[name]
         log(f"[5/6 time] {name} at 1080p: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
             f"({kind}; {card})")
@@ -432,11 +599,296 @@ def main() -> int:
     if not history[-1] < history[0]:
         raise AssertionError(f"Adam did not lower the loss: {history}")
 
+    # Bounds of the mega kernels at the shapes timed above (bytes: each
+    # input read once, each output written once; operations: the M-T
+    # tests of the rays that intersect; the adjoints' operations are not
+    # counted, so their bound is a lower one).
+    R_main, T_main = main_ids.numel(), tris.shape[0]
+    tab_bytes = table.numel() * 4 + tris.numel() * 4 + lv.numel() * 4
+    alive1 = int((b0[3] > 0).sum().item())
+    bounds = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, R_main * T_main * MT_FLOPS),
+              "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, alive1 * T_main * MT_FLOPS),
+              "bounce0_bwd": bound(R_main * (12 + 48) + 2 * tab_bytes, 0),
+              "bounce_bwd": bound(R_main * (52 + 48 + 36) + 2 * tab_bytes, 0)}
+    launches = {k: launches[k] for k in mk.LAUNCHES}
+
+    # 8. K5 against its plain version: the 1080p Cornell wavefront's
+    # primary, bounce-1 and shadow rays, then 512x512 with culling.
+    cornell = scene
+    tri_k5 = panel.pack_triangles(cornell.geometry)
+    max_err["panel"] = 0.0
+    for label, cfg8 in (("1920x1080", main_cfg),
+                        ("512x512 backface_cull", mrt.RenderConfig(backface_cull=True))):
+        cull = cfg8.backface_cull
+        rays_b = wavefront_rays(mrt, torch, cornell, cam, cfg8,
+                                *panel.make_intersectors(cornell.geometry, cfg8))
+        log(f"[8 kernel] panel (K5), Cornell {label}")
+        max_err["panel"] = max(max_err["panel"], check_intersector(
+            "panel", torch, parity,
+            lambda o, d, ti: panel.panel_closest(tri_k5, o, d, ti, cull),
+            lambda o, d, ti: panel.run_panel_plain(tri_k5, o, d, ti, cull),
+            lambda o, d, tl: panel.panel_any(tri_k5, o, d, tl, cull),
+            lambda o, d, tl: panel.run_panel_plain(tri_k5, o, d, tl, cull)[1] >= 0,
+            rays_b, cfg8.t_max))
+        if label == "1920x1080":
+            rays_k5 = rays_b
+
+    # 9. K6 against its plain version on the bunny and sponza scenes.
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    t0 = time.perf_counter()
+    bunny = mrt.bunny_scene(device=dev)
+    torch.cuda.synchronize()
+    t_bunny_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sponza = mrt.sponza_scene(device=dev)
+    torch.cuda.synchronize()
+    t_sponza_scene = time.perf_counter() - t0
+    accels, build_s = {}, {}
+    for name, sc in (("bunny", bunny), ("sponza", sponza)):
+        mrt.build_accel(sc, cfg3)  # warm-up: the first build loads the library
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accels[name] = mrt.build_accel(sc, cfg3)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+    max_err["clustered"] = 0.0
+    for name, sc, cg in (("bunny SAH", bunny, accels["bunny"]),
+                         ("sponza SAH", sponza, accels["sponza"]),
+                         ("bunny Morton", bunny,
+                          cl.build_clusters(bunny.geometry, materials=bunny.materials))):
+        rays_c = wavefront_rays(mrt, torch, sc, cam, cfg3,
+                                *cl.make_intersectors(sc.geometry, cfg3, accel=cg,
+                                                      materials=sc.materials))
+        log(f"[9 kernel] clustered (K6), {name} ({sc.num_triangles} triangles, "
+            f"{cg.num_slots} slots, {cg.num_supers} supers), 512x512")
+        max_err["clustered"] = max(max_err["clustered"], check_intersector(
+            "clustered", torch, parity,
+            lambda o, d, ti: cl.clustered_closest(cg, o, d, ti),
+            lambda o, d, ti: cl.run_clustered_plain(cg, o, d, ti, False, with_rows=True),
+            lambda o, d, tl: cl.clustered_any(cg, o, d, tl),
+            lambda o, d, tl: cl.run_clustered_plain(cg, o, d, tl, False)[1] >= 0,
+            rays_c, cfg3.t_max))
+        if name == "bunny SAH":
+            rays_k6 = rays_c
+
+    # 10. Path B: Cornell through the wavefront on K5 against the mega path.
+    for label, kw in (("defaults", {}),
+                      ("shadow_rays+direct_specular",
+                       dict(shadow_rays=True, direct_specular=True))):
+        cfg_b = dataclasses.replace(main_cfg, **kw)
+        with torch.no_grad():
+            img_p = mrt.render_radiance(cornell, cam, dataclasses.replace(cfg_b, backend="pallas"))
+            img_m = mrt.render_radiance(cornell, cam, cfg_b)
+        torch.cuda.synchronize()
+        log(f"[10 path B] Cornell 1920x1080x9 pallas vs mega, {label}")
+        log_stats("radiance", {"radiance": parity.check_float(
+            f"pallas vs mega, {label}", img_p, img_m)})
+    cfg_g = mrt.RenderConfig(width=512, height=512, bounces=9)
+    g_pal = grad.loss_and_grads(cornell, cam, dataclasses.replace(cfg_g, backend="pallas"),
+                                loss_fn)
+    g_meg = grad.loss_and_grads(cornell, cam, cfg_g, loss_fn)
+    worst = 0.0
+    for part, prefix in ((1, ""), (2, "camera.")):
+        ref = dict(grad._leaves(g_meg[part]))
+        for name, g in grad._leaves(g_pal[part]):
+            if g.is_floating_point():
+                worst = max(worst, parity.check_grad_sum(f"{prefix}{name} pallas vs mega",
+                                                         g, ref[name])["rel"])
+    log(f"[10 path B] loss_and_grads 512x512x9 pallas vs mega (K3/K4): loss "
+        f"{g_pal[0].item():.6f} vs {g_meg[0].item():.6f}; largest max|diff| / "
+        f"max|mega| over leaves {worst:.3e} (gate 2e-3)")
+    path_b = {}
+    for label, kw in (("defaults", {}), ("shadow_rays+direct_specular",
+                                         dict(shadow_rays=True, direct_specular=True))):
+        cfg_b = dataclasses.replace(main_cfg, **kw)
+        cfg_p = dataclasses.replace(cfg_b, backend="pallas")
+        with torch.no_grad():
+            mrt.render(cornell, cam, cfg_p, frames=1)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+            ms_p = events_ms(lambda: mrt.render(cornell, cam, cfg_p, frames=frames), frames)
+            counts = dict(panel.LAUNCHES)
+            ms_m = events_ms(lambda: mrt.render(cornell, cam, cfg_b, frames=frames), frames)
+        L = cornell.lights.count
+        expect = {"panel_closest": frames * 9,
+                  "panel_any": frames * 9 * L if cfg_b.shadow_rays else 0}
+        log(f"[10 path B] {label}: launches over {frames} frames {counts}; pallas "
+            f"{ms_p:.3f} ms/frame, mega {ms_m:.3f} ms/frame (1920x1080x9; {card})")
+        if counts != expect:
+            raise AssertionError(f"panel launches {counts}, expected {expect}")
+        path_b[label] = counts
+    launches["panel"] = sum(path_b["defaults"].values())
+
+    # 11. Path A: large scenes through K6.
+    for name, sc in (("bunny", bunny), ("sponza", sponza)):
+        cg = accels[name]
+        leaves = int((cg.cl_aabb[:cg.num_supers * cl.SUPER, 0] < 1e38).sum().item())
+        log(f"[11 path A] build_accel {name}: {sc.num_triangles} triangles, layout "
+            f"{cg.layout}, {leaves} leaves, {cg.num_supers} supers, {cg.num_slots} slots, "
+            f"{build_s[name]:.3f} s (scene {t_bunny_scene if name == 'bunny' else t_sponza_scene:.3f} s)")
+        if cg.layout != "sah":
+            raise AssertionError(f"{name}: accel layout {cg.layout}, expected sah")
+    acc3 = accels["bunny"]
+    with torch.no_grad():
+        mrt.render(bunny, cam, cfg3, frames=1, accel=acc3)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+        img3 = None
+
+        def run3():
+            nonlocal img3
+            img3 = mrt.render(bunny, cam, cfg3, frames=frames, accel=acc3)
+
+        ms3 = events_ms(run3, frames)
+        path_a = dict(cl.LAUNCHES)
+        cfg3u = dataclasses.replace(cfg3, sort_rays=False)
+        img3u = None
+
+        def run3u():
+            nonlocal img3u
+            img3u = mrt.render(bunny, cam, cfg3u, frames=frames, accel=acc3)
+
+        ms3u = events_ms(run3u, frames)
+    expect = {"clustered_closest": frames * cfg3.bounces, "clustered_any": 0}
+    log(f"[11 path A] config 3 (bunny 512x512x2, SAH accel, 4 frames): launches {path_a}; "
+        f"last launch {cl.SHAPES['clustered_closest']}")
+    if path_a != expect:
+        raise AssertionError(f"clustered launches {path_a}, expected {expect}")
+    launches["clustered"] = sum(path_a.values())
+    nonzero = (img3.amax(dim=-1) > 0).float().mean().item()
+    if (tuple(img3.shape) != (512, 512, 3) or not torch.isfinite(img3).all()
+            or (img3 < 0).any() or nonzero <= 0.5):
+        raise AssertionError(f"config 3 image: shape {tuple(img3.shape)}, nonzero {nonzero}")
+    if not torch.equal(img3, img3u):
+        raise AssertionError("sorted and unsorted wavefronts differ")
+    rays3 = cfg3.num_pixels * cfg3.bounces
+    log(f"[11 path A] config 3: nonzero {nonzero:.4f}; sorted {ms3:.3f} ms/frame, "
+        f"{rays3 / ms3 / 1e3:.2f} Mrays/s; unsorted {ms3u:.3f} ms/frame; images bitwise "
+        f"equal ({kind}; {card})")
+    pid3 = _swizzled_ids(cfg3, dev)
+    seeds3 = rng.pixel_seeds(pid3, 0)
+    o3, d3 = generate_rays(cam, cfg3, pid3, seeds3)
+    with torch.no_grad():
+        rad = [trace_paths(bunny, cfg3, o3, d3, seeds3, *intersectors)
+               for intersectors in (cl.make_intersectors(bunny.geometry, cfg3, accel=acc3,
+                                                         materials=bunny.materials),
+                                    plain_clustered(cl, torch, acc3, cfg3))]
+    torch.cuda.synchronize()
+    log("[11 path A] config 3 radiance through K6 vs the plain version, same integrator")
+    log_stats("radiance", {"radiance": parity.check_float("config 3 K6 vs plain", *rad)})
+    for name, sc, cfg_a, n in (("bunny 1920x1080x9", bunny,
+                                mrt.RenderConfig(width=1920, height=1080, bounces=9), 2),
+                               ("sponza 3840x2160x1 (config 5, one GPU)", sponza,
+                                mrt.RenderConfig(width=3840, height=2160, bounces=1), 2)):
+        acc = accels[name.split()[0]]
+        with torch.no_grad():
+            mrt.render(sc, cam, cfg_a, frames=1, accel=acc)  # warm-up
+            torch.cuda.synchronize()
+            ms = events_ms(lambda: mrt.render(sc, cam, cfg_a, frames=n, accel=acc), n)
+        log(f"[11 path A] {name}: {ms:.3f} ms/frame, "
+            f"{cfg_a.num_pixels * cfg_a.bounces / ms / 1e3:.2f} Mrays/s ({n} frames; {card})")
+
+    # 12. Path C: gradients through the wavefront on K6 at config 3.
+    grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3)  # warm-up
+    torch.cuda.synchronize()
+    steps_c = 3
+    out_c = []
+    reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+    ms_c = events_ms(lambda: out_c.extend(
+        grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3) for _ in range(steps_c)),
+        steps_c)
+    expect = {"clustered_closest": steps_c * cfg3.bounces, "clustered_any": 0}
+    if cl.LAUNCHES != expect:
+        raise AssertionError(f"path C launches {cl.LAUNCHES}, expected {expect}")
+    loss_c, gs_c, gc_c = out_c[-1]
+    for name, g in list(grad._leaves(gs_c)) + [(f"camera.{k}", v)
+                                               for k, v in grad._leaves(gc_c)]:
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"path C: gradient of {name} is not finite")
+    gkd = gs_c.materials.diffuse
+    if not bool((gkd != 0).any()):
+        raise AssertionError("path C: the diffuse gradient is zero")
+    log(f"[12 path C] loss_and_grads bunny config 3 (SAH accel): launches over {steps_c} "
+        f"steps {expect}; loss {loss_c.item():.6f}, all leaves finite, d/d diffuse "
+        f"{gkd.flatten()[:6].tolist()}; {ms_c:.3f} ms/step ({card})")
+    s2 = dataclasses.replace(bunny, materials=dataclasses.replace(
+        bunny.materials, diffuse=bunny.materials.diffuse * 0.25))
+    with torch.no_grad():
+        want = mrt.render_sample(s2, cam, cfg3, accel=mrt.build_accel(s2, cfg3))
+        got = mrt.render_sample(s2, cam, cfg3, accel=acc3)
+        base = mrt.render_sample(bunny, cam, cfg3, accel=acc3)
+    upd = (got - want).abs().max().item()
+    moved = (base - want).abs().max().item()
+    log(f"[12 path C] prebuilt accel after a material update: max |stale - fresh| "
+        f"{upd:.3e} (gate 1e-5), max |before - after| {moved:.3e} (must exceed 1e-3)")
+    if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5) and moved > 1e-3):
+        raise AssertionError("a prebuilt accel does not track material updates")
+
+    # 13. K5 and K6 alone against their plain versions at the paths' shapes.
+    t_max = main_cfg.t_max
+    full = lambda o: torch.full((o.shape[0],), t_max, device=o.device)
+    for kind_r in ("primary", "bounce1"):
+        o, d = rays_k5[kind_r]
+        ti = full(o)
+        k_ms = time_ms(lambda: panel.panel_closest(tri_k5, o, d, ti), 20)
+        p_ms = time_ms(lambda: panel.run_panel_plain(tri_k5, o, d, ti, False), 3)
+        log(f"[13 time] panel (K5) Cornell 1080p {kind_r} ({o.shape[0]} rays): kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms ({card})")
+        if kind_r == "primary":
+            T5 = cornell.num_triangles
+            times["panel"] = (k_ms, p_ms)
+            bounds["panel"] = bound(o.shape[0] * 36 + tri_k5.numel() * 4,
+                                    o.shape[0] * T5 * MT_FLOPS)
+    big_rays = wavefront_rays(mrt, torch, sponza, cam,
+                              mrt.RenderConfig(width=3840, height=2160, bounces=1),
+                              *cl.make_intersectors(sponza.geometry, cfg3,
+                                                    accel=accels["sponza"],
+                                                    materials=sponza.materials))
+    o1, d1 = rays_k6["bounce1"]
+    shuffle = torch.randperm(o1.shape[0], generator=torch.Generator(device=dev).manual_seed(5),
+                             device=dev)
+    for label, cg, (o, d) in (("config 3 primary", acc3, rays_k6["primary"]),
+                              ("config 3 bounce-1, pixel order", acc3, rays_k6["bounce1"]),
+                              ("config 3 bounce-1, sorted", acc3, rays_k6["bounce1_sorted"]),
+                              ("config 3 bounce-1, shuffled", acc3,
+                               (o1[shuffle].contiguous(), d1[shuffle].contiguous())),
+                              ("sponza 4K primary", accels["sponza"], big_rays["primary"])):
+        ti = full(o)
+        st = torch.zeros((o.shape[0], 2), dtype=torch.int32, device=dev)
+        _, slot, _ = cl.clustered_closest(cg, o, d, ti, stats=st)
+        lanes = idle_lanes(st)
+        winners = int(torch.unique(slot[slot >= 0]).numel())
+        k_ms = time_ms(lambda: cl.clustered_closest(cg, o, d, ti), 20)
+        msg = (f"[13 time] clustered (K6) {label} ({o.shape[0]} rays): kernel {k_ms:.4f} ms; "
+               f"{lanes['tests']:.1f} M-T tests and {lanes['visits']:.2f} cluster visits "
+               f"per ray, idle lanes {lanes['idle']:.3f}")
+        # Bytes: rays in (o, d, t_init), t / slot / row out, a 36-byte
+        # record per real triangle, the 24-byte boxes of the real clusters
+        # and supers, and the rows of this run's distinct winners (slot_to_tri
+        # is read only on exact ties). Operations: the M-T tests the kernel
+        # ran, all on real slots.
+        rows_bytes = 4 * cl.ATTR_COLS
+        clusters = int((cg.cl_count > 0).sum().item())
+        b6 = bound(o.shape[0] * (28 + 8 + rows_bytes) + int(cg.cl_count.sum().item()) * 36
+                   + (clusters + cg.num_supers) * 24 + winners * rows_bytes,
+                   lanes["total_tests"] * MT_FLOPS)
+        msg += (f"; {winners} distinct winners; bound {b6['bound_ms']:.4f} ms "
+                f"({b6['bound_by']})")
+        if label == "config 3 primary":
+            p_ms = time_ms(lambda: cl.run_clustered_plain(cg, o, d, ti, False, True), 3)
+            msg += f"; plain {p_ms:.3f} ms"
+            times["clustered"] = (k_ms, p_ms)
+            bounds["clustered"] = b6
+        log(msg + f" ({card})")
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": None}
         for name in KERNELS]}))
+    log(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -14,6 +14,25 @@ from typing import Optional, Tuple
 
 import torch
 
+# Where the entry points (scene and camera constructors, convert.py) put
+# their tensors when the caller names no device. The port runs on the
+# card; a caller who wants the CPU says ``device="cpu"``.
+DEFAULT_DEVICE = "cuda"
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or ``DEFAULT_DEVICE`` when it is None. Raises when the
+    default names CUDA and there is no CUDA device, so that nothing runs
+    on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    dev = torch.device(DEFAULT_DEVICE)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the default device is {DEFAULT_DEVICE!r} and there is no CUDA "
+            "device here; pass device='cpu' to build on the CPU")
+    return dev
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -72,8 +91,9 @@ class RenderConfig:
     # forward bounce for both values (the same gradients: the JAX tests
     # hold the two modes within 1e-5).
     bwd_residuals: bool = False
-    # Kept for parity with the JAX config; the sorted wavefront is not
-    # on this path.
+    # Coherence-sort the wavefront between bounces (ops/integrator.py);
+    # None = on above SORT_RAYS_MIN_TRIS triangles. Per-pixel values do
+    # not depend on it.
     sort_rays: Optional[bool] = None
     # float dtype for the compute path.
     dtype: str = "float32"

@@ -13,14 +13,17 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .config import default_device
 from .models.scene import Camera, Geometry, Lights, Materials, Scene
 
 _GROUPS = (("geometry", Geometry), ("materials", Materials), ("lights", Lights))
 
 
-def scene_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> Scene:
+def scene_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Scene:
     """Build a Scene from ``{"geometry.v0": array, ...}`` (every leaf of
-    every group is required). Arrays keep their dtypes."""
+    every group is required) on ``device`` (default
+    ``config.DEFAULT_DEVICE``). Arrays keep their dtypes."""
+    device = default_device(device)
     parts = {}
     for group, cls in _GROUPS:
         parts[group] = cls(**{
@@ -37,8 +40,9 @@ def scene_to_numpy(scene: Scene) -> Dict[str, np.ndarray]:
             for group, cls in _GROUPS for f in dataclasses.fields(cls)}
 
 
-def camera_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> Camera:
+def camera_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Camera:
     """Build a Camera from ``{"position": ..., "front": ..., "up": ...}``."""
+    device = default_device(device)
     return Camera(**{
         f.name: torch.from_numpy(np.array(arrays[f.name])).to(device)
         for f in dataclasses.fields(Camera)})

@@ -9,6 +9,8 @@ exposes exactly that smooth path to autodiff. At visibility silhouettes
 the Dirac edge term is dropped unless ``soft_edge_sigma`` > 0.
 
 ``loss_fn`` below is any scalar function of the linear radiance image.
+``accel`` is a prebuilt acceleration structure (``render.build_accel``),
+passed on to the render.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from .render import render_radiance
 
 def render_loss(scene: Scene, camera: Camera, cfg: RenderConfig,
                 loss_fn: Callable[[torch.Tensor], torch.Tensor],
-                frames: int = 1) -> torch.Tensor:
+                frames: int = 1, accel=None) -> torch.Tensor:
     """Scalar loss of the rendered linear radiance."""
-    return loss_fn(render_radiance(scene, camera, cfg, frames=frames))
+    return loss_fn(render_radiance(scene, camera, cfg, frames=frames,
+                                   accel=accel))
 
 
 def _leaves(obj, prefix=""):
@@ -82,33 +85,36 @@ class _SceneCamera:
 
 def loss_and_grads(scene: Scene, camera: Camera, cfg: RenderConfig,
                    loss_fn: Callable[[torch.Tensor], torch.Tensor],
-                   frames: int = 1) -> Tuple[torch.Tensor, Scene, Camera]:
+                   frames: int = 1, accel=None) -> Tuple[torch.Tensor, Scene, Camera]:
     """One training step's worth: the loss and its gradients w.r.t. the
     scene's and the camera's float leaves, from one forward and one
     backward pass (``scene_grad`` and ``camera_grad`` each take both)."""
     loss, g = _value_and_grad(
-        lambda sc: render_loss(sc.scene, sc.camera, cfg, loss_fn, frames=frames),
+        lambda sc: render_loss(sc.scene, sc.camera, cfg, loss_fn, frames=frames,
+                               accel=accel),
         _SceneCamera(scene, camera))
     return loss, g.scene, g.camera
 
 
 def scene_grad(scene: Scene, camera: Camera, cfg: RenderConfig,
                loss_fn: Callable[[torch.Tensor], torch.Tensor],
-               frames: int = 1) -> Scene:
+               frames: int = 1, accel=None) -> Scene:
     """d(loss)/d(scene): gradients w.r.t. every float leaf of the scene
     (vertices, normals, uvs, materials, lights)."""
     camera = Camera(**{k: v.detach() for k, v in _leaves(camera)})
     return grad_float_leaves(
-        lambda s: render_loss(s, camera, cfg, loss_fn, frames=frames), scene)
+        lambda s: render_loss(s, camera, cfg, loss_fn, frames=frames,
+                              accel=accel), scene)
 
 
 def camera_grad(scene: Scene, camera: Camera, cfg: RenderConfig,
                 loss_fn: Callable[[torch.Tensor], torch.Tensor],
-                frames: int = 1) -> Camera:
+                frames: int = 1, accel=None) -> Camera:
     """d(loss)/d(camera)."""
     scene = _rebuild(scene, {k: v.detach() for k, v in _leaves(scene)})
     return grad_float_leaves(
-        lambda c: render_loss(scene, c, cfg, loss_fn, frames=frames), camera)
+        lambda c: render_loss(scene, c, cfg, loss_fn, frames=frames,
+                              accel=accel), camera)
 
 
 def finite_difference(f: Callable[[torch.Tensor], torch.Tensor],

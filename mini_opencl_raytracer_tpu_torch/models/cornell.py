@@ -14,6 +14,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..config import default_device
 from .scene import Geometry, Lights, Materials, Scene
 
 # Material table: name -> (Kd, Ks, Ke, Ns, Ni); the six names of the
@@ -96,7 +97,8 @@ class _MeshBuilder:
         )
 
 
-def cornell_materials(dtype=torch.float32, device="cpu") -> Materials:
+def cornell_materials(dtype=torch.float32, device=None) -> Materials:
+    device = default_device(device)
     vals = [CORNELL_MATERIALS[n] for n in CORNELL_MATERIAL_NAMES]
 
     def col(i):
@@ -107,10 +109,11 @@ def cornell_materials(dtype=torch.float32, device="cpu") -> Materials:
                      roughness=col(3), ior=col(4))
 
 
-def cornell_geometry(device="cpu") -> Geometry:
+def cornell_geometry(device=None) -> Geometry:
     """Cornell room: interior x in [-8,8], y in [0,20], z in [0,17], open
     front at y=0; red left wall, green right wall, grey floor/ceiling/back;
     two boxes; emissive ceiling quad. Normals face the room interior."""
+    device = default_device(device)
     m = {n: i for i, n in enumerate(CORNELL_MATERIAL_NAMES)}
     b = _MeshBuilder()
     X, Y0, Y1, Z0, Z1 = 8.0, 0.0, 20.0, 0.0, 17.0
@@ -127,7 +130,8 @@ def cornell_geometry(device="cpu") -> Geometry:
     return b.geometry(device)
 
 
-def cornell_scene(lights: Optional[Lights] = None, device="cpu") -> Scene:
+def cornell_scene(lights: Optional[Lights] = None, device=None) -> Scene:
+    device = default_device(device)
     if lights is None:
         lights = Lights.default_point(device=device)
     return Scene(geometry=cornell_geometry(device),

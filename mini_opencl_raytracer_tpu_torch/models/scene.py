@@ -2,8 +2,9 @@
 
 The same containers and leaf names as the JAX package's
 ``models/scene.py`` (geometry, materials, camera, lights), holding torch
-tensors instead of JAX arrays. Every constructor takes an explicit
-``device``; ``to(device)`` moves a whole container.
+tensors instead of JAX arrays. Every constructor takes a ``device``,
+by default ``config.DEFAULT_DEVICE``; ``to(device)`` moves a whole
+container.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..config import default_device
 
 
 def _to(obj, device):
@@ -78,7 +81,8 @@ class Camera:
     up: torch.Tensor        # [3]
 
     @staticmethod
-    def default(dtype=torch.float32, device="cpu") -> "Camera":
+    def default(dtype=torch.float32, device=None) -> "Camera":
+        device = default_device(device)
         return Camera(
             position=torch.tensor([0.0, -25.0, 8.5], dtype=dtype, device=device),
             front=torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device),
@@ -114,9 +118,10 @@ class Lights:
         return _to(self, device)
 
     @staticmethod
-    def default_point(dtype=torch.float32, device="cpu") -> "Lights":
+    def default_point(dtype=torch.float32, device=None) -> "Lights":
         """The reference's effective point light: pos (0,-10,16),
         intensity 16, quadratic falloff 0.8 (kernel_bvh.cl:322-336)."""
+        device = default_device(device)
         t = lambda v, dt=dtype: torch.tensor(v, dtype=dt, device=device)
         return Lights(
             position=t([[0.0, -10.0, 16.0]]),
@@ -128,9 +133,10 @@ class Lights:
         )
 
     @staticmethod
-    def default_directional(dtype=torch.float32, device="cpu") -> "Lights":
+    def default_directional(dtype=torch.float32, device=None) -> "Lights":
         """The reference's directional light: dir (-0.5,0.4,-0.1),
         intensity 1 (kernel_bvh.cl:307-321)."""
+        device = default_device(device)
         t = lambda v, dt=dtype: torch.tensor(v, dtype=dt, device=device)
         return Lights(
             position=t([[0.0, -10.0, 16.0]]),

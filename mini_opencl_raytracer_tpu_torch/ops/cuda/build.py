@@ -30,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Entry points of csrc/megakernel.cu: (argtypes, restype). Every pointer,
-# the params struct and the stream are c_void_p.
+# Entry points of csrc/*.cu: (argtypes, restype). Every pointer, the
+# params struct and the stream are c_void_p.
 _SIGNATURES = {
     # (params, table, tris, lights, cam, pixel_ids,
     #  o, d, beta, alive, rad, idx, occ, seeds, stream)
@@ -47,6 +47,13 @@ _SIGNATURES = {
     #  co, cd, cbeta, crad, rows, row_part, light_part,
     #  d_o, d_d, d_beta, d_table, d_lights, stream)
     "mrt_bounce_bwd": ([_P, _I] + [_P] * 22, _I),
+    # csrc/panel.cu: (R, T, cull, any, tris, o, d, t_init, t_out, idx,
+    #  stream)
+    "mrt_panel": ([_I] * 4 + [_P] * 7, _I),
+    # csrc/clustered.cu: (R, S, cull, any, sup_aabb, cl_aabb, tris,
+    #  slot_to_tri, cl_count, attrs, o, d, t_init, t_out, slot, rows,
+    #  stats, stream)
+    "mrt_clustered": ([_I] * 4 + [_P] * 14, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 

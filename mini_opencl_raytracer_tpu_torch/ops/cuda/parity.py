@@ -3,7 +3,8 @@ the same inputs (chip_smoke.py and tests/test_torch_cuda.py).
 
 Forward: seeds bit-exact; winner indices equal on >= 99.99% of rays;
 every float output with mean |diff| <= 1e-4 and frac(|diff| > 1e-3) <=
-1e-4 (the forward gate of benchmarks/VERIFY_TPU.md). Knife-edge decisions
+1e-4 (the forward gate of benchmarks/VERIFY_TPU.md); the intersection
+kernels' any-hit occlusion exactly equal. Knife-edge decisions
 (a ray on a shared edge, a sample on a validity threshold) may flip under
 different float rounding; those flips are the gate's only allowed error.
 
@@ -57,6 +58,33 @@ def check_bounce(label: str, k_out, p_out) -> dict:
         raise AssertionError(f"{label}: seeds are not bit-exact")
     stats["max_abs_err"] = max(stats[n]["max"] for n in BOUNCE_FLOATS)
     return stats
+
+
+def check_hits(label: str, k_out, p_out) -> dict:
+    """Gate a closest-hit kernel's (t, winner[, rows]) against its plain
+    version's: winners equal on >= 99.99% of rays, t and rows under the
+    forward gate. Returns the stats and ``max_abs_err``."""
+    same = k_out[1] == p_out[1]
+    stats = {"t": check_float(f"{label}.t", k_out[0], p_out[0])}
+    if len(k_out) > 2 and k_out[2] is not None:
+        # A row belongs to its winner: compare the rows of equal winners.
+        stats["rows"] = check_float(f"{label}.rows", k_out[2][same], p_out[2][same])
+    stats["winner_agree"] = same.float().mean().item()
+    stats["hit_frac"] = (p_out[1] >= 0).float().mean().item()
+    if stats["winner_agree"] < WINNER_AGREE:
+        raise AssertionError(f"{label}: winners agree on "
+                             f"{stats['winner_agree']:.6f} < {WINNER_AGREE}")
+    stats["max_abs_err"] = max(v["max"] for v in stats.values() if isinstance(v, dict))
+    return stats
+
+
+def check_any(label: str, k_blocked: torch.Tensor, p_blocked: torch.Tensor) -> dict:
+    """An any-hit kernel's occlusion must equal its plain version's."""
+    if not torch.equal(k_blocked, p_blocked):
+        n = (k_blocked != p_blocked).sum().item()
+        raise AssertionError(f"{label}: occlusion differs on {n} of "
+                             f"{k_blocked.numel()} rays")
+    return {"blocked_frac": p_blocked.float().mean().item()}
 
 
 def cotangents(next_beta: torch.Tensor, gen: torch.Generator):

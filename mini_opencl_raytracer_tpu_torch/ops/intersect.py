@@ -11,6 +11,7 @@ megakernel keeps with a strict ``<`` across triangles.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,6 +28,11 @@ class Hit:
     t: torch.Tensor        # [R] hit distance (t_max where miss)
     tri_idx: torch.Tensor  # [R] int64 triangle index (0 where miss)
     hit: torch.Tensor      # [R] bool
+    # [R, ShadingTable.COLS] winner shading rows, zeros on misses, from
+    # intersectors that fetch them during traversal (the clustered
+    # kernel); None elsewhere. Snapshot values: ops/shading.hit_attributes
+    # gives them take_rows' gradient.
+    rows: Optional[torch.Tensor] = None
 
 
 def ray_triangle_edges(o, d, v0, e1, e2, backface_cull: bool = False):

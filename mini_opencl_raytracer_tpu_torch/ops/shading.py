@@ -4,7 +4,9 @@ read by the winning triangle's index.
 The JAX package fetches rows with a one-hot matmul because the TPU's
 gather is slow; here the fetch is an index gather (``table[idx]``), the
 plain form on a GPU. The winner's (t, u, v) are recomputed on its row and
-interpolated as kernel_bvh.cl:144-147 does.
+interpolated as kernel_bvh.cl:144-147 does. Where the intersector already
+fetched the rows (``Hit.rows``, the clustered kernel), ``_PrecomputedRows``
+uses them and gives the table the gather's gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +18,32 @@ import torch
 from ..models.scene import Geometry, Materials
 from .intersect import Hit, ray_triangle_edges
 from .linalg import normalize
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [T, C], idx [R] -> [R, C] rows (an index gather)."""
+    return table[idx]
+
+
+class _PrecomputedRows(torch.autograd.Function):
+    """``take_rows(table, idx)`` whose value a traversal kernel already
+    fetched (``krows``, Hit.rows): the forward returns ``krows`` and the
+    backward scatter-adds the cotangent rows into the table, the gather's
+    gradient (the JAX custom VJP ``_precomputed_rows``, shading.py:50-82).
+    Misses carry zero cotangents through the liveness masks. No gradient
+    reaches ``idx`` or ``krows``."""
+
+    @staticmethod
+    def forward(ctx, table, idx, krows):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return krows.clone()
+
+    @staticmethod
+    def backward(ctx, cot):
+        (idx,) = ctx.saved_tensors
+        d_table = cot.new_zeros(ctx.table_shape).index_add_(0, idx, cot)
+        return d_table, None, None
 
 
 class ShadingTable(NamedTuple):
@@ -98,8 +126,14 @@ def hit_attributes(o: torch.Tensor, d: torch.Tensor, hit: Hit,
                    st: ShadingTable, backface_cull: bool = False,
                    soft_sigma: float = 0.0) -> HitAttributes:
     """Fetch the winning triangle's row and recompute the intersection on
-    it; ``soft_sigma`` > 0 adds the soft edge coverage."""
-    rows = st.table[hit.tri_idx]
+    it; ``soft_sigma`` > 0 adds the soft edge coverage. Rows the
+    intersector fetched (``hit.rows``) are used as they are."""
+    if hit.rows is None:
+        rows = take_rows(st.table, hit.tri_idx)
+    elif st.table.requires_grad and torch.is_grad_enabled():
+        rows = _PrecomputedRows.apply(st.table, hit.tri_idx, hit.rows)
+    else:
+        rows = hit.rows
 
     def c(off, n=3):
         return rows[:, off:off + n]

@@ -9,10 +9,11 @@ and applies gamma at readout (kernel_bvh.cl:449-455 re-derives the same
 average from a gamma-encoded buffer every frame).
 
 Backends resolve as in the JAX package (``resolve_backend``). This port
-runs ``mega`` (the CUDA bounce kernels, or their plain versions on the
-CPU) and the ``bruteforce`` oracle (plain PyTorch, on any device). Every
-other resolution raises ``NotImplementedError``; nothing else runs
-instead.
+runs ``mega`` (the CUDA bounce kernels), ``pallas`` (the wavefront
+integrator on the panel kernel for small scenes and the cluster-traversal
+kernel for large ones) and the ``bruteforce`` oracle (plain PyTorch);
+on the CPU every kernel runs as its plain PyTorch version. ``bvh`` raises
+``NotImplementedError``; nothing else runs instead.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .config import RenderConfig
 from .models.scene import Camera, Scene
 from .ops import rng
 from .ops.camera import generate_rays
+from .ops.cuda import intersect as pallas_mod
 from .ops.cuda import megakernel as mega_mod
 from .ops.integrator import trace_paths
 from .ops.intersect import intersect_brute, occluded_brute
@@ -35,8 +37,7 @@ from .ops.linalg import vmax
 # Backends of the JAX package that are not ported yet, and where ROADMAP.md
 # queues them.
 _NOT_PORTED = {
-    "pallas": "ROADMAP.md Queue 1 item 7 (panel kernel K5)",
-    "bvh": "ROADMAP.md Queue 1 item 8 (ops/bvh.py)",
+    "bvh": "ROADMAP.md Queue 1 item 8 (the LBVH of ops/bvh.py)",
 }
 
 
@@ -49,7 +50,7 @@ def resolve_backend(scene: Scene, cfg: RenderConfig) -> str:
 
 
 def _require_ported(backend: str, device: torch.device) -> None:
-    if backend in ("mega", "bruteforce"):
+    if backend in ("mega", "pallas", "bruteforce"):
         return
     where = _NOT_PORTED.get(backend)
     if where is None:
@@ -58,13 +59,45 @@ def _require_ported(backend: str, device: torch.device) -> None:
         f"backend {backend!r} on {device.type} is not ported yet: {where}")
 
 
+def make_intersectors(scene: Scene, cfg: RenderConfig, accel=None,
+                      backend: Optional[str] = None):
+    """(closest_hit_fn, any_hit_fn) of the wavefront integrator for
+    ``bruteforce`` (the all-pairs oracle) or ``pallas`` (the panel and
+    cluster-traversal kernels). ``mega`` has none (the whole bounce is one
+    kernel) and resolves to ``pallas`` here, as in the JAX package."""
+    if backend is None:
+        backend = resolve_backend(scene, cfg)
+        if backend == "mega":
+            backend = "pallas"
+    _require_ported(backend, scene.device)
+    geo = scene.geometry
+    if backend == "bruteforce":
+        closest = functools.partial(
+            intersect_brute, geometry=geo, t_max=cfg.t_max,
+            backface_cull=cfg.backface_cull, ray_chunk=cfg.ray_chunk)
+        any_hit = functools.partial(
+            occluded_brute, geometry=geo,
+            backface_cull=cfg.backface_cull, ray_chunk=cfg.ray_chunk)
+        return closest, any_hit
+    if backend == "pallas":
+        return pallas_mod.make_intersectors(geo, cfg, accel=accel,
+                                            materials=scene.materials)
+    raise ValueError(f"unknown backend: {backend!r}")
+
+
 def build_accel(scene: Scene, cfg: RenderConfig):
-    """Acceleration data for the resolved backend: the [T, 9] triangle
-    records for ``mega``, None for ``bruteforce``."""
+    """Acceleration data for the resolved backend, built once per scene
+    and passed to ``render`` as ``accel``: the [T, 9] triangle records for
+    ``mega``; for ``pallas`` the clustered slot layout above 2048
+    triangles (native SAH when the C++ library builds) and None
+    below; None for ``bruteforce``."""
     backend = resolve_backend(scene, cfg)
     _require_ported(backend, scene.device)
     if backend == "mega":
         return mega_mod.build_accel(scene.geometry)
+    if backend == "pallas":
+        return pallas_mod.build_accel(scene.geometry, cfg,
+                                      materials=scene.materials)
     return None
 
 
@@ -130,13 +163,9 @@ def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
     swizzled = pixel_ids is not None
     if not swizzled:
         pixel_ids = torch.arange(R, dtype=torch.int32, device=device)
-    if backend == "bruteforce":
-        closest = functools.partial(
-            intersect_brute, geometry=scene.geometry, t_max=cfg.t_max,
-            backface_cull=cfg.backface_cull, ray_chunk=cfg.ray_chunk)
-        any_hit = functools.partial(
-            occluded_brute, geometry=scene.geometry,
-            backface_cull=cfg.backface_cull, ray_chunk=cfg.ray_chunk)
+    if backend != "mega":
+        closest, any_hit = make_intersectors(scene, cfg, accel=accel,
+                                             backend=backend)
 
     total = torch.zeros((R, 3), dtype=cfg.torch_dtype(), device=device)
     for s in range(cfg.spp):

@@ -1,24 +1,34 @@
-"""The CUDA bounce kernels (forward and backward) against their plain
-versions on a GPU.
+"""The CUDA kernels (the bounce kernels forward and backward, the panel
+and cluster-traversal intersectors) against their plain versions on a
+GPU.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
-mode). This file imports neither JAX nor the JAX package, so it runs on a
-machine without JAX; tests/conftest.py imports JAX, hence:
+mode). The one unmarked test checks, on the CPU, that a card case below
+exercises what it is meant to. This file imports neither JAX nor the JAX
+package, so it runs on a machine without JAX; tests/conftest.py imports
+JAX, hence:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Gate: ops/cuda/parity.py, the one chip_smoke.py applies (seeds bit-exact,
 winners equal on >= 99.99% of rays, every float output with mean |diff|
-<= 1e-4 and frac(|diff| > 1e-3) <= 1e-4). At 128x128 the tail bound lets
-4 of the 49152 entries of a [3, R] output differ, and the winner bound
-1 of the 16384 rays.
+<= 1e-4 and frac(|diff| > 1e-3) <= 1e-4, any-hit occlusion equal). At
+128x128 the tail bound lets 4 of the 49152 entries of a [3, R] output
+differ, and the winner bound 1 of the 16384 rays.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 import mini_opencl_raytracer_tpu_torch as P
+from mini_opencl_raytracer_tpu_torch.ops import rng
+from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
+from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
+from mini_opencl_raytracer_tpu_torch.ops.cuda import panel as ppanel
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 
 
@@ -83,3 +93,159 @@ def test_backward_kernels_match_plain_on_card(kw):
     assert pmk.LAUNCHES["bounce_bwd"] == n1["bounce_bwd"] + 1
     parity.check_grads("bounce0_bwd", k0, p0, parity.BOUNCE0_GRADS)
     parity.check_grads("bounce_bwd", k1, p1, parity.BOUNCE_GRADS)
+
+
+def _camera_and_room_rays(dev, n=16384, seed=0):
+    """Camera rays at 128x128 and seeded rays from points in the room."""
+    cfg = P.RenderConfig(width=128, height=128)
+    ids = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    o, d = generate_rays(P.Camera.default(device=dev), cfg, ids, rng.pixel_seeds(ids, 1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.tensor([-7.0, 1.0, 1.0], device=dev)
+    hi = torch.tensor([7.0, 19.0, 16.0], device=dev)
+    o2 = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
+    d2 = torch.randn((n, 3), generator=gen, device=dev)
+    d2 = d2 / torch.linalg.norm(d2, dim=1, keepdim=True)
+    return ((o.contiguous(), d.contiguous()), (o2, d2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", [False, True])
+def test_panel_kernel_matches_plain_on_card(cull):
+    """panel_closest / panel_any (K5) on Cornell against run_panel_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    tris = ppanel.pack_triangles(P.cornell_scene(device=dev).geometry)
+    for o, d in _camera_and_room_rays(dev):
+        R = o.shape[0]
+        t_init = torch.full((R,), 1e5, device=dev)
+        n0 = dict(ppanel.LAUNCHES)
+        k = ppanel.panel_closest(tris, o, d, t_init, cull)
+        p = ppanel.run_panel_plain(tris, o, d, t_init, cull)
+        limit = torch.full((R,), 6.0, device=dev)
+        k_any = ppanel.panel_any(tris, o, d, limit, cull)
+        p_any = ppanel.run_panel_plain(tris, o, d, limit, cull)[1] >= 0
+        torch.cuda.synchronize()
+        assert ppanel.LAUNCHES == {"panel_closest": n0["panel_closest"] + 1,
+                                   "panel_any": n0["panel_any"] + 1}
+        parity.check_hits("panel_closest", k, p)
+        parity.check_any("panel_any", k_any, p_any)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sah", "morton"])
+def test_clustered_kernel_matches_plain_on_card(layout):
+    """clustered_closest (rows included) / clustered_any (K6) on the
+    bunny scene at 4000 triangles against run_clustered_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    scene = P.bunny_scene(target_tris=4000, device=dev)
+    build = pcl.build_accel if layout == "sah" else pcl.build_clusters
+    cg = build(scene.geometry, materials=scene.materials)
+    for o, d in _camera_and_room_rays(dev):
+        R = o.shape[0]
+        t_init = torch.full((R,), 1e5, device=dev)
+        n0 = dict(pcl.LAUNCHES)
+        k = pcl.clustered_closest(cg, o, d, t_init)
+        p = pcl.run_clustered_plain(cg, o, d, t_init, False, with_rows=True)
+        limit = torch.full((R,), 6.0, device=dev)
+        k_any = pcl.clustered_any(cg, o, d, limit)
+        p_any = pcl.run_clustered_plain(cg, o, d, limit, False)[1] >= 0
+        torch.cuda.synchronize()
+        assert pcl.LAUNCHES == {"clustered_closest": n0["clustered_closest"] + 1,
+                                "clustered_any": n0["clustered_any"] + 1}
+        parity.check_hits("clustered_closest", k, p)
+        parity.check_any("clustered_any", k_any, p_any)
+
+
+@pytest.mark.cuda
+def test_sorted_wavefront_bitwise_on_card():
+    """The sorted and unsorted wavefronts give bitwise equal pixels on the
+    card, through the cluster-traversal kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    scene = P.bunny_scene(target_tris=4000, device=dev)
+    cam = P.Camera.default(device=dev)
+    kw = dict(width=64, height=64, bounces=4, shadow_rays=True)
+    accel = P.build_accel(scene, P.RenderConfig(**kw))
+    n0 = pcl.LAUNCHES["clustered_closest"]
+    imgs = [P.render_sample(scene, cam, P.RenderConfig(sort_rays=s, **kw), accel=accel)
+            for s in (True, False)]
+    assert pcl.LAUNCHES["clustered_closest"] == n0 + 8
+    assert torch.equal(imgs[0], imgs[1])
+
+
+# A ray starting 2.3e-4 before a tilted triangle F, next to the corner
+# that bounds F's box (float32 values): Moller-Trumbore puts the hit about
+# 1.2% of t below the slab entry of F's box, more than the cull's relative
+# slack of 1e-4.
+_F = ((2.98009991645813, -9.715656280517578, -4.385581016540527),
+      (6.7950758934021, -7.85994815826416, -7.030585289001465),
+      (-0.21197199821472168, -10.590027809143066, -7.030278205871582))
+_O = (6.792333126068115, -7.860908508300781, -7.03060245513916)
+_D = (-0.68116694688797, -0.7285225987434387, 0.07257002592086792)
+_T_DECOY = 0.000235
+
+
+def short_range_case():
+    """(geometry, accel, o, d) on the CPU: F is triangle 0, alone in
+    cluster 1; triangle 1 is a small decoy facing the ray at t = 2.35e-4,
+    between F's hit and F's box entry, alone in cluster 0, which the
+    kernel visits first. The closest hit is F; a cull bound of best t x
+    (1 + 1e-4) alone would drop F's cluster after the decoy's hit."""
+    o, d = torch.tensor([_O]), torch.tensor([_D])
+    a = torch.linalg.cross(d[0], torch.tensor([0.0, 0.0, 1.0]))
+    a = a / torch.linalg.norm(a)
+    b = torch.linalg.cross(d[0], a)
+    c = o[0] + _T_DECOY * d[0]
+    corners = [torch.stack([torch.tensor(v), w]) for v, w in
+               zip(_F, (c + 1e-3 * a, c + 1e-3 * b, c - 1e-3 * (a + b)))]
+    zeros3, zeros2 = torch.zeros((2, 3)), torch.zeros((2, 2))
+    geo = P.Geometry(v0=corners[0], v1=corners[1], v2=corners[2], n0=zeros3, n1=zeros3,
+                     n2=zeros3, uv0=zeros2, uv1=zeros2, uv2=zeros2,
+                     mat_idx=torch.zeros((2,), dtype=torch.int32))
+    leaves = (np.array([1, 0], np.int32), np.array([0, 1], np.int32),
+              np.array([1, 1], np.int32))
+    return geo, pcl.build_clusters(geo, leaf_info=leaves), o, d
+
+
+def test_short_range_case_hits_below_its_box_entry():
+    """The plain version and the oracle pick F, and the case is live: the
+    decoy's t lies between F's M-T t and F's box entry / (1 + 1e-4)."""
+    geo, cg, o, d = short_range_case()
+    h = pcl.intersect_clustered(o, d, cg, t_max=1e5)
+    brute = P.intersect_brute(o, d, geo, t_max=1e5)
+    assert h.tri_idx.item() == brute.tri_idx.item() == 0
+    assert h.t.item() == brute.t.item()
+    t_decoy = P.intersect_brute(o, d, dataclasses.replace(
+        geo, **{k: getattr(geo, k)[1:] for k in ("v0", "v1", "v2", "n0", "n1", "n2",
+                                                  "uv0", "uv1", "uv2", "mat_idx")}),
+        t_max=1e5).t.item()
+    box = cg.cl_aabb[1]
+    inv = 1.0 / d[0]
+    t1, t2 = (box[0:3] - o[0]) * inv, (box[3:6] - o[0]) * inv
+    entry = torch.minimum(t1, t2).max().clamp(min=0.0).item()
+    assert h.t.item() < t_decoy < entry / (1.0 + 1e-4)
+
+
+@pytest.mark.cuda
+def test_clustered_short_range_hit_on_card():
+    """K6 finds F, as its plain version does, though M-T puts F's hit
+    below its box's entry by more than the relative slack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _, cg, o, d = short_range_case()
+    cg = pcl.ClusteredGeometry(**{f.name: (v.to(dev) if torch.is_tensor(v) else v)
+                                  for f in dataclasses.fields(cg)
+                                  for v in [getattr(cg, f.name)]})
+    o, d = o.to(dev), d.to(dev)
+    t_init = torch.full((1,), 1e5, device=dev)
+    k_t, k_slot, _ = pcl.clustered_closest(cg, o, d, t_init)
+    p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, t_init, False)
+    torch.cuda.synchronize()
+    assert p_slot.item() == pcl.CLUSTER            # F, the first slot of cluster 1
+    assert k_slot.item() == p_slot.item() and k_t.item() == p_t.item()

@@ -137,10 +137,10 @@ def case(request):
                               jmk._bounce_cms(BOUNCE), None,
                               tuple(_flat_to_panels(c) for c in cot1), jcfg)
 
-    ps = P.scene_from_numpy(_arrays(js))
+    ps = P.scene_from_numpy(_arrays(js), device="cpu")
     port = dict(table=pmk.build_mega_table(ps.geometry, ps.materials).T.contiguous(),
                 tris=pmk.build_accel(ps.geometry), lv=pmk.pack_lights(ps.lights),
-                camv=pmk.camera_vector(P.Camera.default()),
+                camv=pmk.camera_vector(P.Camera.default(device="cpu")),
                 pid=torch.from_numpy(pid.astype(np.int32)),
                 o=torch.from_numpy(np.ascontiguousarray(j0[0])),
                 d=torch.from_numpy(np.ascontiguousarray(j0[1])),
@@ -198,7 +198,7 @@ SLICE = {
 @pytest.fixture(scope="module")
 def scenes():
     js = J.cornell_scene()
-    return js, P.scene_from_numpy(_arrays(js))
+    return js, P.scene_from_numpy(_arrays(js), device="cpu")
 
 
 def _leaf_dict(tree):
@@ -230,8 +230,8 @@ def test_scene_and_camera_grad_mega_match_jax(scenes, name):
     jloss = lambda img: jnp.mean(img)
     ploss = lambda img: img.mean()
     before = dict(pmk.LAUNCHES)
-    g_p = pgrad.scene_grad(ps, P.Camera.default(), pcfg, ploss)
-    c_p = pgrad.camera_grad(ps, P.Camera.default(), pcfg, ploss)
+    g_p = pgrad.scene_grad(ps, P.Camera.default(device="cpu"), pcfg, ploss)
+    c_p = pgrad.camera_grad(ps, P.Camera.default(device="cpu"), pcfg, ploss)
     assert pmk.LAUNCHES == before
     # The reference takes both in one trace: jgrad.scene_grad and
     # camera_grad are grad_float_leaves of this loss over either half.
@@ -248,7 +248,7 @@ def test_scene_grad_bruteforce_matches_jax(scenes):
     js, ps = scenes
     kw = dict(width=24, height=24, bounces=1, backend="bruteforce",
               specular_prob=0.0)
-    g_p = pgrad.scene_grad(ps, P.Camera.default(), P.RenderConfig(**kw),
+    g_p = pgrad.scene_grad(ps, P.Camera.default(device="cpu"), P.RenderConfig(**kw),
                            lambda img: img.sum())
     g_j = jgrad.scene_grad(js, CAM, J.RenderConfig(**kw), lambda img: jnp.sum(img))
     _compare_trees(g_p, g_j)
@@ -261,7 +261,7 @@ def test_multibounce_kd_grad_fd(scenes):
     cfg = P.RenderConfig(width=16, height=16, bounces=2)
     pix = torch.arange(cfg.num_pixels, dtype=torch.int32)
     seeds = trng.pixel_seeds(pix, 0)
-    o, d = generate_rays(P.Camera.default(), cfg, pix, seeds)
+    o, d = generate_rays(P.Camera.default(device="cpu"), cfg, pix, seeds)
     base = ps.materials.diffuse
 
     def f(val):
@@ -280,7 +280,7 @@ def test_multibounce_kd_grad_fd(scenes):
 def test_grad_float_leaves_integer_leaves_zero(scenes):
     _, ps = scenes
     cfg = P.RenderConfig(width=8, height=8, bounces=1)
-    g = pgrad.scene_grad(ps, P.Camera.default(), cfg, lambda img: img.mean())
+    g = pgrad.scene_grad(ps, P.Camera.default(device="cpu"), cfg, lambda img: img.mean())
     for leaf in (g.geometry.mat_idx, g.lights.light_type):
         assert leaf.dtype == torch.int32 and not leaf.any()
     assert isinstance(g, P.Scene)
@@ -304,7 +304,7 @@ def test_tie_gradients_match_jax():
     wo /= np.linalg.norm(wo, axis=1, keepdims=True)
     ns = np.ones(n, np.float32)
     jl = J.Lights.default_point()
-    pl = P.Lights.default_point()
+    pl = P.Lights.default_point(device="cpu")
 
     def jf(s):
         return jnp.sum(jlights.direct_light(jl, pos, normal, wo, s,
@@ -323,12 +323,12 @@ def test_tie_gradients_match_jax():
     js = js.replace(materials=js.materials.replace(
         emission=jnp.zeros_like(js.materials.emission)))
     js = js.replace(lights=js.lights.replace(intensity=jnp.zeros_like(js.lights.intensity)))
-    ps = P.scene_from_numpy(_arrays(js))
+    ps = P.scene_from_numpy(_arrays(js), device="cpu")
     kw = dict(width=8, height=8, bounces=1, sky_color=(0.0, 0.0, 0.0))
     for backend in ("bruteforce", "mega"):
         g_j = jgrad.scene_grad(js, CAM, J.RenderConfig(backend=backend, **kw),
                                lambda img: jnp.mean(img))
-        g_p = pgrad.scene_grad(ps, P.Camera.default(),
+        g_p = pgrad.scene_grad(ps, P.Camera.default(device="cpu"),
                                P.RenderConfig(backend=backend, **kw),
                                lambda img: img.mean())
         ref = np.asarray(g_j.lights.intensity)

@@ -122,12 +122,12 @@ def case(request):
                                jmk._bounce_cms(BOUNCE), jcfg)
     j1 = [_panels_to_flat(a) for a in out1]
 
-    ps = P.scene_from_numpy(_arrays(js))
+    ps = P.scene_from_numpy(_arrays(js), device="cpu")
     port = dict(
         table=pmk.build_mega_table(ps.geometry, ps.materials).T.contiguous(),
         tris=pmk.build_accel(ps.geometry),
         lv=pmk.pack_lights(ps.lights),
-        camv=pmk.camera_vector(P.Camera.default()),
+        camv=pmk.camera_vector(P.Camera.default(device="cpu")),
         pid=torch.from_numpy(pid.astype(np.int32)),
         o=torch.from_numpy(np.ascontiguousarray(j0[0])),
         d=torch.from_numpy(np.ascontiguousarray(j0[1])),
@@ -182,9 +182,9 @@ def test_bounce_fwd_plain_matches_jax(case):
 
 
 def test_wrappers_check_inputs():
-    scene, cfg = P.cornell_scene(), P.RenderConfig(width=8, height=8)
+    scene, cfg = P.cornell_scene(device="cpu"), P.RenderConfig(width=8, height=8)
     table, tris, lv = pmk._tables(scene, cfg, None)
-    camv = pmk.camera_vector(P.Camera.default())
+    camv = pmk.camera_vector(P.Camera.default(device="cpu"))
     pid = torch.arange(64, dtype=torch.int32)
     with pytest.raises(TypeError):
         pmk.bounce0_fwd(table, tris, lv, camv, pid.to(torch.int64), 0, cfg)
@@ -211,12 +211,12 @@ def test_wrappers_check_inputs():
         pmk.bounce0_bwd(table, lv, camv, pid, 0, out[5], out[6], cot[:3], cfg)
     # Gradients flow through trace_paths_mega_cam to the scene and camera.
     kd = scene.materials.diffuse.clone().requires_grad_()
-    pos = P.Camera.default().position.clone().requires_grad_()
+    pos = P.Camera.default(device="cpu").position.clone().requires_grad_()
     lit = P.Scene(scene.geometry,
                   P.Materials(kd, *[getattr(scene.materials, k) for k in
                                     ("specular", "emission", "roughness", "ior")]),
                   scene.lights)
-    cam = P.Camera(pos, P.Camera.default().front, P.Camera.default().up)
+    cam = P.Camera(pos, P.Camera.default(device="cpu").front, P.Camera.default(device="cpu").up)
     rad = pmk.trace_paths_mega_cam(lit, cfg, cam, pid, 0)
     g_kd, g_pos = torch.autograd.grad(rad.mean(), (kd, pos))
     assert torch.isfinite(g_kd).all() and g_kd.abs().sum() > 0

@@ -38,7 +38,7 @@ def _arrays(jscene):
 @pytest.fixture(scope="module")
 def scenes():
     js = J.cornell_scene()
-    return js, P.scene_from_numpy(_arrays(js))
+    return js, P.scene_from_numpy(_arrays(js), device="cpu")
 
 
 def _cfgs(size, **kw):
@@ -52,7 +52,7 @@ def test_render_sample_matches_jax(scenes, size):
     js, ps = scenes
     jc, pc = _cfgs(size)
     ref = np.asarray(J.render_sample(js, J.Camera.default(), jc, frame=3))
-    got = P.render_sample(ps, P.Camera.default(), pc, frame=3)
+    got = P.render_sample(ps, P.Camera.default(device="cpu"), pc, frame=3)
     assert got.shape == (size[1], size[0], 3)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
 
@@ -62,7 +62,7 @@ def test_render_radiance_matches_jax(scenes, size):
     js, ps = scenes
     jc, pc = _cfgs(size, spp=2)
     ref = np.asarray(J.render_radiance(js, J.Camera.default(), jc, frames=2))
-    got = P.render_radiance(ps, P.Camera.default(), pc, frames=2)
+    got = P.render_radiance(ps, P.Camera.default(device="cpu"), pc, frames=2)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
@@ -71,7 +71,7 @@ def test_render_gamma_matches_jax(scenes, size):
     js, ps = scenes
     jc, pc = _cfgs(size)
     ref = np.asarray(J.render(js, J.Camera.default(), jc, frames=2))
-    got = P.render(ps, P.Camera.default(), pc, frames=2)
+    got = P.render(ps, P.Camera.default(device="cpu"), pc, frames=2)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
     # Upright Cornell box: red wall left, green wall right.
     img = got.numpy()
@@ -88,7 +88,7 @@ def test_unfused_raygen_matches_jax(scenes):
     ref = np.asarray(J.render_sample(js, J.Camera.default(), jc, frame=1))
     accel = P.build_accel(ps, pc)
     assert tuple(accel.shape) == (36, 9)
-    got = P.render_sample(ps, P.Camera.default(), pc, frame=1, accel=accel)
+    got = P.render_sample(ps, P.Camera.default(device="cpu"), pc, frame=1, accel=accel)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
@@ -99,7 +99,7 @@ def test_bruteforce_matches_jax_bruteforce(scenes):
     kw = dict(width=16, height=16, bounces=2, backend="bruteforce",
               shadow_rays=True, direct_specular=True)
     ref = np.asarray(J.render_sample(js, J.Camera.default(), J.RenderConfig(**kw)))
-    got = P.render_sample(ps, P.Camera.default(), P.RenderConfig(**kw))
+    got = P.render_sample(ps, P.Camera.default(device="cpu"), P.RenderConfig(**kw))
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
@@ -109,9 +109,9 @@ def test_bruteforce_renders_on_any_device(scenes):
     _, ps = scenes
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     kw = dict(width=16, height=16, bounces=2, shadow_rays=True)
-    brute = P.render_sample(ps, P.Camera.default(), P.RenderConfig(backend="bruteforce", **kw),
+    brute = P.render_sample(ps, P.Camera.default(device="cpu"), P.RenderConfig(backend="bruteforce", **kw),
                             device=dev)
-    mega = P.render_sample(ps, P.Camera.default(), P.RenderConfig(backend="mega", **kw),
+    mega = P.render_sample(ps, P.Camera.default(device="cpu"), P.RenderConfig(backend="mega", **kw),
                            device=dev)
     assert brute.device.type == dev.type and brute.shape == (16, 16, 3)
     np.testing.assert_allclose(brute.cpu().numpy(), mega.cpu().numpy(), atol=ATOL, rtol=RTOL)
@@ -122,7 +122,7 @@ def test_zero_bounces_black_and_no_launch(scenes):
     before = dict(pmk.LAUNCHES)
     for backend in ("mega", "bruteforce"):
         cfg = P.RenderConfig(width=16, height=8, bounces=0, backend=backend)
-        img = P.render_sample(ps, P.Camera.default(), cfg)
+        img = P.render_sample(ps, P.Camera.default(device="cpu"), cfg)
         assert img.shape == (8, 16, 3)
         assert torch.count_nonzero(img) == 0
     assert pmk.LAUNCHES == before

@@ -15,6 +15,7 @@ import mini_opencl_raytracer_tpu as J
 from mini_opencl_raytracer_tpu.render import resolve_backend as jresolve_backend
 from mini_opencl_raytracer_tpu.ops.pallas import megakernel as jmk
 import mini_opencl_raytracer_tpu_torch as P
+from mini_opencl_raytracer_tpu_torch import grad as pgrad
 from mini_opencl_raytracer_tpu_torch.convert import scene_to_numpy
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 
@@ -44,7 +45,7 @@ def _two_lights_jax():
 @pytest.mark.parametrize("group", ["geometry", "materials", "lights"])
 def test_cornell_leaves_exact(group):
     ref = _arrays(J.cornell_scene())
-    got = scene_to_numpy(P.cornell_scene())
+    got = scene_to_numpy(P.cornell_scene(device="cpu"))
     keys = [k for k in ref if k.startswith(group + ".")]
     assert keys
     for k in keys:
@@ -53,11 +54,11 @@ def test_cornell_leaves_exact(group):
 
 
 def test_default_camera_and_lights_exact():
-    jc, pc = J.Camera.default(), P.Camera.default()
+    jc, pc = J.Camera.default(), P.Camera.default(device="cpu")
     for name in ("position", "front", "up"):
         np.testing.assert_array_equal(getattr(pc, name).numpy(),
                                       np.asarray(getattr(jc, name)))
-    jl, pl = J.Lights.default_directional(), P.Lights.default_directional()
+    jl, pl = J.Lights.default_directional(), P.Lights.default_directional(device="cpu")
     for f in dataclasses.fields(jl):
         np.testing.assert_array_equal(getattr(pl, f.name).numpy(),
                                       np.asarray(getattr(jl, f.name)))
@@ -65,7 +66,7 @@ def test_default_camera_and_lights_exact():
 
 def test_scene_from_numpy_round_trips():
     arrays = _arrays(J.cornell_scene(lights=_two_lights_jax()))
-    scene = P.scene_from_numpy(arrays)
+    scene = P.scene_from_numpy(arrays, device="cpu")
     assert scene.num_triangles == 36 and scene.lights.count == 2
     back = scene_to_numpy(scene)
     assert back.keys() == arrays.keys()
@@ -74,7 +75,8 @@ def test_scene_from_numpy_round_trips():
         np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
     cam = P.camera_from_numpy({"position": np.array([1.0, 2.0, 3.0], np.float32),
                                "front": np.array([0.0, 1.0, 0.0], np.float32),
-                               "up": np.array([0.0, 0.0, 1.0], np.float32)})
+                               "up": np.array([0.0, 0.0, 1.0], np.float32)},
+                              device="cpu")
     np.testing.assert_array_equal(cam.position.numpy(), [1.0, 2.0, 3.0])
     np.testing.assert_array_equal(cam.up.numpy(), [0.0, 0.0, 1.0])
 
@@ -82,7 +84,7 @@ def test_scene_from_numpy_round_trips():
 @pytest.mark.parametrize("two_lights", [False, True])
 def test_mega_table_and_lights_exact(two_lights):
     js = J.cornell_scene(lights=_two_lights_jax() if two_lights else None)
-    ps = P.scene_from_numpy(_arrays(js))
+    ps = P.scene_from_numpy(_arrays(js), device="cpu")
     ref_tab = np.asarray(jmk.build_mega_table(js.geometry, js.materials))
     got_tab = pmk.build_mega_table(ps.geometry, ps.materials).numpy()
     assert got_tab.shape == ref_tab.shape == (32, 40)
@@ -127,7 +129,7 @@ def _jax_scene(arrays):
 @pytest.mark.parametrize("n_tris,n_lights", [(36, 1), (2048, 30), (2049, 1), (36, 31)])
 def test_eligible_and_resolve_backend_match(n_tris, n_lights):
     arrays = _big_scene_arrays(n_tris, n_lights)
-    js, ps = _jax_scene(arrays), P.scene_from_numpy(arrays)
+    js, ps = _jax_scene(arrays), P.scene_from_numpy(arrays, device="cpu")
     for backend in ("auto", "mega", "bruteforce", "bvh", "pallas"):
         for dtype in ("float32", "bfloat16"):
             jc = J.RenderConfig(backend=backend, dtype=dtype)
@@ -136,11 +138,44 @@ def test_eligible_and_resolve_backend_match(n_tris, n_lights):
             assert P.resolve_backend(ps, pc) == jresolve_backend(js, jc)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "bvh"])
+@pytest.mark.parametrize("backend", ["bvh"])
 def test_unported_backends_raise(backend):
-    scene, cam = P.cornell_scene(), P.Camera.default()
+    scene, cam = P.cornell_scene(device="cpu"), P.Camera.default(device="cpu")
     cfg = P.RenderConfig(width=16, height=8, bounces=1, backend=backend)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.render_sample(scene, cam, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.build_accel(scene, cfg)
+
+
+def test_pallas_backend_renders_on_cpu_when_asked():
+    """backend="pallas" is ported: Cornell through the panel's plain
+    version on the CPU, asked for with device="cpu"."""
+    scene, cam = P.cornell_scene(device="cpu"), P.Camera.default(device="cpu")
+    cfg = P.RenderConfig(width=16, height=8, bounces=2, backend="pallas")
+    assert P.build_accel(scene, cfg) is None        # the panel needs none
+    img = P.render(scene, cam, cfg, frames=2)
+    assert img.device.type == "cpu" and img.shape == (8, 16, 3)
+    assert torch.isfinite(img).all() and (img.amax(-1) > 0).float().mean() > 0.5
+
+
+def test_entry_points_default_to_the_card():
+    """Every constructor takes its default device from
+    config.DEFAULT_DEVICE, "cuda"; without a CUDA device the default
+    raises instead of building on the CPU."""
+    assert P.DEFAULT_DEVICE == "cuda"
+    makers = [P.cornell_scene, P.cornell_geometry, P.cornell_materials,
+              P.Camera.default, P.Lights.default_point, P.Lights.default_directional,
+              lambda: P.bunny_scene(target_tris=400),
+              lambda: P.sponza_scene(target_tris=4000, n_objects=2),
+              lambda: P.scene_from_numpy(_arrays(J.cornell_scene())),
+              lambda: P.camera_from_numpy({k: np.zeros(3, np.float32)
+                                           for k in ("position", "front", "up")})]
+    for make in makers:
+        if torch.cuda.is_available():
+            out = make()
+            leaf = next(v for _, v in pgrad._leaves(out))
+            assert leaf.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
