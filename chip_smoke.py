@@ -20,7 +20,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    the main path's shape (1080p, tile-ordered ids, bounces 0-8 on the
    forward's winners and state), at 512x512 in the
    three configurations of phase 3, and on a seeded soup of 2048
-   triangles (the mega path's limit) at 256x256;
+   triangles (the mega path's limit) at 256x256; then the reduction
+   cases: shuffled pixel ids at 1080p (incoherent winners), a soup of 512
+   triangles (the largest table partial in shared memory), 30 lights
+   with shadow rays, a 1080p state with every ray dead, and the
+   shared-memory table branch against the global one (bitwise);
 4. the forward render (9 bounces, 512x512) through the kernels against the
    plain integrator on the card;
 5. the forward path under ``torch.no_grad()``: ``render`` of Cornell at
@@ -30,8 +34,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``mean(render_sample)`` and its gradients w.r.t. every float leaf of
    the scene and the camera (``grad.loss_and_grads``) for Cornell at
    1920x1080 with 9 bounces, with launch counts per step, finiteness, ms
-   per step and fwd+bwd rays/s; then each backward kernel's time against
-   its plain version;
+   per step and fwd+bwd rays/s; one step under ``torch.profiler``: device
+   time per kernel (K1-K4 and the backward's finishing sum) and the idle
+   share of that step; then each backward kernel's time against its plain
+   version;
 7. the slice against the oracle: ``scene_grad`` / ``camera_grad`` on mega
    against bruteforce (torch autograd) at 512x512 x 9 bounces, central
    finite differences at 256x256 x 9, and Adam steps on the diffuse
@@ -92,6 +98,21 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # .ray_triangle_edges: two crosses, four dots, a subtraction, a divide,
 # three products).
 MT_FLOPS = 45
+# Float operations of the backward of one bounce (csrc/megakernel_bwd.cu:
+# ray_adjoint, counted by hand from the source, one replay: the kernel's
+# second replay is not counted). Each +, -, *, /, min, max, compare-select,
+# sqrt, exp, log, sin, cos and pow counts one; a dot 5, a cross 9, a
+# normalize 11, a normalize's adjoint 30. Per ray with a winner: "live" =
+# the winner point (81) and its adjoint (190), the next-ray update (14),
+# emission (18), plus the BRDF sample of its lobe; per path that goes on:
+# "on" = the adjoint's head (76) and the ONB's adjoint (69), the lobe's
+# adjoint, and per light it sees the light's weight and adjoint (point 38 +
+# 121, spot 53 + 166, directional 34 + 85; direct specular 27 + 86 more);
+# soft edges 58 per live ray; K3's raygen (37) and its adjoint (48) for
+# every ray.
+ADJ_FLOPS = {"live": 303, "diffuse": 77, "blinn": 165, "ggx": 170, "on": 145,
+             "diffuse_adj": 67, "blinn_adj": 266, "ggx_adj": 282, "point": 159, "spot": 219,
+             "directional": 119, "dspec": 113, "soft": 58, "raygen": 85}
 
 
 def log(msg: str) -> None:
@@ -113,18 +134,6 @@ def log_stats(label: str, stats: dict) -> None:
         if isinstance(v, dict) else f"{k} {v:.6g}" for k, v in stats.items()))
 
 
-def two_light_scene(mrt, torch, device):
-    lights = mrt.Lights(
-        position=torch.tensor([[0.0, -10.0, 16.0], [0.0, 10.0, 16.0]], device=device),
-        direction=torch.tensor([[-0.5, 0.4, -0.1], [0.0, 0.1, -1.0]], device=device),
-        light_type=torch.tensor([mrt.LIGHT_POINT, mrt.LIGHT_SPOT], dtype=torch.int32,
-                                device=device),
-        intensity=torch.tensor([16.0, 12.0], device=device),
-        attenuation=torch.tensor([0.8, 0.05], device=device),
-        cos_cutoff=torch.tensor([0.9, 0.7], device=device))
-    return mrt.cornell_scene(lights=lights, device=device)
-
-
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean ms per call on the current stream, by CUDA events."""
     import torch
@@ -138,6 +147,37 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``, after a warm-up: CUDA events
+    around ``reps`` back-to-back calls queued behind a sleep kernel. Events
+    around calls that the card runs as the host issues them time the host
+    once a call's kernels take less than its Python (the backward
+    wrappers' do); behind the sleep the host has queued every call before
+    the card reaches the first. (torch.profiler's sums dropped kernels in
+    some windows on the H100 machine.) Raises if the host was not done
+    queueing when the sleep ended, even after longer sleeps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 1 << 25
+    for _ in range(3):
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < 0.9 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 4
+    raise AssertionError(f"device_ms: the host took {host_ms:.3f} ms to queue {reps} calls, "
+                         "longer than the sleep before them")
 
 
 def log_grads(label: str, stats: dict) -> None:
@@ -159,24 +199,6 @@ def repeatable(label: str, first, second) -> None:
         raise AssertionError(f"{label}: two runs of the kernel differ")
 
 
-def soup_scene(mrt, torch, device, n: int = 2048, seed: int = 3):
-    """A seeded soup of ``n`` triangles in front of the camera, with the
-    Cornell materials and light."""
-    import numpy as np
-    rs = np.random.default_rng(seed)
-    centers = rs.uniform([-10.0, -5.0, -2.0], [10.0, 10.0, 18.0], (n, 3))
-    corners = [centers + rs.normal(0.0, 1.0, (n, 3)) for _ in range(3)]
-    normal = np.cross(corners[1] - corners[0], corners[2] - corners[0])
-    normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-12
-    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=device)
-    zeros2 = t(np.zeros((n, 2)))
-    geo = mrt.Geometry(v0=t(corners[0]), v1=t(corners[1]), v2=t(corners[2]),
-                       n0=t(normal), n1=t(normal), n2=t(normal),
-                       uv0=zeros2, uv1=zeros2, uv2=zeros2,
-                       mat_idx=t(rs.integers(0, 6, n), torch.int32))
-    base = mrt.cornell_scene(device=device)
-    return mrt.Scene(geometry=geo, materials=base.materials, lights=base.lights)
-
 def events_ms(fn, count: int = 1) -> float:
     """ms of one call of ``fn`` (which runs ``count`` units: frames,
     steps) by CUDA events around it, divided by ``count``."""
@@ -188,6 +210,92 @@ def events_ms(fn, count: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / count
+
+
+def profile_step(torch, step, card: str) -> None:
+    """One training step under torch.profiler: device time per kernel (K1-K4,
+    the backward's finishing sum, the rest), device busy time, and the idle
+    share of that same step against its own time by CUDA events around it
+    (the profiler's host overhead included). A trace that lacks some of the
+    step's kernel launches is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    expect = {"bounce0_fwd_kernel": 1, "bounce_fwd_kernel": 8, "bounce0_bwd_kernel": 1,
+              "bounce_bwd_kernel": 8, "finish_kernel": 9}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+        ms_step = start.elapsed_time(end)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in rows) / 1e3
+        if busy == 0:
+            log("[6 profile] torch.profiler shows no device time: not measured")
+            return
+        per = {n: [0.0, 0] for n in tuple(expect) + ("other",)}
+        for e in rows:
+            n = next((n for n in expect if n + "<" in e.key or n + "(" in e.key), "other")
+            per[n][0] += dev_us(e) / 1e3
+            per[n][1] += e.count
+        whole = all(per[n][1] == c for n, c in expect.items())
+        if whole:
+            break
+        log(f"[6 profile] the trace lacks launches ({ {n: per[n][1] for n in expect} }): "
+            "taken again")
+    log(f"[6 profile] one step under the profiler: device busy {busy:.3f} ms of "
+        f"{ms_step:.3f} ms (events around it), idle share "
+        f"{max(0.0, 1.0 - busy / ms_step):.3f}; " + "; ".join(
+            f"{n} {t:.3f} ms ({c} launches)" for n, (t, c) in per.items()) + f" ({card})"
+        + ("" if whole else "; trace incomplete, busy is a lower bound"))
+    rows.sort(key=dev_us, reverse=True)
+    for e in rows[:8]:
+        log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:5d} x {e.key[:100]}")
+
+
+def adjoint_flops(torch, rng, cfg, lv, seeds, alive, winner, occ, alive_next, bounce: int,
+                  first: bool) -> int:
+    """Float operations the backward of one bounce needs on these rays:
+    one replay and its adjoint per ray with a winner, by lobe and by light
+    type (ADJ_FLOPS), raygen and its adjoint for every ray of K3."""
+    F = ADJ_FLOPS
+    n = lambda m: int(m.sum().item())
+    live = (alive > 0) & (winner >= 0)
+    on = live & (alive_next > 0)      # paths that go on: lobe and light adjoints
+    u = rng.uniform(rng.from_i32_bits(seeds), rng.bounce_site(bounce, rng.SITE_LOBE))
+    spec = u > (1.0 - cfg.specular_prob)
+    lobe = "ggx" if cfg.specular_model == "ggx" else "blinn"
+    ops = n(live) * (F["live"] + (F["soft"] if cfg.soft_edge_sigma > 0 else 0))
+    ops += n(live & ~spec) * F["diffuse"] + n(live & spec) * F[lobe]
+    ops += n(on) * F["on"] + n(on & ~spec) * F["diffuse_adj"] + n(on & spec) * F[lobe + "_adj"]
+    for li, t in enumerate(lv[:, 6].round().int().tolist()):
+        seen = on & (((occ >> li) & 1) == 0) if cfg.shadow_rays else on
+        kind = "directional" if t <= 0 else "point" if t == 1 else "spot"
+        ops += n(seen) * (F[kind] + (F["dspec"] if cfg.direct_specular else 0))
+    return ops + (alive.numel() * F["raygen"] if first else 0)
+
+
+def bwd_bytes(cfg, alive, winner, first: bool) -> int:
+    """Bytes the backward of one bounce must move on these rays, by class.
+    K4: a dead ray reads alive and the (o, d, beta) cotangents and writes
+    d(o, d, beta) (76 B); an alive ray that misses also reads its winner
+    and the radiance cotangent (92 B); a ray with a winner reads its state
+    (o, d, beta, alive, seeds, winner, and occlusion with shadow rays on)
+    and the four cotangents, and writes d(o, d, beta). K3: a miss reads its
+    pixel id, winner and the (o, d) cotangents (32 B); a ray with a winner
+    its pixel id, winner, occlusion and the four cotangents."""
+    occ = 4 if cfg.shadow_rays else 0
+    R = alive.numel()
+    live = int(((alive > 0) & (winner >= 0)).sum().item())
+    if first:
+        return (R - live) * 32 + live * (8 + occ + 48)
+    dead = int((alive <= 0).sum().item())
+    return dead * 76 + (R - dead - live) * 92 + live * (48 + occ + 48 + 36)
 
 
 def reset_counts(*tables) -> None:
@@ -359,7 +467,7 @@ def main() -> int:
               main_cfg, main_ids, 0, range(1, main_cfg.bounces)),
              ("defaults", mrt.cornell_scene(device=dev), mrt.RenderConfig(), None,
               7, (1, 2)),
-             ("2lights+shadow+dspec+ggx", two_light_scene(mrt, torch, dev),
+             ("2lights+shadow+dspec+ggx", parity.two_light_scene(dev),
               mrt.RenderConfig(shadow_rays=True, direct_specular=True,
                                specular_model="ggx"), None, 7, (1, 2)),
              ("backface_cull+soft_edge", mrt.cornell_scene(device=dev),
@@ -393,7 +501,7 @@ def main() -> int:
     # kernels' winners and state, with seeded cotangents shared by both.
     gen = torch.Generator(device=dev).manual_seed(1234)
     soup_cfg = mrt.RenderConfig(width=256, height=256)
-    bwd_cases = cases + (("soup of 2048 triangles", soup_scene(mrt, torch, dev),
+    bwd_cases = cases + (("soup of 2048 triangles", parity.soup_scene(dev),
                           soup_cfg, None, 2, (1,)),)
     for label, scene, cfg, pid, frame, bounces in bwd_cases:
         table, tris, lv = mk._tables(scene, cfg, None)
@@ -422,6 +530,56 @@ def main() -> int:
             log_grads("bounce_bwd", stats)
             max_err["bounce_bwd"] = max(max_err["bounce_bwd"], stats["max_abs_err"])
             state = f1[:4]
+
+    # 3b, reduction cases of the backward kernels: each against its plain
+    # version and a second run of itself, and, where the table partial fits
+    # shared memory, against the global-memory branch (bitwise: same order).
+    cornell = cases[0][1]
+    shuffled = parity.shuffled_ids(main_cfg.num_pixels, 11, dev)
+    red_cases = (("shuffled ids", cornell, main_cfg, shuffled, True),
+                 ("soup of 512 triangles", parity.soup_scene(dev, n=512), soup_cfg, None, True),
+                 ("30 lights + shadow rays", parity.many_light_scene(dev),
+                  mrt.RenderConfig(width=512, height=512, shadow_rays=True), None, True),
+                 ("every ray dead", cornell, main_cfg, main_ids, False))
+    for label, scene, cfg, pid, first in red_cases:
+        table, tris, lv = mk._tables(scene, cfg, None)
+        if pid is None:
+            pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+        f0 = mk.bounce0_fwd(table, tris, lv, camv, pid, 3, cfg)
+        f1 = mk.bounce_fwd(table, tris, lv, *f0[:4], f0[7], 1, cfg)
+        alive, winner = f0[3], f1[5]
+        if label == "every ray dead":
+            alive, winner = torch.zeros_like(alive), torch.full_like(winner, -1)
+        groups = f1[5].reshape(-1, 32).sort(dim=1).values
+        distinct = ((groups[:, 1:] != groups[:, :-1]) & (groups[:, 1:] >= 0)).sum(1) + (
+            groups[:, 0] >= 0)
+        T_pad = table.shape[0]
+        branch = "shared" if mk.bwd_plan(1, T_pad, 1, 1, True).smem_table else "global"
+        runs = [("bounce_bwd (bounce 1)", mk.bounce_bwd, mk.bounce_bwd_plain,
+                 (table, lv, *f0[:3], alive, f0[7], winner, f1[6],
+                  parity.cotangents(f1[2], gen), 1, cfg), parity.BOUNCE_GRADS)]
+        if first:
+            runs.insert(0, ("bounce0_bwd", mk.bounce0_bwd, mk.bounce0_bwd_plain,
+                            (table, lv, camv, pid, 3, f0[5], f0[6],
+                             parity.cotangents(f0[2], gen), cfg), parity.BOUNCE0_GRADS))
+        for name, kernel, plain, args, names in runs:
+            k, pl = kernel(*args), plain(*args)
+            repeatable(f"{name}, {label}", k, kernel(*args))
+            stats = parity.check_grads(f"{name}, {label}", k, pl, names)
+            if branch == "shared":
+                saved, mk._SMEM_ROWS = mk._SMEM_ROWS, 0
+                k_global = kernel(*args)
+                mk._SMEM_ROWS = saved
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, k_global)):
+                    raise AssertionError(f"{name}, {label}: the table branches differ")
+            log(f"[3b kernel] {name}, {label}, {cfg.width}x{cfg.height}, T_pad={T_pad} "
+                f"({branch} table{', = global branch bitwise' if branch == 'shared' else ''}); "
+                f"bounce-1 distinct live winners per 32 rays: mean "
+                f"{distinct.float().mean().item():.2f}, min {distinct.min().item()}")
+            log_grads(name, stats)
+            key = "bounce0_bwd" if name == "bounce0_bwd" else "bounce_bwd"
+            max_err[key] = max(max_err[key], stats["max_abs_err"])
 
     # 4. The forward render through the kernels against the plain integrator.
     for label, scene, cfg, _, _, _ in cases[1:]:
@@ -530,6 +688,7 @@ def main() -> int:
     rays = cfg.width * cfg.height * cfg.bounces / (ms_step * 1e-3)
     log(f"[6 train] {ms_step:.3f} ms/step, {rays / 1e6:.1f} Mrays/s fwd+bwd "
         f"(1920x1080, 9 bounces, {steps} steps; {kind}; {card})")
+    profile_step(torch, lambda: grad.loss_and_grads(scene, cam, cfg, loss_fn), card)
 
     # Backward kernel and plain version times at 1080p (main path state).
     cot0 = parity.cotangents(b0[2], gen)
@@ -537,14 +696,21 @@ def main() -> int:
     cot1 = parity.cotangents(b1[2], gen)
     bwd0 = (table, lv, camv, main_ids, 0, b0[5], b0[6], cot0, cfg)
     bwd1 = (table, lv, *state, b1[5], b1[6], cot1, 1, cfg)
-    times["bounce0_bwd"] = (time_ms(lambda: mk.bounce0_bwd(*bwd0), 20),
+    # The backward kernels by device time (the wrapper's two launches):
+    # their calls are host-bound, so events would time the host.
+    times["bounce0_bwd"] = (device_ms(lambda: mk.bounce0_bwd(*bwd0)),
                             time_ms(lambda: mk.bounce0_bwd_plain(*bwd0), 3))
-    times["bounce_bwd"] = (time_ms(lambda: mk.bounce_bwd(*bwd1), 20),
+    times["bounce_bwd"] = (device_ms(lambda: mk.bounce_bwd(*bwd1)),
                            time_ms(lambda: mk.bounce_bwd_plain(*bwd1), 3))
     for name in KERNELS[:4]:
         k_ms, p_ms = times[name]
-        log(f"[5/6 time] {name} at 1080p: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+        log(f"[5/6 time] {name} at 1080p: kernel {k_ms:.4f} ms "
+            f"({'device time' if 'bwd' in name else 'events'}), plain {p_ms:.3f} ms "
             f"({kind}; {card})")
+    for name, args in (("bounce0_bwd", bwd0), ("bounce_bwd", bwd1)):
+        fn = getattr(mk, name)
+        log(f"[5/6 time] {name} wrapper call, events over 20 back-to-back calls: "
+            f"{time_ms(lambda: fn(*args), 20):.4f} ms (host and device; {card})")
 
     # 7. The slice against the oracle, by finite differences, and in use.
     cfg7 = mrt.RenderConfig(width=512, height=512, bounces=9, ray_chunk=1 << 16)
@@ -600,16 +766,29 @@ def main() -> int:
         raise AssertionError(f"Adam did not lower the loss: {history}")
 
     # Bounds of the mega kernels at the shapes timed above (bytes: each
-    # input read once, each output written once; operations: the M-T
-    # tests of the rays that intersect; the adjoints' operations are not
-    # counted, so their bound is a lower one).
+    # input read once, each output written once, for the backward what each
+    # ray's class needs, bwd_bytes; operations: the M-T tests of the rays
+    # that intersect, and for the backward the operations its rays need,
+    # adjoint_flops).
     R_main, T_main = main_ids.numel(), tris.shape[0]
     tab_bytes = table.numel() * 4 + tris.numel() * 4 + lv.numel() * 4
     alive1 = int((b0[3] > 0).sum().item())
+    flops0 = adjoint_flops(torch, rng, cfg, lv, b0[7], torch.ones_like(b0[3]), b0[5], b0[6],
+                           b0[3], 0, True)
+    flops1 = adjoint_flops(torch, rng, cfg, lv, state[4], state[3], b1[5], b1[6], b1[3], 1,
+                           False)
+    bwd_tab_bytes = 2 * (table.numel() + lv.numel()) * 4
+    by0 = bwd_bytes(cfg, torch.ones_like(b0[3]), b0[5], True) + bwd_tab_bytes + 2 * 16 * 4
+    by1 = bwd_bytes(cfg, state[3], b1[5], False) + bwd_tab_bytes
     bounds = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, R_main * T_main * MT_FLOPS),
               "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, alive1 * T_main * MT_FLOPS),
-              "bounce0_bwd": bound(R_main * (12 + 48) + 2 * tab_bytes, 0),
-              "bounce_bwd": bound(R_main * (52 + 48 + 36) + 2 * tab_bytes, 0)}
+              "bounce0_bwd": bound(by0, flops0), "bounce_bwd": bound(by1, flops1)}
+    for name, fl, nb in (("bounce0_bwd", flops0, by0), ("bounce_bwd", flops1, by1)):
+        log(f"[6 bound] {name} at 1080p: {nb / 1e6:.2f} MB and {fl / 1e9:.4f} GFLOP needed "
+            f"({nb / R_main:.1f} B and {fl / R_main:.1f} per ray), bound "
+            f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}); kernel "
+            f"{times[name][0]:.4f} ms (bound / kernel "
+            f"{bounds[name]['bound_ms'] / times[name][0]:.1%})")
     launches = {k: launches[k] for k in mk.LAUNCHES}
 
     # 8. K5 against its plain version: the 1080p Cornell wavefront's

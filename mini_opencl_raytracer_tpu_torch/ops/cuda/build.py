@@ -39,14 +39,13 @@ _SIGNATURES = {
     # (params, table, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
     #  o, d, beta, alive, rad, idx, occ, stream)
     "mrt_bounce_fwd": ([_P] * 17, _I),
-    # (params, runs, table, lights, cam, pixel_ids, winner, occ,
-    #  co, cd, cbeta, crad, rows, row_part, light_part, cam_part,
-    #  d_table, d_lights, d_cam, stream)
-    "mrt_bounce0_bwd": ([_P, _I] + [_P] * 18, _I),
-    # (params, runs, table, lights, o, d, beta, alive, seeds, winner, occ,
-    #  co, cd, cbeta, crad, rows, row_part, light_part,
-    #  d_o, d_d, d_beta, d_table, d_lights, stream)
-    "mrt_bounce_bwd": ([_P, _I] + [_P] * 22, _I),
+    # (params, grid, smem_table, table, lights, cam, pixel_ids, winner,
+    #  occ, co, cd, cbeta, crad, part, d_table, d_lights, d_cam, stream)
+    "mrt_bounce0_bwd": ([_P] + [_I] * 2 + [_P] * 15, _I),
+    # (params, grid, smem_table, table, lights, o, d, beta, alive, seeds,
+    #  winner, occ, co, cd, cbeta, crad, part, d_o, d_d, d_beta, d_table,
+    #  d_lights, stream)
+    "mrt_bounce_bwd": ([_P] + [_I] * 2 + [_P] * 20, _I),
     # csrc/panel.cu: (R, T, cull, any, tris, o, d, t_init, t_out, idx,
     #  stream)
     "mrt_panel": ([_I] * 4 + [_P] * 7, _I),

@@ -39,7 +39,8 @@ gradients reach the vertices through the winner's table row.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -88,10 +89,12 @@ _F_SHADOW, _F_DSPEC, _F_CULL, _F_GGX, _F_SOFT = 1, 2, 4, 8, 16
 # Rays per chunk in the plain versions' [rays x tris] panels.
 _PLAIN_CHUNK = 1 << 16
 
-# Backward kernels: rays per block, and the cap on the table reduction's
-# [runs, T_pad, 32] partials (csrc/megakernel_bwd.cu).
+# Backward kernels (csrc/megakernel_bwd.cu): rays per block (kBlock),
+# resident blocks per SM (__launch_bounds__(kBlock, 2)), and the largest
+# T_pad whose table partial a block keeps in shared memory (kSmemRows).
 _BLOCK = 256
-_RUN_PART_FLOATS = 1 << 22
+_BLOCKS_PER_SM = 2
+_SMEM_ROWS = 512
 
 
 class _Params(ctypes.Structure):
@@ -468,15 +471,40 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
     return out
 
 
-def _bwd_scratch(R: int, T_pad: int, L: int, device):
-    """Scratch of the backward kernels: per-ray table rows, the table
-    reduction's zeroed run partials and the per-block light partials;
-    returns them with the number of runs."""
-    runs = max(1, min(-(-R // _BLOCK), _RUN_PART_FLOATS // (T_pad * _C_PAD)))
-    f32 = dict(dtype=torch.float32, device=device)
-    return (runs, torch.empty((R, _C_PAD), **f32),
-            torch.zeros((runs, T_pad, _C_PAD), **f32),
-            torch.empty((-(-R // _BLOCK), L, _LCOLS), **f32))
+class BwdPlan(NamedTuple):
+    """Launch plan of a backward wrapper: the persistent grid, the floats
+    of one block's partial row ([T_pad * 32 + L * 16 (+ 16 camera)]), and
+    where a block keeps its table partial."""
+
+    grid: int
+    part_cols: int
+    smem_table: bool
+
+
+def bwd_plan(R: int, T_pad: int, L: int, sms: int, first: bool) -> BwdPlan:
+    """A fixed number of blocks, ``_BLOCKS_PER_SM`` per SM but no more than
+    there are tiles of ``_BLOCK`` rays; the scratch is ``grid`` partial
+    rows, a function of T_pad, L and the grid only."""
+    grid = max(1, min(-(-R // _BLOCK), _BLOCKS_PER_SM * sms))
+    cols = T_pad * _C_PAD + L * _LCOLS + (_CAM_COLS if first else 0)
+    return BwdPlan(grid, cols, T_pad <= _SMEM_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_launch(name: str, fn, device, params, plan: BwdPlan, tensors) -> None:
+    """Launch a backward entry point with its plan and its partials."""
+    part = torch.empty((plan.grid, plan.part_cols), dtype=torch.float32,
+                       device=device)
+    _launch(name, fn, device, params, tensors[:-1] + (part,) + tensors[-1],
+            plan.grid, int(plan.smem_table))
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame: int, winner, occ,
@@ -498,15 +526,15 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame: int, winner, occ,
         raise ValueError(f"bounce0_bwd runs on cpu or cuda, not {device}")
     L = lights.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
-    out = (torch.zeros((T_pad, _C_PAD), **f32), torch.zeros((L, _LCOLS), **f32),
-           torch.zeros((_CAM_COLS,), **f32))
+    new = torch.empty if R else torch.zeros   # the kernels write every entry
+    out = (new((T_pad, _C_PAD), **f32), new((L, _LCOLS), **f32),
+           new((_CAM_COLS,), **f32))
     if R:
-        runs, rows, row_part, light_part = _bwd_scratch(R, T_pad, L, device)
-        cam_part = torch.empty((light_part.shape[0], _CAM_COLS), **f32)
-        params = _params(cfg, R, T_pad, L, 0, frame)
-        _launch("bounce0_bwd", build.library().mrt_bounce0_bwd, device, params,
-                (table_rows, lights, camv, pixel_ids, winner, occ) + tuple(cot)
-                + (rows, row_part, light_part, cam_part) + out, runs)
+        plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), True)
+        _bwd_launch("bounce0_bwd", build.library().mrt_bounce0_bwd, device,
+                    _params(cfg, R, T_pad, L, 0, frame), plan,
+                    (table_rows, lights, camv, pixel_ids, winner, occ)
+                    + tuple(cot) + (out,))
     return out
 
 
@@ -531,15 +559,15 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
         raise ValueError(f"bounce_bwd runs on cpu or cuda, not {device}")
     L = lights.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
-    out = (torch.zeros((3, R), **f32), torch.zeros((3, R), **f32),
-           torch.zeros((3, R), **f32), torch.zeros((T_pad, _C_PAD), **f32),
-           torch.zeros((L, _LCOLS), **f32))
+    new = torch.empty if R else torch.zeros   # the kernels write every entry
+    out = (new((3, R), **f32), new((3, R), **f32), new((3, R), **f32),
+           new((T_pad, _C_PAD), **f32), new((L, _LCOLS), **f32))
     if R:
-        runs, rows, row_part, light_part = _bwd_scratch(R, T_pad, L, device)
-        params = _params(cfg, R, T_pad, L, bounce)
-        _launch("bounce_bwd", build.library().mrt_bounce_bwd, device, params,
-                (table_rows, lights, o, d, beta, alive, seeds, winner, occ)
-                + tuple(cot) + (rows, row_part, light_part) + out, runs)
+        plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), False)
+        _bwd_launch("bounce_bwd", build.library().mrt_bounce_bwd, device,
+                    _params(cfg, R, T_pad, L, bounce), plan,
+                    (table_rows, lights, o, d, beta, alive, seeds, winner, occ)
+                    + tuple(cot) + (out,))
     return out
 
 

@@ -18,7 +18,12 @@ differences: relative error <= 5e-2. Every value must be finite.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ...models.cornell import cornell_scene
+from ...models.scene import (LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT,
+                             Geometry, Lights, Scene)
 
 MEAN_TOL, ERR_TOL, FRAC_TOL, WINNER_AGREE = 1e-4, 1e-3, 1e-4, 0.9999
 GRAD_TOL, FD_TOL = 2e-3, 5e-2
@@ -143,3 +148,62 @@ def check_fd(label: str, ad: float, fd: float) -> float:
         raise AssertionError(f"{label}: autodiff {ad} vs finite difference {fd} "
                              f"(relative error {rel})")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# Inputs the backward gate runs on beside Cornell's defaults (chip_smoke.py
+# phase 3b, tests/test_torch_cuda.py).
+
+def shuffled_ids(num_pixels: int, seed: int, device) -> torch.Tensor:
+    """A seeded permutation of the pixel ids: neighbouring rays start from
+    pixels far apart, so a warp's rays see many winners."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randperm(num_pixels, generator=gen).to(torch.int32).to(device)
+
+
+def _t(a, device, dtype=torch.float32):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def two_light_scene(device) -> Scene:
+    """Cornell with a point light and a spot light."""
+    lights = Lights(
+        position=_t([[0.0, -10.0, 16.0], [0.0, 10.0, 16.0]], device),
+        direction=_t([[-0.5, 0.4, -0.1], [0.0, 0.1, -1.0]], device),
+        light_type=_t([LIGHT_POINT, LIGHT_SPOT], device, torch.int32),
+        intensity=_t([16.0, 12.0], device), attenuation=_t([0.8, 0.05], device),
+        cos_cutoff=_t([0.9, 0.7], device))
+    return cornell_scene(lights=lights, device=device)
+
+
+def many_light_scene(device, n: int = 30, seed: int = 4) -> Scene:
+    """Cornell with ``n`` seeded lights (30 is the mega path's limit), point,
+    spot and directional in turn, placed in and around the box."""
+    rs = np.random.default_rng(seed)
+    kinds = np.array([LIGHT_POINT, LIGHT_SPOT, LIGHT_DIRECTIONAL])[np.arange(n) % 3]
+    lights = Lights(
+        position=_t(rs.uniform([-8.0, -12.0, 2.0], [8.0, 8.0, 16.0], (n, 3)), device),
+        direction=_t(rs.normal(0.0, 1.0, (n, 3)), device),
+        light_type=_t(kinds, device, torch.int32),
+        intensity=_t(rs.uniform(2.0, 16.0, n), device),
+        attenuation=_t(rs.uniform(0.05, 0.8, n), device),
+        cos_cutoff=_t(rs.uniform(0.5, 0.95, n), device))
+    return cornell_scene(lights=lights, device=device)
+
+
+def soup_scene(device, n: int = 2048, seed: int = 3) -> Scene:
+    """A seeded soup of ``n`` triangles in front of the camera, with the
+    Cornell materials and light."""
+    rs = np.random.default_rng(seed)
+    centers = rs.uniform([-10.0, -5.0, -2.0], [10.0, 10.0, 18.0], (n, 3))
+    corners = [centers + rs.normal(0.0, 1.0, (n, 3)) for _ in range(3)]
+    normal = np.cross(corners[1] - corners[0], corners[2] - corners[0])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-12
+    zeros2 = _t(np.zeros((n, 2)), device)
+    geo = Geometry(v0=_t(corners[0], device), v1=_t(corners[1], device),
+                   v2=_t(corners[2], device), n0=_t(normal, device),
+                   n1=_t(normal, device), n2=_t(normal, device),
+                   uv0=zeros2, uv1=zeros2, uv2=zeros2,
+                   mat_idx=_t(rs.integers(0, 6, n), device, torch.int32))
+    base = cornell_scene(device=device)
+    return Scene(geometry=geo, materials=base.materials, lights=base.lights)

@@ -3,8 +3,9 @@ and cluster-traversal intersectors) against their plain versions on a
 GPU.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
-mode). The one unmarked test checks, on the CPU, that a card case below
-exercises what it is meant to. This file imports neither JAX nor the JAX
+mode). The unmarked tests check, on the CPU, that the card cases below
+exercise what they are meant to, and the backward wrappers' launch plan.
+This file imports neither JAX nor the JAX
 package, so it runs on a machine without JAX; tests/conftest.py imports
 JAX, hence:
 
@@ -30,6 +31,7 @@ from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import panel as ppanel
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
+from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
 
 
 @pytest.mark.cuda
@@ -93,6 +95,135 @@ def test_backward_kernels_match_plain_on_card(kw):
     assert pmk.LAUNCHES["bounce_bwd"] == n1["bounce_bwd"] + 1
     parity.check_grads("bounce0_bwd", k0, p0, parity.BOUNCE0_GRADS)
     parity.check_grads("bounce_bwd", k1, p1, parity.BOUNCE_GRADS)
+
+
+# The backward kernels' reduction cases: (scene, cfg, pixel ids, bounce
+# whose state is killed). 16:9 like the main path, so many primary rays see
+# the sky.
+_W, _H = 128, 72
+REDUCTION_CASES = ("shuffled", "soup2048", "soup512", "dead", "lights30")
+
+
+def _reduction_case(name, dev):
+    cfg = P.RenderConfig(width=_W, height=_H)
+    ids = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    if name == "shuffled":
+        return P.cornell_scene(device=dev), cfg, parity.shuffled_ids(cfg.num_pixels, 11, dev)
+    if name.startswith("soup"):
+        return parity.soup_scene(dev, n=int(name[4:])), cfg, ids
+    if name == "lights30":
+        return parity.many_light_scene(dev), dataclasses.replace(cfg, shadow_rays=True), ids
+    return P.cornell_scene(device=dev), cfg, ids   # dead: bounce 1 with no ray alive
+
+
+def _bwd_inputs(name, dev):
+    """Forward state, winners and seeded cotangents of a reduction case:
+    (args of bounce0_bwd, args of bounce_bwd at bounce 1)."""
+    scene, cfg, pid = _reduction_case(name, dev)
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    camv = pmk.camera_vector(P.Camera.default(device=dev))
+    f0 = pmk.bounce0_fwd_plain(table, tris, lv, camv, pid, 1, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args0 = (table, lv, camv, pid, 1, f0[5], f0[6], parity.cotangents(f0[2], gen), cfg)
+    f1 = pmk.bounce_fwd_plain(table, tris, lv, f0[0], f0[1], f0[2], f0[3], f0[7], 1, cfg)
+    alive, winner = f0[3], f1[5]
+    if name == "dead":
+        alive, winner = torch.zeros_like(alive), torch.full_like(winner, -1)
+    args1 = (table, lv, f0[0], f0[1], f0[2], alive, f0[7], winner, f1[6],
+             parity.cotangents(f1[2], gen), 1, cfg)
+    return args0, args1
+
+
+@pytest.mark.parametrize("T_pad", [8, 40, 2048])
+@pytest.mark.parametrize("R", [1, 255, 2_073_600])
+def test_bwd_plan(T_pad, R):
+    """The backward wrappers' launch plan on a 132-SM card: a persistent
+    grid of at most two blocks per SM and no more than one per tile of 256
+    rays; partial rows of T_pad * 32 + L * 16 (+ 16 camera) floats; the
+    table partial in shared memory up to T_pad 512. The scratch does not
+    grow with R past the grid."""
+    for first in (True, False):
+        plan = pmk.bwd_plan(R, T_pad, 30, 132, first)
+        assert plan.grid == min(-(-R // 256), 264) >= 1
+        assert plan.part_cols == T_pad * 32 + 30 * 16 + (16 if first else 0)
+        assert plan.smem_table == (T_pad <= 512)
+        assert plan.grid * plan.part_cols * 4 <= 264 * (2048 * 32 + 30 * 16 + 16) * 4
+    assert pmk.bwd_plan(R, 8, 1, 132, False).grid == plan.grid
+
+
+def test_shuffled_ids_scatter_winners():
+    """The shuffled case is incoherent: at bounce 1 every 32-ray group has
+    at least 2 distinct live winners and 6.71 on average (measured on the
+    plain path), where the tile order that render_sample passes gives 3.34
+    on average and none in most groups (their rays see the sky)."""
+    args0, args1 = _bwd_inputs("shuffled", "cpu")
+    scene, cfg, _ = _reduction_case("shuffled", "cpu")
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    camv = pmk.camera_vector(P.Camera.default(device="cpu"))
+
+    def distinct(pid):
+        f0 = pmk.bounce0_fwd_plain(table, tris, lv, camv, pid, 1, cfg)
+        f1 = pmk.bounce_fwd_plain(table, tris, lv, *f0[:4], f0[7], 1, cfg)
+        return torch.tensor([len(set(g[g >= 0].tolist())) for g in f1[5].reshape(-1, 32)])
+
+    shuffled = distinct(args0[3])
+    tiled = distinct(_swizzled_ids(cfg, "cpu"))
+    assert shuffled.min().item() >= 2 and shuffled.float().mean().item() >= 6.5
+    assert tiled.float().mean().item() < 4.0 and tiled.float().median().item() == 0
+
+
+def test_reduction_cases_hit_their_branches():
+    """Each table branch of the backward kernels has a card case: the
+    2048-triangle soup (the mega path's limit) keeps its table partial in
+    global memory, the 512-triangle soup in shared memory at the branch's
+    limit, Cornell (T_pad 40) in shared memory; the dead case has no ray
+    alive."""
+    want = {"soup2048": (2048, False), "soup512": (512, True), "shuffled": (40, True)}
+    for name, (T_pad, smem) in want.items():
+        args0, _ = _bwd_inputs(name, "cpu")
+        assert args0[0].shape[0] == T_pad
+        assert pmk.bwd_plan(args0[3].shape[0], T_pad, 1, 132, True).smem_table == smem
+    _, args1 = _bwd_inputs("dead", "cpu")
+    assert not (args1[5] > 0).any() and (args1[7] < 0).all()
+
+
+def test_many_lights_case_is_live():
+    """The 30-light case (the mega path's limit) with shadow rays: all three
+    light types, and at bounce 0 each light is blocked for some live rays
+    and seen by others, so the kernels' light loop and occlusion replay run
+    on every light."""
+    args0, _ = _bwd_inputs("lights30", "cpu")
+    table, lv, _, _, _, winner, occ = args0[:7]
+    assert lv.shape[0] == 30 and set(lv[:, 6].round().int().tolist()) == {0, 1, 2}
+    live = winner >= 0
+    bits = torch.stack([(occ[live] >> li) & 1 for li in range(30)])
+    assert bool((bits.amax(1) == 1).all()) and bool((bits.amin(1) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REDUCTION_CASES)
+def test_backward_reduction_cases_on_card(name, monkeypatch):
+    """bounce0_bwd and bounce_bwd on the reduction cases against their
+    plain versions under parity.check_grads, bitwise equal to a second run,
+    and, where the table partial fits shared memory, bitwise equal to the
+    global-memory branch (same order of sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args0, args1 = _bwd_inputs(name, torch.device("cuda"))
+    for kernel, plain, args, names in ((pmk.bounce0_bwd, pmk.bounce0_bwd_plain, args0,
+                                        parity.BOUNCE0_GRADS),
+                                       (pmk.bounce_bwd, pmk.bounce_bwd_plain, args1,
+                                        parity.BOUNCE_GRADS)):
+        k, k2, p = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        parity.check_grads(f"{kernel.__name__}, {name}", k, p, names)
+        assert all(torch.equal(a, b) for a, b in zip(k, k2))
+        if args[0].shape[0] <= pmk._SMEM_ROWS:
+            monkeypatch.setattr(pmk, "_SMEM_ROWS", 0)
+            k3 = kernel(*args)
+            monkeypatch.undo()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(k, k3))
 
 
 def _camera_and_room_rays(dev, n=16384, seed=0):
