@@ -48,6 +48,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 9. the cluster-traversal kernel (K6) against its plain version: primary,
    bounce-1 and shadow rays, rows included, on the bunny scene (SAH
    layout) and the sponza scene at 512x512, and on bunny's Morton layout;
+   on bunny SAH also an open limit (inf) on rays along (1, 1, 1), bitwise;
 10. path B, the wavefront on the panel: Cornell 1920x1080 x 9 with
    ``backend="pallas"`` against the mega path (same frames; defaults, then
    shadow rays and direct specular), its gradients at 512x512 x 9 against
@@ -64,7 +65,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 13. K5 and K6 alone by CUDA events (20 launches) against their plain
    versions (3 calls) at the paths' shapes, K6 on the bounce-1 rays in
    pixel order, coherence-sorted and shuffled, with its Möller–Trumbore
-   tests per ray and the share of idle lanes per warp.
+   tests, cluster visits and box tests per ray and the share of idle
+   lanes per warp; on config 3's primary rays the kernel's (t, slot) and
+   counts against the model of its walk (ops/cuda/clustered_walk.py,
+   equal).
 
 Gates (phases 3, 3b, 4, 7-12): ops/cuda/parity.py.
 
@@ -398,16 +402,17 @@ def plain_clustered(cl, torch, cg, cfg):
     return closest, any_hit
 
 
-def idle_lanes(stats) -> dict:
-    """Mean Möller–Trumbore tests and cluster visits per ray, and the
-    share of idle lanes: per warp of 32 consecutive rays, 1 - mean / max
-    of the tests."""
+def idle_lanes(stats, rays_per_warp: int) -> dict:
+    """Mean Möller–Trumbore tests, cluster visits and box tests per ray,
+    and the share of idle lanes: per warp of ``rays_per_warp`` consecutive
+    rays, 1 - mean / max of the tests."""
     import torch
     tests = stats[:, 0].float()
-    pad = (-tests.shape[0]) % 32
-    warps = torch.nn.functional.pad(tests, (0, pad)).reshape(-1, 32)
-    busy = warps.sum() / (warps.amax(1).sum() * 32).clamp(min=1)
+    pad = (-tests.shape[0]) % rays_per_warp
+    warps = torch.nn.functional.pad(tests, (0, pad)).reshape(-1, rays_per_warp)
+    busy = warps.sum() / (warps.amax(1).sum() * rays_per_warp).clamp(min=1)
     return {"tests": tests.mean().item(), "visits": stats[:, 1].float().mean().item(),
+            "boxes": stats[:, 2].float().mean().item(),
             "total_tests": int(stats[:, 0].sum().item()), "idle": 1.0 - busy.item()}
 
 
@@ -425,6 +430,7 @@ def main() -> int:
     from mini_opencl_raytracer_tpu_torch import native
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
+    from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
     from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from mini_opencl_raytracer_tpu_torch.ops.cuda import panel
     from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
@@ -849,6 +855,20 @@ def main() -> int:
             rays_c, cfg3.t_max))
         if name == "bunny SAH":
             rays_k6 = rays_c
+            # An open limit on rays from the bunny along (1, 1, 1): there
+            # the far-point boxes above the tree's leaf padding (832 of
+            # 1024 leaf slots real) pass the slab test.
+            o = rays_c["bounce1"][0]
+            d = torch.ones_like(o)
+            ti = torch.full((o.shape[0],), float("inf"), device=dev)
+            k, p = (cl.clustered_closest(cg, o, d, ti),
+                    cl.run_clustered_plain(cg, o, d, ti, False, with_rows=True))
+            k_any = cl.clustered_any(cg, o, d, ti)
+            # Bitwise: a miss keeps t = inf, where a difference is nan.
+            if not (all(torch.equal(a, b) for a, b in zip(k, p)) and torch.equal(k_any, p[1] >= 0)):
+                raise AssertionError("K6 at an open limit differs from its plain version")
+            log(f"  clustered open limit along (1, 1, 1) ({o.shape[0]} rays): bitwise equal, "
+                f"closest and any, hit {(p[1] >= 0).float().mean().item():.4f}")
 
     # 10. Path B: Cornell through the wavefront on K5 against the mega path.
     for label, kw in (("defaults", {}),
@@ -904,6 +924,7 @@ def main() -> int:
         leaves = int((cg.cl_aabb[:cg.num_supers * cl.SUPER, 0] < 1e38).sum().item())
         log(f"[11 path A] build_accel {name}: {sc.num_triangles} triangles, layout "
             f"{cg.layout}, {leaves} leaves, {cg.num_supers} supers, {cg.num_slots} slots, "
+            f"{cg.tree.shape[0]} inner tree nodes (arity {cl.ARITY}, depth {cg.depth}), "
             f"{build_s[name]:.3f} s (scene {t_bunny_scene if name == 'bunny' else t_sponza_scene:.3f} s)")
         if cg.layout != "sah":
             raise AssertionError(f"{name}: accel layout {cg.layout}, expected sah")
@@ -1033,31 +1054,43 @@ def main() -> int:
                                (o1[shuffle].contiguous(), d1[shuffle].contiguous())),
                               ("sponza 4K primary", accels["sponza"], big_rays["primary"])):
         ti = full(o)
-        st = torch.zeros((o.shape[0], 2), dtype=torch.int32, device=dev)
-        _, slot, _ = cl.clustered_closest(cg, o, d, ti, stats=st)
-        lanes = idle_lanes(st)
+        st = torch.zeros((o.shape[0], 3), dtype=torch.int32, device=dev)
+        k_out = cl.clustered_closest(cg, o, d, ti, stats=st)
+        slot = k_out[1]
+        lanes = idle_lanes(st, 32 // cl.LANES)
         winners = int(torch.unique(slot[slot >= 0]).numel())
         k_ms = time_ms(lambda: cl.clustered_closest(cg, o, d, ti), 20)
         msg = (f"[13 time] clustered (K6) {label} ({o.shape[0]} rays): kernel {k_ms:.4f} ms; "
-               f"{lanes['tests']:.1f} M-T tests and {lanes['visits']:.2f} cluster visits "
-               f"per ray, idle lanes {lanes['idle']:.3f}")
+               f"{lanes['tests']:.1f} M-T tests, {lanes['visits']:.2f} cluster visits and "
+               f"{lanes['boxes']:.1f} box tests per ray, idle lanes {lanes['idle']:.3f}")
         # Bytes: rays in (o, d, t_init), t / slot / row out, a 36-byte
         # record per real triangle, the 24-byte boxes of the real clusters
-        # and supers, and the rows of this run's distinct winners (slot_to_tri
-        # is read only on exact ties). Operations: the M-T tests the kernel
-        # ran, all on real slots.
+        # and the tree's real nodes, and the rows of this run's distinct
+        # winners (slot_to_tri is read only on exact ties). Operations: the
+        # M-T tests the kernel ran, all on real slots; its box tests are its
+        # own traversal's cost, not the function's, and are not counted.
         rows_bytes = 4 * cl.ATTR_COLS
         clusters = int((cg.cl_count > 0).sum().item())
+        nodes = int((cg.tree[:, 0] < 1e38).sum().item())
         b6 = bound(o.shape[0] * (28 + 8 + rows_bytes) + int(cg.cl_count.sum().item()) * 36
-                   + (clusters + cg.num_supers) * 24 + winners * rows_bytes,
+                   + (clusters + nodes) * 24 + winners * rows_bytes,
                    lanes["total_tests"] * MT_FLOPS)
         msg += (f"; {winners} distinct winners; bound {b6['bound_ms']:.4f} ms "
-                f"({b6['bound_by']})")
+                f"({b6['bound_by']}), {b6['bound_ms'] / k_ms:.1%} of the kernel")
         if label == "config 3 primary":
             p_ms = time_ms(lambda: cl.run_clustered_plain(cg, o, d, ti, False, True), 3)
             msg += f"; plain {p_ms:.3f} ms"
             times["clustered"] = (k_ms, p_ms)
             bounds["clustered"] = b6
+            # The counts of the walk's model, step by step, on the same rays.
+            w_t, w_slot, w_st = walk(cg, o, d, ti)
+            if not (torch.equal(w_st, st) and torch.equal(w_t, k_out[0])
+                    and torch.equal(w_slot, slot)):
+                raise AssertionError("K6's (t, slot, counts) differ from the model of its walk "
+                                     f"on {int((w_st != st).any(1).sum().item())} rays")
+            log(f"[13 walk] config 3 primary: K6's (t, slot) and counts equal its walk's "
+                f"model on every ray; box tests per ray {lanes['boxes']:.2f}, M-T tests "
+                f"{lanes['tests']:.2f}")
         log(msg + f" ({card})")
 
     print(json.dumps({"kernels": [

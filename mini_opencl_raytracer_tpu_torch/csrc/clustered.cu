@@ -4,205 +4,386 @@
 // Replaces mini_opencl_raytracer_tpu/ops/pallas/clustered.py:
 // _clustered_kernel (K6), the intersector of the wavefront `pallas`
 // backend above 2048 triangles. The TPU kernel walked one 2048-ray packet
-// through the hierarchy with scalar control, DMA'd each hit cluster's
-// limb-packed bf16 block into VMEM and ran Moller-Trumbore as MXU passes;
-// here each ray is a thread walking the same hierarchy alone.
+// through a two-level super / cluster hierarchy with scalar control, DMA'd
+// each hit cluster's limb-packed bf16 block into VMEM and ran
+// Moller-Trumbore as MXU passes; here a group of kLanes lanes walks one
+// ray through a tree over the clusters.
 //
 // Layout (ops/cuda/clustered.ClusteredGeometry): triangles sit in slots,
-// CLUSTER = 128 slots per cluster, SUPER = 64 clusters per super; each
-// slot holds an f32 (v0, e1, e2) record (zero on padding, so det == 0 and
-// a padding slot never hits), its original triangle id and, optionally,
-// its 34-float shading row. A cluster's real slots come first, and
-// cl_count holds how many there are. Clusters and supers carry AABBs;
-// empty boxes are far-away points that every slab test rejects.
+// CLUSTER = 128 slots per cluster; each slot holds an f32 (v0, e1, e2)
+// record (zero on padding, so det == 0 and a padding slot never hits), its
+// original triangle id and, optionally, its 34-float shading row. A
+// cluster's real slots come first, and cl_count holds how many there are.
+// Above the clusters, in slot order (a depth-first SAH leaf order or a
+// Morton order, so neighbouring clusters lie close), sits an implicit
+// kArity-ary tree: inner node n (heap order, root 0) has the children
+// n * kArity + 1 ... n * kArity + kArity, and child n_inner + j is cluster
+// j. No child index is stored. Boxes are 32-byte rows (lo.xyz, hi.xyz, two
+// unused floats), read as a float4 and a float2. Empty boxes are far-away
+// points (3e38 on every coordinate). The leaf level is padded up to a
+// power of kArity, but only the C_pad real leaf rows exist: a child at or
+// past n_inner + C_pad is never tested, so no walk leaves the arrays. The
+// far point alone would not keep it out: a slab test with a t_far of 3e38
+// or more passes it on a direction such as (1, 1, 1), where each axis
+// gives the same finite entry.
 //
-// Per ray:
-//   * supers are visited front to back by slab entry: each step picks the
-//     smallest (entry, super index) after the last visited one among the
-//     supers the ray's slab test still hits against its current best t;
-//     the walk ends when none is left;
-//   * inside a super, each of its 64 clusters is slab-tested against the
-//     current best t (inclusive, so a box at exactly the best t is still
-//     visited), and the real slots of every hit cluster run
-//     Moller-Trumbore;
-//   * the culling bound is best * (1 + kCullRel) + kCullAbs * scale / |d|,
-//     scale = the largest |coordinate| of the scene's boxes and the ray's
-//     origin. The slab entry is exact to a few ulps of itself, but M-T's t
-//     is not: for a triangle whose corner or face lies on its cluster's
-//     box, the hit can come out below the box's entry, by a few ulps of t
-//     (the relative term) or, for a ray starting near the triangle, by
-//     rounding of o - v0 at the scene's scale (the absolute term). Culling
-//     such a box would let the order of the visits pick the winner; with
-//     the slack the kernel finds the closest hit of every cluster the
-//     ray's slab test hits at t_init. Near grazing incidence M-T's error
-//     grows as 1 / cos and can outrun the slack: there a near-tie may
-//     still go to the other candidate;
-//   * a candidate wins if 0 < t < best, or t == best and its original
-//     triangle id is lower (read through slot_to_tri only on equality):
-//     the lowest id wins a tie, as in intersect_brute, whatever order the
-//     clusters are visited in;
-//   * closest mode writes t, the winner's slot (-1 on a miss) and,
-//     optionally, its shading row (zeros on a miss); any mode stops at the
-//     first hit below t_init.
+// What bounds it on this card: neither bytes nor the counted operations.
+// The function needs its rays (28 bytes in, 144 out with the row) and the
+// scene once: a 36-byte record per real triangle (2.5 MB at bunny scale,
+// 9.3 MB at sponza scale, resident in the 50 MB L2), the boxes, the rows
+// of the winners; and ~45 flops per Moller-Trumbore test (~21 tests a
+// config-3 primary ray; the box tests are the walk's own cost, not the
+// function's). That bound is 2-16% of the time. On a
+// large launch (8.3 M rays at sponza scale) the kernel is set by its
+// instruction stream: ~130 static instructions per M-T test in its loop
+// under -fmad=false. On a small one (262 k rays at config 3) by its tail:
+// a ray's walk is one serial chain of dependent loads and tests, the
+// slowest ray of config 3 runs 1431 M-T tests, and with one lane per ray
+// that ray alone took 1.97 M cycles of a 1.03 ms launch.
+//
+// What the design does about it:
+//   * the tree replaces the flat scan. Before, each step of a ray's walk
+//     slab-tested every super box to find the next one and then all 64
+//     cluster boxes of that super: ~157 box tests per config-3 primary
+//     ray for fewer than one cluster visit. Now a ray tests kArity
+//     children per inner node it enters, ~31 boxes a ray;
+//   * front to back: a node's hit children are sorted by (entry, index)
+//     (a network of compare-exchanges in registers); the nearest is
+//     entered at once and the others are pushed far to near on a short
+//     per-thread stack (kStack entries, in local memory). A popped entry
+//     that lies beyond the current best t plus the slack is skipped: that
+//     is the slab test of its box against the current best t. The first
+//     hits found are near, so the cull prunes the rest early;
+//   * kLanes = 4 lanes per ray: they slab-test a node's 4 children at once
+//     and share the entries by shuffles, take a cluster's slots in rounds
+//     of 4 (neighbouring lanes read neighbouring records), and reduce the
+//     (t, id) key by shuffles; any mode stops at the first round with a
+//     hit. A ray's chain is ~4x shorter, and a warp waits for the slowest
+//     of 8 rays, not of 32. Every lane of a group keeps the same state and
+//     stack, so the group's branches stay together;
+//   * load balance: persistent warps take rays in batches of 8 from a
+//     counter in device memory (Aila and Laine 2009), so a warp whose rays
+//     finish early takes more, and no block waits for its slowest warp
+//     while holding its slots. The last warp to finish zeroes the counter
+//     for the next launch on the stream, so a launch needs no memset; the
+//     wrapper works out the grid once per device.
+//
+// Why the tree changes no result. A parent's box is the min / max of its
+// non-empty children's boxes (the same floats: it contains each of them
+// bitwise). The slab test's per-axis distances fl(fl(x - o) * inv) are
+// monotone in the box bound x, as each correctly rounded operation is, so
+// a parent's interval [tmin, tmax] contains each child's, its entry
+// max(tmin, 0) is no larger and its min(tmax, t_far) no smaller: a parent's
+// slab test never rejects a box whose own test passes. So every cluster
+// whose box the ray hits has all its ancestors hit, and the kernel reaches
+// every cluster that the flat scan reached, up to the cull. A culled node's
+// entry exceeds best * (1 + kCullRel) + kCullAbs * scale / |d|, and so
+// does the entry of every cluster below it. The slack covers
+// Moller-Trumbore's error against the box entry: for a triangle whose
+// corner or face lies on its cluster's box, the hit can come out below the
+// box's entry by a few ulps of t (the relative term) or, for a ray starting
+// near the triangle, by rounding of o - v0 at the scene's scale (the
+// absolute term; scale = the largest |coordinate| of the root box and the
+// ray's origin). Near grazing incidence M-T's error grows as 1 / cos and
+// can outrun the slack: there a near-tie may still go to the other
+// candidate. A candidate wins if 0 < t < best, or t == best and its
+// original triangle id is lower (read through slot_to_tri only on
+// equality), so the result is the least (t, id) key over the clusters
+// reached, whatever the order of the visits, the split of a cluster's
+// slots over lanes, the stack discipline or the split of rays over warps.
+//
 // Semantics are ops/cuda/clustered.run_clustered_plain's, which tests every
-// cluster the ray's slab test hits at t_init instead of culling by the
-// running best t (that culling does not change the closest hit).
-//
-// What bounds it on this card: bytes, by the count below: a ray moves 28
-// bytes in and 144 out (t, slot, the 136-byte row), and the scene is read
-// once: a 36-byte record per real triangle (2.5 MB at bunny scale, 9.3 MB
-// at sponza scale, resident in the 50 MB L2), the boxes, and the rows of
-// the winners only. The operations (~45 flops per Moller-Trumbore test,
-// about a hundred tests per ray) stay below it; what costs more than
-// either is warp divergence: the 32 rays of a warp visit different
-// supers and clusters, and a warp runs as long as its longest ray.
-//
-// What the design does about it: the super boxes (32 bytes each, 47 at
-// sponza scale) are staged in shared memory; clusters and records are read
-// from global memory as all lanes of a coherent warp read the same address
-// (broadcast through L1); the integrator sorts the wavefront by direction
-// octant and origin Morton code between bounces so that warps stay
-// coherent. Reordering the visits, warp-level packets and compaction are
-// left for later: the optional per-ray counts (stats: slots tested,
-// clusters visited) measure what they would save.
+// cluster the ray's slab test hits at t_init instead of walking the tree
+// and culling by the running best t; ops/cuda/clustered_walk.py models the
+// walk itself, stack order and counts included. Closest mode writes t, the
+// winner's slot (-1 on a miss) and, optionally, its shading row (zeros on
+// a miss); any mode stops at the end of the first round of slots that
+// holds a hit below t_init. The optional
+// per-ray counts (stats: M-T tests, cluster visits, box tests) measure the
+// walk; built with -DMRT_K6_CYCLES (scripts/k6_cycles.py), the third
+// column holds the clock64 cycles of the ray's walk instead.
 
 #include "traverse.cuh"
 
 namespace {
 
 constexpr int kCluster = 128;
-constexpr int kSuper = 64;
+constexpr int kArity = 4;
+constexpr int kLanes = 4;   // lanes per ray, a power of 2 up to 32
+constexpr int kStack = 64;
 constexpr int kAabbCols = 8;
 constexpr int kAttrCols = 34;
 constexpr int kClusterBlock = 128;
 constexpr float kCullRel = 1e-4f;
 constexpr float kCullAbs = 64.0f * 1.1920929e-7f;   // 64 float32 ulps of 1
 
-template <bool kAny>
-__global__ void __launch_bounds__(kClusterBlock)
-clustered_kernel(int R, int S, int cull, const float* __restrict__ sup_aabb,
-                 const float* __restrict__ cl_aabb, const float* __restrict__ tris,
-                 const int* __restrict__ slot_to_tri, const int* __restrict__ cl_count,
-                 const float* __restrict__ attrs, const float* __restrict__ o,
-                 const float* __restrict__ d, const float* __restrict__ t_init, float* t_out,
-                 int* slot_out, float* rows_out, int* stats) {
-  extern __shared__ float s_sup[];
-  for (int k = threadIdx.x; k < S * kAabbCols; k += blockDim.x) s_sup[k] = sup_aabb[k];
-  __syncthreads();
-  // The scene's scale: the largest |coordinate| of the super boxes (far
-  // points of empty boxes left out), reduced across the warp.
-  float ext = 0.0f;
-  for (int k = threadIdx.x % 32; k < S * 6; k += 32) {
-    const float a = fabsf(s_sup[kAabbCols * (k / 6) + k % 6]);
-    if (a < 1e37f) ext = fmaxf(ext, a);
-  }
-  for (int off = 16; off > 0; off >>= 1) ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, off));
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+struct Scene {
+  int R, n_inner, n_clusters, cull;   // n_clusters = C_pad
+  const float* tree;         // [n_inner, 8] inner nodes
+  const float* cl_aabb;      // [C_pad, 8] clusters: the leaves
+  const float* tris;         // [T_pad, 9]
+  const int* slot_to_tri;    // [T_pad]
+  const int* cl_count;       // [C_pad]
+  const float* attrs;        // [T_pad, 34] or null
+  const float* o;
+  const float* d;
+  const float* t_init;
+  float* t_out;
+  int* slot_out;
+  float* rows_out;           // [R, 34] or null
+  int* stats;                // [R, 3] or null
+};
 
-  const V3 ro = ld3(o + 3 * (size_t)i), rd = ld3(d + 3 * (size_t)i);
+struct Entry {
+  int node;
+  float entry;
+};
+
+// A group of kLanes lanes of one warp walks one ray; ``g`` is the lane's
+// index in its group and ``gmask`` the group's lanes.
+template <typename T>
+__device__ __forceinline__ T gshfl(unsigned gmask, T v, int src) {
+  return __shfl_sync(gmask, v, src, kLanes);
+}
+
+// The walk of ray i by its group. ``ext`` is the largest |coordinate| of
+// the root box. Every lane of the group holds the same ray state, stack
+// and node; the lanes split the children's slab tests and a cluster's
+// slots.
+template <bool kAny>
+__device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, unsigned gmask) {
+  const float kMiss = __int_as_float(0x7f800000);   // +inf: a child the ray misses
+  const V3 ro = ld3(s.o + 3 * (size_t)i), rd = ld3(s.d + 3 * (size_t)i);
   // 1 / d with |d| <= 1e-20 replaced by 1e-20 (the JAX kernel's slab).
   const V3 inv = mk(1.0f / (fabsf(rd.x) > 1e-20f ? rd.x : 1e-20f),
                     1.0f / (fabsf(rd.y) > 1e-20f ? rd.y : 1e-20f),
                     1.0f / (fabsf(rd.z) > 1e-20f ? rd.z : 1e-20f));
   const float scale = fmaxf(ext, fmaxf(fmaxf(fabsf(ro.x), fabsf(ro.y)), fabsf(ro.z)));
   const float reach = kCullAbs * scale / sqrtf(fmaxf(dot(rd, rd), 1e-30f));
-  const bool cl = cull != 0;
-  float best = t_init[i];
+  const bool cl = s.cull != 0;
+#ifdef MRT_K6_CYCLES
+  const long long clk0 = clock64();
+#endif
+  float best = s.t_init[i];
   int bs = -1;
-  int tests = 0, visits = 0;
+  int tests = 0, visits = 0, boxes = 1;
+  Entry stack[kStack];
+  int sp = 0;
 
-  float last_e = -1.0f;
-  int last_s = -1;
-  bool found = false;
-  while (!found) {
-    // The next super in (entry, index) order that the ray still hits.
-    float ne = 0.0f;
-    int ns = -1;
-    for (int s = 0; s < S; ++s) {
-      bool hit;
-      const float e = slab(s_sup + kAabbCols * s, ro, inv, best + best * kCullRel + reach, hit);
-      const bool after = e > last_e || (e == last_e && s > last_s);
-      if (hit && after && (ns < 0 || e < ne)) {
-        ne = e;
-        ns = s;
+  bool hit;
+  slab(s.tree, ro, inv, best + best * kCullRel + reach, hit);
+  int node = hit ? 0 : -1;
+  while (node >= 0) {
+    // Descend through inner nodes until this ray holds a cluster (or has
+    // nothing left), so the warp's groups run the M-T loop together.
+    while (node >= 0 && node < s.n_inner) {
+      const int c0 = node * kArity + 1;
+      const float* rows = c0 < s.n_inner ? s.tree + (size_t)kAabbCols * c0
+                                         : s.cl_aabb + (size_t)kAabbCols * (c0 - s.n_inner);
+      // The children that exist: all kArity of an inner level, the real
+      // leaf rows (none past C_pad) of the last.
+      const int kids = max(min(kArity, s.n_inner + s.n_clusters - c0), 0);
+      const float lim = best + best * kCullRel + reach;
+      // Lane g tests children g, g + kLanes, ...; the group then shares
+      // the keys, so every lane sorts the same (entry, index) pairs.
+      constexpr int kPer = (kArity + kLanes - 1) / kLanes;
+      float mine[kPer];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int k = g + q * kLanes;
+        mine[q] = kMiss;
+        if (k < kids) {
+          bool h;
+          const float e = slab(rows + kAabbCols * k, ro, inv, lim, h);
+          if (h) mine[q] = e;
+        }
+      }
+      float key[kArity];
+      int id[kArity];
+#pragma unroll
+      for (int k = 0; k < kArity; ++k) {
+        key[k] = gshfl(gmask, mine[k / kLanes], k % kLanes);
+        id[k] = c0 + k;
+      }
+      boxes += kids;
+      // Sort by (entry, index): adjacent compare-exchanges on strict >,
+      // which keep equal entries in index order.
+#pragma unroll
+      for (int m = 1; m < kArity; ++m) {
+#pragma unroll
+        for (int k = m; k > 0; --k) {
+          if (key[k - 1] > key[k]) {
+            const float tk = key[k - 1];
+            key[k - 1] = key[k];
+            key[k] = tk;
+            const int ti = id[k - 1];
+            id[k - 1] = id[k];
+            id[k] = ti;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = kArity - 1; k > 0; --k) {
+        if (key[k] != kMiss) stack[sp++] = {id[k], key[k]};
+      }
+      if (key[0] != kMiss) {
+        node = id[0];
+        continue;
+      }
+      node = -1;
+      while (sp > 0) {
+        const Entry top = stack[--sp];
+        if (top.entry <= lim) {
+          node = top.node;
+          break;
+        }
       }
     }
-    if (ns < 0) break;
-    last_e = ne;
-    last_s = ns;
-    for (int c = 0; c < kSuper && !found; ++c) {
-      const int j = ns * kSuper + c;
-      bool hit;
-      slab(cl_aabb + (size_t)kAabbCols * j, ro, inv, best + best * kCullRel + reach, hit);
-      if (!hit) continue;
+    while (node >= s.n_inner) {
+      // The cluster's real slots, lane g taking g, g + kLanes, ... in
+      // rounds of kLanes slots.
+      const int j = node - s.n_inner;
       ++visits;
       const int base = j * kCluster;
-      const int n = min(cl_count[j], kCluster);
-      for (int k = 0; k < n; ++k) {
-        const int slot = base + k;
-        float t;
-        ++tests;
-        if (!mt_hit(ro, rd, tris + (size_t)kTriCols * slot, cl, t)) continue;
-        if (t < best) {
-          best = t;
-          bs = slot;
-          if (kAny) {
-            found = true;
+      const int n = min(s.cl_count[j], kCluster);
+      float lt = best;
+      int ls = bs, tested = n;
+      for (int r0 = 0; r0 < n; r0 += kLanes) {
+        const int slot = base + r0 + g;
+        float t = 0.0f;
+        const bool h = r0 + g < n && mt_hit(ro, rd, s.tris + (size_t)kTriCols * slot, cl, t);
+        if (kAny) {
+          // The round's lowest slot below the limit ends the walk.
+          const unsigned won = __ballot_sync(gmask, h && t < best) & gmask;
+          if (won) {
+            const int src = __ffs(won) - 1 - (threadIdx.x % 32 - g);
+            best = gshfl(gmask, t, src);
+            bs = base + r0 + src;
+            tested = min(n, r0 + kLanes);
+            sp = 0;
             break;
           }
-        } else if (t == best && bs >= 0 && slot_to_tri[slot] < slot_to_tri[bs]) {
-          bs = slot;
+        } else if (h) {
+          if (t < lt) {
+            lt = t;
+            ls = slot;
+          } else if (t == lt && ls >= 0 && s.slot_to_tri[slot] < s.slot_to_tri[ls]) {
+            ls = slot;
+          }
+        }
+      }
+      tests += tested;
+      if (!kAny) {
+        // The group's least (t, id): every lane ends with the same pair.
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1) {
+          const float ot = __shfl_xor_sync(gmask, lt, off, kLanes);
+          const int os = __shfl_xor_sync(gmask, ls, off, kLanes);
+          if (ot < lt || (ot == lt && os != ls && os >= 0 &&
+                          (ls < 0 || s.slot_to_tri[os] < s.slot_to_tri[ls]))) {
+            lt = ot;
+            ls = os;
+          }
+        }
+        best = lt;
+        bs = ls;
+      }
+      node = -1;
+      const float lim = best + best * kCullRel + reach;
+      while (sp > 0) {
+        const Entry top = stack[--sp];
+        if (top.entry <= lim) {
+          node = top.node;
+          break;
         }
       }
     }
   }
 
-  t_out[i] = best;
-  slot_out[i] = bs;
-  if (rows_out != nullptr) {
-    float* row = rows_out + (size_t)kAttrCols * i;
-    if (bs >= 0) {
-      const float* src = attrs + (size_t)kAttrCols * bs;
-      for (int k = 0; k < kAttrCols; ++k) row[k] = src[k];
-    } else {
-      for (int k = 0; k < kAttrCols; ++k) row[k] = 0.0f;
+  if (g == 0) {
+    s.t_out[i] = best;
+    s.slot_out[i] = bs;
+    if (s.stats != nullptr) {
+      s.stats[3 * i] = tests;
+      s.stats[3 * i + 1] = visits;
+#ifdef MRT_K6_CYCLES
+      s.stats[3 * i + 2] = (int)(clock64() - clk0);
+#else
+      s.stats[3 * i + 2] = boxes;
+#endif
     }
   }
-  if (stats != nullptr) {
-    stats[2 * i] = tests;
-    stats[2 * i + 1] = visits;
+  if (s.rows_out != nullptr) {
+    float* row = s.rows_out + (size_t)kAttrCols * i;
+    const float* src = s.attrs + (size_t)kAttrCols * bs;
+    for (int k = g; k < kAttrCols; k += kLanes) row[k] = bs >= 0 ? src[k] : 0.0f;
+  }
+}
+
+// ``counter`` holds the next ray and the warps done; both are 0 at the
+// launch, and the last warp to finish sets them to 0 again.
+template <bool kAny>
+__global__ void __launch_bounds__(kClusterBlock)
+clustered_kernel(Scene s, int* counter) {
+  // The scene's scale: the largest |coordinate| of the root box (the far
+  // point of an empty scene left out).
+  float ext = 0.0f;
+  for (int k = 0; k < 6; ++k) {
+    const float a = fabsf(s.tree[k]);
+    if (a < 1e37f) ext = fmaxf(ext, a);
+  }
+  const int lane = threadIdx.x % 32, g = lane % kLanes;
+  const unsigned gmask = (kLanes == 32 ? 0xffffffffu : (1u << kLanes) - 1u) << (lane - g);
+  for (;;) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(counter, 32 / kLanes);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= s.R) break;
+    const int i = first + lane / kLanes;
+    if (i < s.R) trace<kAny>(s, i, ext, g, gmask);
+  }
+  // A warp counts itself done only after its last take from the counter
+  // returned, so the last one to count sees every take made.
+  const int warps = gridDim.x * (kClusterBlock / 32);
+  if (lane == 0 && atomicAdd(counter + 1, 1) == warps - 1) {
+    atomicExch(counter, 0);
+    atomicExch(counter + 1, 0);
   }
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes by ops/cuda/build.py): launches on the
-// given stream, does not synchronise, returns the launch's cudaError_t.
-// ``attrs`` and ``rows_out`` are both null or both set; ``stats`` may be
-// null.
-extern "C" int mrt_clustered(int R, int S, int cull, int any, const float* sup_aabb,
-                             const float* cl_aabb, const float* tris, const int* slot_to_tri,
-                             const int* cl_count, const float* attrs, const float* o,
-                             const float* d,
-                             const float* t_init, float* t_out, int* slot_out, float* rows_out,
-                             int* stats, void* stream) {
+// C entry points (bound with ctypes by ops/cuda/build.py).
+//
+// mrt_clustered_blocks_per_sm: how many blocks of the closest (any == 0)
+// or any-hit kernel an SM holds at once, into *out; returns the
+// cudaError_t.
+extern "C" int mrt_clustered_blocks_per_sm(int any, int* out) {
+  return (int)(any ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, clustered_kernel<true>,
+                                                                   kClusterBlock, 0)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, clustered_kernel<false>,
+                                                                   kClusterBlock, 0));
+}
+
+// mrt_clustered: launches ``grid`` blocks of persistent warps on the given
+// stream, does not synchronise, returns the launch's cudaError_t.
+// ``n_clusters`` is C_pad, the rows of cl_aabb and cl_count. ``attrs`` and
+// ``rows_out`` are both null or both set; ``stats`` may be null;
+// ``counter`` is two ints of device memory, zero before the first launch,
+// used by one stream at a time.
+extern "C" int mrt_clustered(int R, int n_inner, int n_clusters, int grid, int cull, int any,
+                             const float* tree, const float* cl_aabb, const float* tris,
+                             const int* slot_to_tri, const int* cl_count, const float* attrs,
+                             const float* o, const float* d, const float* t_init, float* t_out,
+                             int* slot_out, float* rows_out, int* stats, int* counter,
+                             void* stream) {
   if (R <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)S * kAabbCols;
-  const int grid = (R + kClusterBlock - 1) / kClusterBlock;
-  cudaError_t e;
-  if (any) {
-    e = allow_smem(clustered_kernel<true>, smem);
-    if (e != cudaSuccess) return (int)e;
-    clustered_kernel<true><<<grid, kClusterBlock, smem, (cudaStream_t)stream>>>(
-        R, S, cull, sup_aabb, cl_aabb, tris, slot_to_tri, cl_count, attrs, o, d, t_init, t_out,
-        slot_out, rows_out, stats);
-  } else {
-    e = allow_smem(clustered_kernel<false>, smem);
-    if (e != cudaSuccess) return (int)e;
-    clustered_kernel<false><<<grid, kClusterBlock, smem, (cudaStream_t)stream>>>(
-        R, S, cull, sup_aabb, cl_aabb, tris, slot_to_tri, cl_count, attrs, o, d, t_init, t_out,
-        slot_out, rows_out, stats);
-  }
+  const Scene s{R, n_inner, n_clusters, cull, tree, cl_aabb, tris, slot_to_tri, cl_count,
+                attrs, o, d, t_init, t_out, slot_out, rows_out, stats};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (any)
+    clustered_kernel<true><<<grid, kClusterBlock, 0, st>>>(s, counter);
+  else
+    clustered_kernel<false><<<grid, kClusterBlock, 0, st>>>(s, counter);
   return (int)cudaGetLastError();
 }

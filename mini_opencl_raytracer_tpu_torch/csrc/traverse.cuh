@@ -29,15 +29,18 @@ __device__ __forceinline__ bool mt_hit(V3 o, V3 d, const float* tr, bool cull, f
   return t > 0.0f;
 }
 
-// Slab test of an AABB row (lo.xyz, hi.xyz) against a ray given by its
+// Slab test of a 16-byte-aligned AABB row (lo.xyz, hi.xyz, two unused
+// floats), read as a float4 and a float2, against a ray given by its
 // origin and inverse direction (ops/cuda/clustered._slab). Returns the
 // clamped entry distance max(tmin, 0) and sets ``hit`` where
 // min(tmax, t_far) >= entry: inclusive, so a box at exactly the best t is
 // still visited.
-__device__ __forceinline__ float slab(const float* box, V3 o, V3 inv, float t_far, bool& hit) {
-  const float tx1 = (box[0] - o.x) * inv.x, tx2 = (box[3] - o.x) * inv.x;
-  const float ty1 = (box[1] - o.y) * inv.y, ty2 = (box[4] - o.y) * inv.y;
-  const float tz1 = (box[2] - o.z) * inv.z, tz2 = (box[5] - o.z) * inv.z;
+__device__ __forceinline__ float slab(const float* row, V3 o, V3 inv, float t_far, bool& hit) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(row + 4));
+  const float tx1 = (a.x - o.x) * inv.x, tx2 = (a.w - o.x) * inv.x;
+  const float ty1 = (a.y - o.y) * inv.y, ty2 = (b.x - o.y) * inv.y;
+  const float tz1 = (a.z - o.z) * inv.z, tz2 = (b.y - o.z) * inv.z;
   const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
   const float entry = fmaxf(tmin, 0.0f);

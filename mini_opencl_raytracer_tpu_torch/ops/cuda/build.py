@@ -49,10 +49,11 @@ _SIGNATURES = {
     # csrc/panel.cu: (R, T, cull, any, tris, o, d, t_init, t_out, idx,
     #  stream)
     "mrt_panel": ([_I] * 4 + [_P] * 7, _I),
-    # csrc/clustered.cu: (R, S, cull, any, sup_aabb, cl_aabb, tris,
-    #  slot_to_tri, cl_count, attrs, o, d, t_init, t_out, slot, rows,
-    #  stats, stream)
-    "mrt_clustered": ([_I] * 4 + [_P] * 14, _I),
+    # csrc/clustered.cu: (R, inner nodes, clusters, grid, cull, any, tree,
+    #  cl_aabb, tris, slot_to_tri, cl_count, attrs, o, d, t_init, t_out,
+    #  slot, rows, stats, counter, stream); (any, out)
+    "mrt_clustered": ([_I] * 6 + [_P] * 15, _I),
+    "mrt_clustered_blocks_per_sm": ([_I, _P], _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 

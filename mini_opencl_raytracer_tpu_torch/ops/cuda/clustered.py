@@ -8,14 +8,19 @@ cluster, ``build_accel``) or, without a C++ compiler, from a Morton sort
 of the centroids (``build_clusters``). The layout is the port's own: f32
 (v0, e1, e2) records in slot order and the shading rows beside them; the
 JAX package's limb-packed bf16 M-T rows were a device of its matrix unit.
+Above the clusters sits an implicit ``ARITY``-ary tree in slot order
+(``tree``, heap order, root first): each node's box is the min / max of
+its children's, the clusters are its leaves, and the supers are one of
+its levels. The kernel walks it front to back.
 
 The kernel, written by hand in ``csrc/clustered.cu``, replaces the JAX
-package's ``ops/pallas/clustered.py:_clustered_kernel``; that file
-describes the traversal. ``run_clustered_plain`` is its plain PyTorch
-version. The wrappers ``clustered_closest`` and ``clustered_any`` run the
-plain version for tensors on the CPU and launch the kernel for tensors on
-a CUDA device; there is no fallback between the two. ``LAUNCHES`` counts
-kernel launches and ``SHAPES`` keeps each wrapper's last launch shape.
+package's ``ops/pallas/clustered.py:_clustered_kernel``.
+``run_clustered_plain`` is its plain PyTorch version, and
+``ops/cuda/clustered_walk.py`` a model of its traversal order. The
+wrappers ``clustered_closest`` and ``clustered_any`` run the plain version
+for tensors on the CPU and launch the kernel for tensors on a CUDA
+device; there is no fallback between the two. ``LAUNCHES`` counts kernel
+launches and ``SHAPES`` keeps each wrapper's last launch shape.
 
 Tie rule (kernel and plain version): among equal t the lowest original
 triangle id wins, so the result does not depend on the order in which the
@@ -25,6 +30,7 @@ order.)
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -44,15 +50,23 @@ from .megakernel import _check
 LAUNCHES = {"clustered_closest": 0, "clustered_any": 0}
 SHAPES = {}
 
-# Triangles per cluster and clusters per super (csrc/clustered.cu's
-# kCluster and kSuper).
+# Triangles per cluster and clusters per super; children per tree node,
+# the depth of the kernel's traversal stack and the lanes that walk one
+# ray (csrc/clustered.cu's kCluster, kArity, kStack and kLanes). SUPER is
+# a power of ARITY, so the supers are a level of the tree.
 CLUSTER = 128
 SUPER = 64
+ARITY = 4
+STACK = 64
+LANES = 4
 ATTR_COLS = ShadingTable.COLS
 _TRI_COLS = 9
 _AABB_COLS = 8
 _BIG = 3.0e38
 _INV_EPS = 1e-20
+# The kernel's cull slack (kCullRel, kCullAbs = 64 float32 ulps of 1).
+CULL_REL = 1e-4
+CULL_ABS = 64 * 2.0 ** -23
 _NO_KEY = torch.iinfo(torch.int64).max
 # Bounds on the plain version's intermediates: [rays x clusters] slab
 # panels and [pairs x CLUSTER] Möller–Trumbore panels.
@@ -72,6 +86,10 @@ class ClusteredGeometry:
     tris: torch.Tensor         # [T_pad, 9] f32 v0, e1, e2 per slot; zero on padding
     cl_aabb: torch.Tensor      # [C_pad, 8] cluster lo.xyz, hi.xyz
     sup_aabb: torch.Tensor     # [S_pad, 8] super lo.xyz, hi.xyz
+    # [N, 8] the tree's inner nodes (lo.xyz, hi.xyz) in heap order: node n's
+    # children are n * ARITY + 1 ... n * ARITY + ARITY, and child N + j is
+    # cluster j. N = (ARITY**depth - 1) / (ARITY - 1), ARITY**depth >= C_pad.
+    tree: torch.Tensor
     slot_to_tri: torch.Tensor  # [T_pad] int32 original triangle id; 0 on padding
     # [T_pad / CLUSTER] int32 real slots per cluster: they are the first
     # ones of its CLUSTER slots, so the kernel tests no padding.
@@ -93,6 +111,11 @@ class ClusteredGeometry:
     @property
     def num_slots(self) -> int:
         return self.tris.shape[0]
+
+    @property
+    def depth(self) -> int:
+        """Levels of inner nodes above the clusters."""
+        return _tree_depth(self.num_slots // CLUSTER)
 
 
 def _slots_from_leaf_info(leaf_info, T: int):
@@ -122,11 +145,12 @@ def _corners(geometry: Geometry):
 
 def build_clusters(geometry: Geometry, leaf_info=None,
                    materials: Optional[Materials] = None) -> ClusteredGeometry:
-    """Cluster the triangles and build both AABB levels, on the geometry's
-    device. ``leaf_info`` is a native SAH layout (``native.sah_order``:
-    order, leaf starts, leaf counts; one leaf per cluster); without it
-    the triangles are Morton-sorted by centroid into runs of CLUSTER.
-    With ``materials`` the accel also carries the shading rows."""
+    """Cluster the triangles and build the AABB levels and the tree, on
+    the geometry's device. ``leaf_info`` is a native SAH layout
+    (``native.sah_order``: order, leaf starts, leaf counts; one leaf per
+    cluster); without it the triangles are Morton-sorted by centroid into
+    runs of CLUSTER. With ``materials`` the accel also carries the
+    shading rows."""
     v0, v1, v2 = _corners(geometry)
     T = v0.shape[0]
     dev = v0.device
@@ -152,8 +176,8 @@ def build_clusters(geometry: Geometry, leaf_info=None,
 
 
 def _assemble(v0, v1, v2, order, valid, st, mat_idx, layout) -> ClusteredGeometry:
-    """Gather the triangles into slot order; build the records, both AABB
-    levels and, with ``st``, the shading rows and slot materials."""
+    """Gather the triangles into slot order; build the records, the AABB
+    levels, the tree and, with ``st``, the shading rows and slot materials."""
     order = order.to(torch.int64)
     real = valid[:, None]
 
@@ -165,7 +189,7 @@ def _assemble(v0, v1, v2, order, valid, st, mat_idx, layout) -> ClusteredGeometr
     zero = torch.zeros_like(pv0)
     tris = torch.cat([torch.where(real, pv0, zero), torch.where(real, pv1 - pv0, zero),
                       torch.where(real, pv2 - pv0, zero)], dim=1).contiguous()
-    cl_aabb, sup_aabb = _aabb_levels(pv0, pv1, pv2, real)
+    cl_aabb, sup_aabb, tree = _aabb_levels(pv0, pv1, pv2, real)
     attrs = slot_mat = None
     if st is not None:
         rows = st[order]
@@ -173,14 +197,28 @@ def _assemble(v0, v1, v2, order, valid, st, mat_idx, layout) -> ClusteredGeometr
         slot_mat = torch.where(valid, mat_idx.to(order.device)[order],
                                torch.zeros_like(order)).to(torch.int32)
     return ClusteredGeometry(
-        tris=tris, cl_aabb=cl_aabb, sup_aabb=sup_aabb,
+        tris=tris, cl_aabb=cl_aabb, sup_aabb=sup_aabb, tree=tree,
         slot_to_tri=torch.where(valid, order, torch.zeros_like(order)).to(torch.int32),
         cl_count=valid.reshape(-1, CLUSTER).sum(dim=1).to(torch.int32),
         attrs=attrs, slot_mat=slot_mat, layout=layout)
 
 
+def _tree_depth(C_pad: int) -> int:
+    """Levels of inner nodes above ``C_pad`` clusters: the least depth
+    with ARITY**depth >= C_pad."""
+    depth, leaves = 0, 1
+    while leaves < C_pad:
+        depth, leaves = depth + 1, leaves * ARITY
+    return depth
+
+
+def _tree_nodes(C_pad: int) -> int:
+    return (ARITY ** _tree_depth(C_pad) - 1) // (ARITY - 1)
+
+
 def _aabb_levels(pv0, pv1, pv2, real):
-    """Cluster and super AABB levels from slot-ordered corners."""
+    """Cluster and super AABB levels and the tree's inner nodes from
+    slot-ordered corners."""
     T_pad = pv0.shape[0]
     C_pad = T_pad // CLUSTER
     S = C_pad // SUPER
@@ -196,25 +234,33 @@ def _aabb_levels(pv0, pv1, pv2, real):
         return (torch.where(empty, torch.full_like(lo_, _BIG), lo_),
                 torch.where(empty, torch.full_like(hi_, _BIG), hi_))
 
+    def pack_aabb(lo_, hi_, rows):
+        # Padding rows are far-away point boxes (the slab test fails).
+        out = torch.full((rows, _AABB_COLS), _BIG, dtype=torch.float32, device=lo_.device)
+        out[:lo_.shape[0], 0:3], out[:lo_.shape[0], 3:6] = fix_empty(lo_, hi_)
+        return out
+
     # Reduce with inverted-box neutral elements (+BIG/-BIG) so partially
-    # padded groups stay tight, then normalise the empties of each level.
+    # padded groups stay tight, then normalise the empties of each level:
+    # a parent's box is the min / max of its non-empty children's, so it
+    # contains each of them bitwise.
     cl_lo = torch.amin(t_lo.reshape(C_pad, CLUSTER, 3), dim=1)
     cl_hi = torch.amax(t_hi.reshape(C_pad, CLUSTER, 3), dim=1)
     sup_lo = torch.amin(cl_lo.reshape(S, SUPER, 3), dim=1)
     sup_hi = torch.amax(cl_hi.reshape(S, SUPER, 3), dim=1)
-    cl_lo, cl_hi = fix_empty(cl_lo, cl_hi)
-    sup_lo, sup_hi = fix_empty(sup_lo, sup_hi)
-
-    def pack_aabb(lo_, hi_):
-        n = lo_.shape[0]
-        # Padding rows are far-away point boxes (the slab test fails).
-        out = torch.full((max(_ceil_to(n, 8), 8), _AABB_COLS), _BIG,
-                         dtype=torch.float32, device=lo_.device)
-        out[:n, 0:3] = lo_
-        out[:n, 3:6] = hi_
-        return out
-
-    return pack_aabb(cl_lo, cl_hi), pack_aabb(sup_lo, sup_hi)
+    # The tree: the clusters padded with empty boxes to ARITY**depth
+    # leaves, then one level per reduction by ARITY, up to the root.
+    pad = ARITY ** _tree_depth(C_pad) - C_pad
+    lo = torch.cat([cl_lo, cl_lo.new_full((pad, 3), _BIG)])
+    hi = torch.cat([cl_hi, cl_hi.new_full((pad, 3), -_BIG)])
+    levels = []
+    while lo.shape[0] > 1:
+        lo = torch.amin(lo.reshape(-1, ARITY, 3), dim=1)
+        hi = torch.amax(hi.reshape(-1, ARITY, 3), dim=1)
+        levels.append(pack_aabb(lo, hi, lo.shape[0]))
+    rows = lambda n: max(_ceil_to(n, 8), 8)
+    return (pack_aabb(cl_lo, cl_hi, rows(C_pad)), pack_aabb(sup_lo, sup_hi, rows(S)),
+            torch.cat(levels[::-1]))
 
 
 def build_accel(geometry: Geometry, materials: Optional[Materials] = None
@@ -240,14 +286,19 @@ def _check_layout(cg: ClusteredGeometry) -> None:
           and T_pad % CLUSTER == 0 and C_pad % SUPER == 0
           and tuple(cg.cl_aabb.shape) == (max(_ceil_to(C_pad, 8), 8), _AABB_COLS)
           and tuple(cg.sup_aabb.shape) == (max(_ceil_to(S, 8), 8), _AABB_COLS)
+          and tuple(cg.tree.shape) == (_tree_nodes(C_pad), _AABB_COLS)
           and tuple(cg.slot_to_tri.shape) == (T_pad,)
           and tuple(cg.cl_count.shape) == (C_pad,)
           and (cg.attrs is None or tuple(cg.attrs.shape) == (T_pad, ATTR_COLS)))
     if not ok:
         raise ValueError(
             f"accel layout mismatch: tris {tuple(cg.tris.shape)}, cl_aabb "
-            f"{tuple(cg.cl_aabb.shape)}, sup_aabb {tuple(cg.sup_aabb.shape)}; "
-            f"expected CLUSTER={CLUSTER}, SUPER={SUPER}: rebuild the accel")
+            f"{tuple(cg.cl_aabb.shape)}, sup_aabb {tuple(cg.sup_aabb.shape)}, tree "
+            f"{tuple(cg.tree.shape)}; expected CLUSTER={CLUSTER}, SUPER={SUPER}, "
+            f"ARITY={ARITY}: rebuild the accel")
+    if (ARITY - 1) * cg.depth > STACK:
+        raise ValueError(f"a tree of depth {cg.depth} outgrows the kernel's stack of "
+                         f"{STACK} entries")
 
 
 def _refresh_attrs(cg: ClusteredGeometry, materials: Materials) -> ClusteredGeometry:
@@ -344,6 +395,31 @@ def run_clustered_plain(cg: ClusteredGeometry, o, d, t_init, backface_cull: bool
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
+_BLOCK = 128             # threads per block (csrc/clustered.cu kClusterBlock)
+_COUNTERS = {}           # (device index, stream) -> the persistent warps' counter
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(index: int, any_hit: bool) -> int:
+    """Blocks of the kernel that device ``index`` holds at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.library().mrt_clustered_blocks_per_sm(int(any_hit), ctypes.byref(per_sm))
+    build.check(err, "clustered occupancy")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return max(sms * per_sm.value, 1)
+
+
+def _counter(index: int, stream: int) -> torch.Tensor:
+    """The stream's work counter: two int32, zero between launches (the
+    kernel's last warp resets them), so launches on one stream share it."""
+    c = _COUNTERS.get((index, stream))
+    if c is None:
+        c = _COUNTERS[(index, stream)] = torch.zeros((2,), dtype=torch.int32,
+                                                     device=torch.device("cuda", index))
+    return c
+
+
 def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
          backface_cull: bool, with_rows: bool, stats):
     device = o.device
@@ -352,7 +428,7 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
     T_pad = cg.num_slots
     tensors = {"tris": (cg.tris, torch.float32, (T_pad, _TRI_COLS)),
                "cl_aabb": (cg.cl_aabb, torch.float32, tuple(cg.cl_aabb.shape)),
-               "sup_aabb": (cg.sup_aabb, torch.float32, tuple(cg.sup_aabb.shape)),
+               "tree": (cg.tree, torch.float32, tuple(cg.tree.shape)),
                "slot_to_tri": (cg.slot_to_tri, torch.int32, (T_pad,)),
                "cl_count": (cg.cl_count, torch.int32, (T_pad // CLUSTER,)),
                "o": (o, torch.float32, (R, 3)), "d": (d, torch.float32, (R, 3)),
@@ -374,22 +450,29 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {device}")
     if stats is not None:
-        _check(stats, "stats", torch.int32, (R, 2), device)
+        _check(stats, "stats", torch.int32, (R, 3), device)
+    for n in ("tree", "cl_aabb"):   # the kernel reads their rows as float4 + float2
+        if getattr(cg, n).data_ptr() % 16:
+            raise ValueError(f"{n} must be 16-byte aligned")
     f32 = dict(dtype=torch.float32, device=device)
     t_out = torch.empty((R,), **f32)
     slot = torch.empty((R,), dtype=torch.int32, device=device)
     rows = torch.empty((R, ATTR_COLS), **f32) if with_rows else None
     if R:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        # As many blocks as the card holds at once, no more than the rays need.
+        grid = max(1, min(-(-R // (_BLOCK // LANES)), _resident_blocks(index, any_hit)))
         ptr = lambda t: None if t is None else t.data_ptr()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(index):
+            stream = torch.cuda.current_stream(index).cuda_stream
             err = build.library().mrt_clustered(
-                R, cg.num_supers, int(backface_cull), int(any_hit),
-                cg.sup_aabb.data_ptr(), cg.cl_aabb.data_ptr(), cg.tris.data_ptr(),
+                R, cg.tree.shape[0], cg.cl_count.shape[0], grid, int(backface_cull),
+                int(any_hit), cg.tree.data_ptr(), cg.cl_aabb.data_ptr(), cg.tris.data_ptr(),
                 cg.slot_to_tri.data_ptr(), cg.cl_count.data_ptr(),
                 ptr(cg.attrs if with_rows else None),
                 o.data_ptr(), d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(),
-                slot.data_ptr(), ptr(rows), ptr(stats), stream)
+                slot.data_ptr(), ptr(rows), ptr(stats), _counter(index, stream).data_ptr(),
+                stream)
         build.check(err, name)
         LAUNCHES[name] += 1
         SHAPES[name] = {"rays": R, "slots": T_pad, "supers": cg.num_supers}
@@ -401,8 +484,8 @@ def clustered_closest(cg: ClusteredGeometry, o, d, t_init, backface_cull: bool =
     """Closest hit below ``t_init`` [R] of rays o, d [R, 3]. Returns (t [R]
     float32, slot [R] int32, -1 and t_init on a miss, rows [R, 34] or
     None: the winner's shading row, zeros on a miss). ``stats`` (CUDA
-    only), an int32 [R, 2] tensor, receives each ray's Möller–Trumbore
-    tests and cluster visits."""
+    only), an int32 [R, 3] tensor, receives each ray's Möller–Trumbore
+    tests, cluster visits and box (slab) tests."""
     return _run("clustered_closest", False, cg, o, d, t_init, backface_cull,
                 with_rows and cg.attrs is not None, stats)
 

@@ -10,8 +10,8 @@ coherence sort on and off, and Cornell 1920x1080 x 9 bounces with
 ``backend="pallas"`` (the panel). For each: ms per frame of three frames
 (events), device busy ms (the sum of the kernels' CUDA time; the aten
 rows that launched them are not counted again) and the idle share
-against the fastest frame, and the top kernels by CUDA time. Needs a
-CUDA device.
+against the fastest frame, K6's device time and its share of busy, and
+the top kernels by CUDA time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -76,6 +76,9 @@ def main() -> int:
               + f" ms/frame (events); device busy {busy:.3f} ms in the profiled frame; "
               f"idle share {max(0.0, 1 - busy / frame_ms):.3f} of the fastest ({card})",
               flush=True)
+        k6 = sum(dev_us(e) for e in rows if "clustered_kernel" in e.key) / 1e3
+        if k6:
+            print(f"  K6 (clustered_kernel) {k6:.3f} ms, {k6 / busy:.3f} of busy")
         rows.sort(key=dev_us, reverse=True)
         for e in rows[:args.top]:
             print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")

@@ -29,6 +29,7 @@ from mini_opencl_raytracer_tpu_torch import native as pnative
 from mini_opencl_raytracer_tpu_torch.ops import rng
 from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
+from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import _slab_rows, _Walk, walk
 from mini_opencl_raytracer_tpu_torch.ops.shading import build_shading_table, take_rows
 
 torch.set_num_threads(1)
@@ -146,20 +147,8 @@ def test_tie_goes_to_lowest_triangle_id():
     """Triangle 250 is a copy of triangle 40, laid out in cluster 0 and 40
     in cluster 2, so the traversal meets 250 first at the same t: the
     lower original id (40, the oracle's winner) takes the tie."""
-    _, pg = _soup(300, seed=3)
-    for k in ("v0", "v1", "v2"):
-        getattr(pg, k)[250] = getattr(pg, k)[40]
-    rest = np.setdiff1d(np.arange(300), [40, 250])
-    order = np.concatenate([[250], rest, [40]]).astype(np.int32)
-    leaf_info = (order, np.array([0, 128, 256], np.int32),
-                 np.array([128, 128, 44], np.int32))
-    cg = pcl.build_clusters(pg, leaf_info=leaf_info)
+    cg, o, d, pg = _tie_case()
     assert cg.slot_to_tri[0].item() == 250 and cg.slot_to_tri[256 + 43].item() == 40
-    v0, v1, v2 = pg.v0[40], pg.v1[40], pg.v2[40]
-    n = torch.linalg.cross(v1 - v0, v2 - v0)
-    n = n / torch.linalg.norm(n)
-    o = ((v0 + v1 + v2) / 3.0 + 0.05 * n)[None]
-    d = -n[None]
     h = pcl.intersect_clustered(o, d, cg, t_max=1e5)
     brute = P.intersect_brute(o, d, pg, t_max=1e5)
     assert brute.tri_idx.item() == 40 and h.tri_idx.item() == 40
@@ -242,6 +231,190 @@ def test_cluster_counts_cover_the_real_slots(layout):
         pcl.build_clusters(pg, leaf_info=(np.arange(3000, dtype=np.int32),
                                           np.array([0], np.int32),
                                           np.array([3000], np.int32)))
+
+
+def _ragged(layout, n=20_000):
+    """n triangles: at 20,000, 157 Morton clusters in 3 supers or some 230
+    SAH leaves in 4, cluster counts that are no power of the tree's arity."""
+    if layout == "sah" and not pnative.available():
+        pytest.skip("no C++ compiler: the native SAH library is unavailable")
+    _, pg = _soup(n, seed=5)
+    return (pcl.build_accel if layout == "sah" else pcl.build_clusters)(pg)
+
+
+@pytest.mark.parametrize("layout", ["morton", "sah"])
+def test_tree_boxes_contain_their_children(layout):
+    """Every inner node's box contains each non-empty child's box bitwise
+    (lo <= and hi >= as floats, children inner nodes or clusters); the
+    supers are the tree's level of S_pad nodes."""
+    cg = _ragged(layout)
+    n_inner, A = cg.tree.shape[0], pcl.ARITY
+    kids = torch.arange(n_inner)[:, None] * A + 1 + torch.arange(A)
+    rows = torch.cat([cg.tree, cg.cl_aabb])
+    child = rows[kids.clamp(max=rows.shape[0] - 1)]
+    inside = kids < rows.shape[0]
+    real = inside & (child[..., 0] < 1e38)
+    assert bool(real.any(dim=1)[cg.tree[:, 0] < 1e38].all())
+    lo_ok = cg.tree[:, None, 0:3] <= child[..., 0:3]
+    hi_ok = cg.tree[:, None, 3:6] >= child[..., 3:6]
+    assert bool((lo_ok & hi_ok).all(dim=2)[real].all())
+    S, per_super = cg.num_supers, round(np.log(pcl.SUPER) / np.log(A))
+    start = (A ** (cg.depth - per_super) - 1) // (A - 1)
+    assert torch.equal(cg.tree[start:start + S], cg.sup_aabb[:S])
+
+
+@pytest.mark.parametrize("layout", ["morton", "sah"])
+def test_every_cluster_sits_under_one_leaf_slot(layout):
+    """Leaf slot j of the tree (heap index n_inner + j) is cluster j: each
+    real cluster has one slot, and the slots past C_pad are padding. A node
+    is a far-point box exactly when no real cluster lies below it."""
+    cg = _ragged(layout)
+    A, depth = pcl.ARITY, cg.depth
+    C_pad = cg.num_slots // pcl.CLUSTER
+    below = torch.zeros(A ** depth, dtype=torch.bool)
+    below[:C_pad] = cg.cl_count > 0
+    assert int(below.sum()) == int((cg.cl_count > 0).sum()) and A ** depth >= C_pad
+    far = []
+    while below.numel() > 1:
+        below = below.reshape(-1, A).any(dim=1)
+        far.append(~below)
+    far = torch.cat(far[::-1])
+    assert far.numel() == cg.tree.shape[0] and bool(far.any())
+    assert torch.equal(far, (cg.tree[:, :6] == 3.0e38).all(dim=1))
+
+
+def _walk_cases():
+    """(name, builder of (accel, o, d)): the ragged soups with seeded rays
+    and the tie case."""
+    yield from ((f"ragged {layout}", lambda layout=layout: (
+        _ragged(layout), *(torch.from_numpy(a) for a in _random_rays(192, seed=6))))
+        for layout in ("morton", "sah"))
+    yield "tie", lambda: _tie_case()[:3]
+
+
+def _tie_case():
+    """Triangle 250 is a copy of triangle 40, laid out in cluster 0 and 40
+    in cluster 2 (accel, o, d, geometry)."""
+    _, pg = _soup(300, seed=3)
+    for k in ("v0", "v1", "v2"):
+        getattr(pg, k)[250] = getattr(pg, k)[40]
+    rest = np.setdiff1d(np.arange(300), [40, 250])
+    order = np.concatenate([[250], rest, [40]]).astype(np.int32)
+    leaf_info = (order, np.array([0, 128, 256], np.int32),
+                 np.array([128, 128, 44], np.int32))
+    cg = pcl.build_clusters(pg, leaf_info=leaf_info)
+    v0, v1, v2 = pg.v0[40], pg.v1[40], pg.v2[40]
+    n = torch.linalg.cross(v1 - v0, v2 - v0)
+    n = n / torch.linalg.norm(n)
+    o = ((v0 + v1 + v2) / 3.0 + 0.05 * n)[None]
+    return cg, o, -n[None], pg
+
+
+class _FlatWalk(_Walk):
+    """The walk of the flat scan that the tree replaced: supers front to
+    back by (entry, index), every super box slab-tested at each step, then
+    the SUPER cluster boxes of the super in order."""
+
+    def run(self) -> None:
+        cg = self.cg
+        R = self.o.shape[0]
+        S = cg.num_supers
+        sup = cg.sup_aabb[:S]
+        last_e = torch.full((R,), -1.0)
+        last_s = torch.full((R,), -1, dtype=torch.int64)
+        active = torch.ones((R,), dtype=torch.bool)
+        sidx = torch.arange(S)
+        while True:
+            r = active.nonzero()[:, 0]
+            if not r.numel():
+                return
+            e, h = _slab_rows(sup[None].expand(r.numel(), S, 8), self.o[r], self.inv[r],
+                              self.bound(r))
+            self.stats[r, 2] += S
+            after = (e > last_e[r, None]) | ((e == last_e[r, None]) & (sidx > last_s[r, None]))
+            cand = h & after
+            ns = torch.where(cand, e, torch.full_like(e, float("inf"))).argmin(dim=1)
+            has = cand.any(dim=1)
+            active[r[~has]] = False
+            r, ns, e = r[has], ns[has], e[has]
+            last_e[r] = e.gather(1, ns[:, None])[:, 0]
+            last_s[r] = ns
+            for c in range(pcl.SUPER):
+                keep = ~self.found[r]
+                r, ns = r[keep], ns[keep]
+                j = ns * pcl.SUPER + c
+                _, h = _slab_rows(cg.cl_aabb[j][:, None], self.o[r], self.inv[r],
+                                  self.bound(r))
+                self.stats[r, 2] += 1
+                if bool(h.any()):
+                    self.visit(r[h[:, 0]], j[h[:, 0]])
+            active &= ~self.found
+
+
+def _flat_walk(cg, o, d, t_init, any_hit=False):
+    w = _FlatWalk(cg, o, d, t_init, False, any_hit)
+    w.run()
+    return w.best, w.slot.to(torch.int32), w.stats.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", [name for name, _ in _walk_cases()])
+def test_walk_matches_plain(case):
+    """The model of the kernel's walk (stack order, cull and slack as in
+    csrc/clustered.cu) and the flat walk it replaced return
+    run_clustered_plain's (t, slot) exactly, closest and any-hit, at an
+    open and at a short limit; the tree tests fewer boxes."""
+    cg, o, d = dict(_walk_cases())[case]()
+    for limit in (1e5, 4.0):
+        ti = torch.full((o.shape[0],), limit)
+        p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, ti, False)
+        boxes = {}
+        for order, run in (("tree", walk), ("flat", _flat_walk)):
+            t, slot, stats = run(cg, o, d, ti)
+            assert torch.equal(t, p_t) and torch.equal(slot, p_slot), order
+            _, a_slot, a_stats = run(cg, o, d, ti, any_hit=True)
+            assert torch.equal(a_slot >= 0, p_slot >= 0), order
+            assert bool((a_stats <= stats).all()), order
+            boxes[order] = stats[:, 2].sum().item()
+        if case != "tie":
+            assert 0.3 < (p_slot >= 0).float().mean() < 1.0
+            assert boxes["tree"] < boxes["flat"] / 2
+    if case == "tie":
+        assert cg.slot_to_tri[p_slot[0].long()].item() == 40
+
+
+def _diagonal_rays(n, seed):
+    """Seeded rays through the room, half with the direction (1, 1, 1)
+    (not normalised), half in the positive octant with every component
+    below 0.88."""
+    r = np.random.default_rng(seed)
+    o = r.uniform([-7, -20, 1], [7, 19, 16], size=(n, 3)).astype(np.float32)
+    d = r.uniform(0.1, 1.0, size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[: n // 2] = 1.0
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("layout", ["morton", "sah"])
+def test_walk_keeps_out_of_the_leaf_padding_at_an_open_limit(layout):
+    """At a limit of inf or 3e38 a far-point box passes the slab test of a
+    ray along (1, 1, 1), so the walk enters the inner nodes above the leaf
+    padding; it tests no child past the last real leaf row (the model
+    indexes the leaf rows unclamped and would raise) and returns
+    run_clustered_plain's (t, slot) exactly, closest and any-hit."""
+    cg = _ragged(layout, n=15_000)      # 2 or 3 supers: 128 or 192 of 256 leaf slots
+    assert pcl.ARITY ** cg.depth > cg.cl_count.shape[0]
+    o, d = _diagonal_rays(128, seed=7)
+    far = torch.full((1, 1, 8), 3.0e38)
+    for limit in (float("inf"), 3.0e38):
+        ti = torch.full((o.shape[0],), limit)
+        _, through = _slab_rows(far.expand(o.shape[0], 1, 8), o, pcl._inverse(d), ti)
+        assert bool(through[: o.shape[0] // 2].all())
+        p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, ti, False)
+        t, slot, stats = walk(cg, o, d, ti)
+        assert torch.equal(t, p_t) and torch.equal(slot, p_slot)
+        _, a_slot, _ = walk(cg, o, d, ti, any_hit=True)
+        assert torch.equal(a_slot >= 0, p_slot >= 0)
+        assert 0.0 < (p_slot >= 0).float().mean() < 1.0
 
 
 def test_bunny_render_matches_jax(bunny):

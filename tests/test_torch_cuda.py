@@ -25,9 +25,11 @@ import pytest
 import torch
 
 import mini_opencl_raytracer_tpu_torch as P
-from mini_opencl_raytracer_tpu_torch.ops import rng
+from mini_opencl_raytracer_tpu_torch import native as pnative
+from mini_opencl_raytracer_tpu_torch.ops import integrator, rng
 from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
+from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import panel as ppanel
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
@@ -264,31 +266,117 @@ def test_panel_kernel_matches_plain_on_card(cull):
         parity.check_any("panel_any", k_any, p_any)
 
 
+def _ragged_soup(dev, n=20_000, seed=5):
+    """A seeded soup of ``n`` triangles spread through the room: at 20,000
+    triangles 157 Morton clusters in 3 supers, or some 230 SAH leaves in
+    4, cluster counts that are no power of the tree's arity."""
+    r = np.random.default_rng(seed)
+    base = r.uniform([-8, 0, 0], [8, 20, 17], size=(n, 3)).astype(np.float32)
+    v1 = base + r.normal(scale=0.8, size=(n, 3)).astype(np.float32)
+    v2 = base + r.normal(scale=0.8, size=(n, 3)).astype(np.float32)
+    z3 = torch.zeros((n, 3), device=dev)
+    z2 = torch.zeros((n, 2), device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return P.Geometry(v0=t(base), v1=t(v1), v2=t(v2), n0=z3, n1=z3, n2=z3, uv0=z2, uv1=z2,
+                      uv2=z2, mat_idx=torch.zeros((n,), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("layout", ["sah", "morton"])
+def test_ragged_soup_is_ragged(layout):
+    """The card case below spans several supers, and its real cluster
+    count is no power of the tree's arity: the tree has empty padding."""
+    if layout == "sah" and not pnative.available():
+        pytest.skip("no C++ compiler: the native SAH library is unavailable")
+    build = pcl.build_accel if layout == "sah" else pcl.build_clusters
+    cg = build(_ragged_soup(torch.device("cpu")))
+    real = int((cg.cl_count > 0).sum())
+    assert cg.num_supers >= 3
+    assert pcl.ARITY ** round(np.log(real) / np.log(pcl.ARITY)) != real
+    assert bool((cg.tree[:, 0] >= 1e38).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["sah", "morton"])
 def test_clustered_kernel_matches_plain_on_card(layout):
-    """clustered_closest (rows included) / clustered_any (K6) on the
-    bunny scene at 4000 triangles against run_clustered_plain."""
+    """clustered_closest (rows included) / clustered_any (K6) against
+    run_clustered_plain, bitwise, on the bunny scene at 4000 triangles and
+    on the ragged soup (several supers); the per-ray counts [R, 3] in both
+    modes equal those of the model of the walk; and the same rays sorted
+    by the wavefront's coherence key or shuffled give bitwise the same
+    per-ray outputs and counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    scene = P.bunny_scene(target_tris=4000, device=dev)
     build = pcl.build_accel if layout == "sah" else pcl.build_clusters
-    cg = build(scene.geometry, materials=scene.materials)
-    for o, d in _camera_and_room_rays(dev):
-        R = o.shape[0]
-        t_init = torch.full((R,), 1e5, device=dev)
-        n0 = dict(pcl.LAUNCHES)
-        k = pcl.clustered_closest(cg, o, d, t_init)
-        p = pcl.run_clustered_plain(cg, o, d, t_init, False, with_rows=True)
-        limit = torch.full((R,), 6.0, device=dev)
-        k_any = pcl.clustered_any(cg, o, d, limit)
-        p_any = pcl.run_clustered_plain(cg, o, d, limit, False)[1] >= 0
-        torch.cuda.synchronize()
-        assert pcl.LAUNCHES == {"clustered_closest": n0["clustered_closest"] + 1,
-                                "clustered_any": n0["clustered_any"] + 1}
-        parity.check_hits("clustered_closest", k, p)
-        parity.check_any("clustered_any", k_any, p_any)
+    bunny = P.bunny_scene(target_tris=4000, device=dev)
+    for geo, mats in ((bunny.geometry, bunny.materials), (_ragged_soup(dev), None)):
+        cg = build(geo, materials=mats)
+        pts = torch.cat([geo.v0, geo.v1, geo.v2])
+        blocked = []
+        for o, d in _camera_and_room_rays(dev):
+            R = o.shape[0]
+            t_init = torch.full((R,), 1e5, device=dev)
+            limit = torch.full((R,), 6.0, device=dev)
+            st, st_any = (torch.zeros((R, 3), dtype=torch.int32, device=dev) for _ in range(2))
+            n0 = dict(pcl.LAUNCHES)
+            k = pcl.clustered_closest(cg, o, d, t_init, stats=st)
+            k_any = pcl.clustered_any(cg, o, d, limit, stats=st_any)
+            torch.cuda.synchronize()
+            assert pcl.LAUNCHES == {"clustered_closest": n0["clustered_closest"] + 1,
+                                    "clustered_any": n0["clustered_any"] + 1}
+            p = pcl.run_clustered_plain(cg, o, d, t_init, False, with_rows=mats is not None)
+            p_any = pcl.run_clustered_plain(cg, o, d, limit, False)[1] >= 0
+            parity.check_hits("clustered_closest", k, p)
+            assert all(torch.equal(a, b) for a, b in zip(k, p) if a is not None)
+            assert (k[2] is None) == (mats is None)
+            assert torch.equal(k_any, p_any)
+            blocked.append(k_any.float().mean().item())
+            assert torch.equal(st, walk(cg, o, d, t_init)[2])
+            assert torch.equal(st_any, walk(cg, o, d, limit, any_hit=True)[2])
+            keys = integrator._ray_sort_keys(o, d, pts.amin(0), pts.amax(0))
+            gen = torch.Generator(device=dev).manual_seed(3)
+            for perm in (torch.sort(keys, stable=True).indices,
+                         torch.randperm(R, generator=gen, device=dev)):
+                st_p = torch.zeros_like(st)
+                kp = pcl.clustered_closest(cg, o[perm].contiguous(), d[perm].contiguous(),
+                                           t_init, stats=st_p)
+                assert all(torch.equal(a, b[perm]) for a, b in zip(kp, k) if a is not None)
+                assert torch.equal(st_p, st[perm])
+        assert 0.0 < max(blocked) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sah", "morton"])
+def test_clustered_kernel_keeps_out_of_the_leaf_padding_on_card(layout):
+    """K6 at a limit of inf and of 3e38 on a soup whose tree pads its leaf
+    level (2 or 3 supers of 4**4 leaf slots), on rays in the positive
+    octant, half along (1, 1, 1), where a far-point box passes the slab
+    test: bitwise run_clustered_plain's (t, slot) and any-hit, and the
+    counts of the model of the walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    build = pcl.build_accel if layout == "sah" else pcl.build_clusters
+    cg = build(_ragged_soup(dev, n=15_000))
+    assert pcl.ARITY ** cg.depth > cg.cl_count.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = 8192
+    lo = torch.tensor([-7.0, -20.0, 1.0], device=dev)
+    hi = torch.tensor([7.0, 19.0, 16.0], device=dev)
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
+    d = 0.1 + 0.9 * torch.rand((n, 3), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    d[: n // 2] = 1.0
+    for limit in (float("inf"), 3.0e38):
+        ti = torch.full((n,), limit, device=dev)
+        st = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        k_t, k_slot, _ = pcl.clustered_closest(cg, o, d, ti, stats=st)
+        k_any = pcl.clustered_any(cg, o, d, ti)
+        p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, ti, False)
+        assert torch.equal(k_t, p_t) and torch.equal(k_slot, p_slot)
+        assert torch.equal(k_any, p_slot >= 0)
+        assert torch.equal(st, walk(cg, o, d, ti)[2])
+        assert 0.0 < (p_slot >= 0).float().mean().item() < 1.0
 
 
 @pytest.mark.cuda
@@ -360,6 +448,18 @@ def test_short_range_case_hits_below_its_box_entry():
     t1, t2 = (box[0:3] - o[0]) * inv, (box[3:6] - o[0]) * inv
     entry = torch.minimum(t1, t2).max().clamp(min=0.0).item()
     assert h.t.item() < t_decoy < entry / (1.0 + 1e-4)
+
+
+def test_walk_short_range_case():
+    """The model of the kernel's walk finds F, as the plain version does:
+    front to back it visits the decoy's cluster first, and the slack keeps
+    F's cluster, whose entry lies beyond the decoy's t, in the walk."""
+    _, cg, o, d = short_range_case()
+    t_init = torch.full((1,), 1e5)
+    t, slot, stats = walk(cg, o, d, t_init)
+    p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, t_init, False)
+    assert slot.item() == p_slot.item() == pcl.CLUSTER and t.item() == p_t.item()
+    assert stats[0, 1].item() == 2
 
 
 @pytest.mark.cuda
