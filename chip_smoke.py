@@ -14,7 +14,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    the main path's shape (1920x1080, the tile-ordered pixel ids that
    ``render_sample`` passes, every bounce of 9), and at 512x512 for
    Cornell defaults, for two lights with shadow rays, direct specular
-   and GGX, and for backface culling with soft edges;
+   and GGX, and for backface culling with soft edges; all of K1's
+   outputs bitwise equal to the plain version's and its M-T tests
+   per ray (``stats``), without shadow rays equal ray by ray to the model
+   of its per-warp cull (ops/cuda/bundle_cull.py), on those cases and on
+   a soup of 2048 triangles and a camera grazing the floor (with
+   culling and shadow rays);
 3b. each backward kernel against its plain version on the card, with
    seeded cotangents, and against a second run of itself (bitwise): at
    the main path's shape (1080p, tile-ordered ids, bounces 0-8 on the
@@ -44,11 +49,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    albedo against a 1080p target;
 8. the panel kernel (K5) against its plain version on Cornell: primary,
    bounce-1 and shadow rays of the 1080p wavefront (render_sample's
-   tile-ordered ids), and the same at 512x512 with backface culling;
+   tile-ordered ids), and the same at 512x512 with backface culling; then
+   bitwise (t, idx), and t, idx and M-T counts per ray equal to the model
+   of its cull (closest and any), on those sets (bounce-1 also sorted)
+   and on the cull's adversarial sets (ops/cuda/parity.cull_ray_sets:
+   vertices and edges, coplanar floor and box bottoms, grazing rays,
+   directions with +0 / -0 components, limits inf and 3e38, padding rows,
+   a soup of 2048 triangles), with and without backface culling;
 9. the cluster-traversal kernel (K6) against its plain version: primary,
    bounce-1 and shadow rays, rows included, on the bunny scene (SAH
    layout) and the sponza scene at 512x512, and on bunny's Morton layout;
    on bunny SAH also an open limit (inf) on rays along (1, 1, 1), bitwise;
+   and two-triangle scenes where a triangle grazed at cos 1e-3 or 1e-4
+   hides behind a decoy (parity.grazing_decoys), bitwise;
 10. path B, the wavefront on the panel: Cornell 1920x1080 x 9 with
    ``backend="pallas"`` against the mega path (same frames; defaults, then
    shadow rays and direct specular), its gradients at 512x512 x 9 against
@@ -63,14 +76,20 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    leaves finite, diffuse gradient non-zero, ms/step), and a prebuilt
    accel tracking a material update;
 13. K5 and K6 alone by CUDA events (20 launches) against their plain
-   versions (3 calls) at the paths' shapes, K6 on the bounce-1 rays in
+   versions (3 calls) at the paths' shapes, K5 on Cornell's 1080p primary,
+   bounce-1 (pixel order and sorted) and shadow rays with its M-T tests
+   per ray and its bound beside the bound that charges every pair, K6 on the bounce-1 rays in
    pixel order, coherence-sorted and shuffled, with its Möller–Trumbore
    tests, cluster visits and box tests per ray and the share of idle
    lanes per warp; on config 3's primary rays the kernel's (t, slot) and
    counts against the model of its walk (ops/cuda/clustered_walk.py,
    equal).
 
-Gates (phases 3, 3b, 4, 7-12): ops/cuda/parity.py.
+Gates (phases 3, 3b, 4, 7-12): ops/cuda/parity.py. The forward
+intersection kernels' bounds count 45 flops for each (ray, triangle)
+pair whose line meets the triangle below the ray's limit (``hit_pairs``),
+what the inputs need; the bound that charged every pair is printed beside
+them (phases 5/6 and 13).
 
 The last lines are one JSON object with a summary per kernel (launches
 from the run of the path that uses it, errors, times, bound), the card's
@@ -356,6 +375,89 @@ def wavefront_rays(mrt, torch, scene, cam, cfg, closest, any_hit):
             "shadow": shadow}
 
 
+def hit_pairs(torch, tris, o, d, limit, cull: bool, live=None) -> int:
+    """The (ray, record) pairs whose line meets the triangle at 0 < t <
+    limit (the exact test accepts them): what the intersection needs, by
+    the plain version's panel on the card. A culling kernel runs ~45 flops
+    for each of these and no more than it must for the rest."""
+    from mini_opencl_raytracer_tpu_torch.ops.intersect import ray_triangle_edges
+    n, chunk = 0, max(1, (1 << 22) // tris.shape[0])
+    for s in range(0, o.shape[0], chunk):
+        t, _, _, _ = ray_triangle_edges(o[s:s + chunk, None], d[s:s + chunk, None],
+                                        tris[None, :, 0:3], tris[None, :, 3:6],
+                                        tris[None, :, 6:9], cull)
+        ok = t < limit[s:s + chunk, None]
+        if live is not None:
+            ok &= live[s:s + chunk, None]
+        n += int(ok.sum().item())
+    return n
+
+
+def k5_exact(label, torch, panel, bc, tris, o, d, limit, cull: bool) -> float:
+    """K5 against its plain version bitwise (closest: t and idx), and
+    against the model of its cull (ops/cuda/bundle_cull.py: t, idx and
+    each ray's M-T count, closest and any); returns the mean count of the
+    closest mode."""
+    R = o.shape[0]
+    st, sa = (torch.zeros((R,), dtype=torch.int32, device=o.device) for _ in range(2))
+    k = panel.panel_closest(tris, o, d, limit, cull, stats=st)
+    ka = panel._run("panel_any", True, tris, o, d, limit, cull, sa)
+    p = panel.run_panel_plain(tris, o, d, limit, cull)
+    m, ma = bc.cull_hits(tris, o, d, limit, cull), bc.cull_hits(tris, o, d, limit, cull, True)
+    torch.cuda.synchronize()
+    eq = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    if not eq(k, p):
+        raise AssertionError(f"K5 {label}: (t, idx) differ from the plain version's on "
+                             f"{int((k[1] != p[1]).sum().item())} rays")
+    if not (eq(k, m[:2]) and torch.equal(st, m[2]) and eq(ka, ma[:2]) and torch.equal(sa, ma[2])):
+        raise AssertionError(f"K5 {label}: outputs or M-T counts differ from the model of "
+                             f"its cull on {int((st != m[2]).sum().item())} / "
+                             f"{int((sa != ma[2]).sum().item())} rays (closest / any)")
+    if not torch.equal(ka[1] >= 0, p[1] >= 0):
+        raise AssertionError(f"K5 {label}: any-hit occlusion differs from the plain version's")
+    mean = st.float().mean().item()
+    log(f"  panel {label} ({R} rays, {tris.shape[0]} records, cull {cull}): bitwise equal to "
+        f"plain; t, idx and M-T counts equal the model's, closest and any; M-T tests per ray "
+        f"{mean:.3f} closest, {sa.float().mean().item():.3f} any")
+    return mean
+
+
+K1_OUTS = ("o", "d", "beta", "alive", "radiance", "winner", "occ", "seeds")
+
+
+def k1_counts(label, torch, mk, bc, rng, table, tris, lv, camv, pid, frame: int, cfg,
+              k0, p0) -> float:
+    """K1's outputs, all eight, bitwise against its plain version's, a
+    second launch with stats bitwise equal to the first, and its M-T tests
+    per ray: without shadow rays equal, ray by ray, to the model of its
+    cull on the plain version's camera rays."""
+    from mini_opencl_raytracer_tpu_torch.ops.camera import rays_from_basis
+    R = pid.numel()
+    st = torch.zeros((R,), dtype=torch.int32, device=pid.device)
+    again = mk.bounce0_fwd(table, tris, lv, camv, pid, frame, cfg, stats=st)
+    torch.cuda.synchronize()
+    bit = {n: torch.equal(a, b) for n, a, b in zip(K1_OUTS, k0, p0)}
+    if not all(bit.values()):
+        raise AssertionError(f"K1 {label}: outputs differ from plain: {bit}")
+    if not all(torch.equal(a, b) for a, b in zip(again, k0)):
+        raise AssertionError(f"K1 {label}: a launch with stats differs from one without")
+    msg = ""
+    if not cfg.shadow_rays:
+        seeds = rng.pixel_seeds(pid, frame)
+        o, d = rays_from_basis(camv[0:3], camv[3:6], camv[6:9], camv[9:12], cfg, pid, seeds)
+        limit = torch.full((R,), min(cfg.t_max, 3.0e38), device=pid.device)
+        model = bc.cull_hits(tris, o.contiguous(), d.contiguous(), limit, cfg.backface_cull)[2]
+        if not torch.equal(model, st):
+            raise AssertionError(f"K1 {label}: M-T counts differ from the model of its cull "
+                                 f"on {int((model != st).sum().item())} rays")
+        msg = ", equal to the model's on every ray"
+    mean = st.float().mean().item()
+    log(f"  bounce0_fwd {label}: bitwise equal to plain: {', '.join(bit)}"
+        + f"; M-T tests per ray {mean:.3f} (of {tris.shape[0]} triangles"
+        + (" + shadow rays" if cfg.shadow_rays else "") + f"){msg}")
+    return mean
+
+
 def check_intersector(label, torch, parity, closest_k, closest_p, any_k, any_p,
                       rays, t_max) -> float:
     """Closest hits of the primary and bounce-1 rays and occlusion of the
@@ -429,6 +531,7 @@ def main() -> int:
     from mini_opencl_raytracer_tpu_torch import grad
     from mini_opencl_raytracer_tpu_torch import native
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
     from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
     from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
     from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
@@ -479,6 +582,7 @@ def main() -> int:
              ("backface_cull+soft_edge", mrt.cornell_scene(device=dev),
               mrt.RenderConfig(backface_cull=True, soft_edge_sigma=0.05), None,
               7, (1, 2)))
+    k1_mean = {}
     for label, scene, cfg, pid, frame, bounces in cases:
         table, tris, lv = mk._tables(scene, cfg, None)
         if pid is None:
@@ -490,6 +594,8 @@ def main() -> int:
         log(f"[3 kernel] bounce0_fwd, {label}, {cfg.width}x{cfg.height}: "
             "seeds bit-exact")
         log_stats("bounce0_fwd", stats)
+        k1_mean[label] = k1_counts(label, torch, mk, bc, rng, table, tris, lv, camv, pid, frame,
+                                   cfg, k0, p0)
         max_err["bounce0_fwd"] = max(max_err["bounce0_fwd"], stats["max_abs_err"])
         state = (k0[0], k0[1], k0[2], k0[3], k0[7])
         for b in bounces:
@@ -502,6 +608,21 @@ def main() -> int:
             log_stats("bounce_fwd", stats)
             max_err["bounce_fwd"] = max(max_err["bounce_fwd"], stats["max_abs_err"])
             state = (p1[0], p1[1], p1[2], p1[3], k0[7])
+
+    # 3, the cull of K1 beyond Cornell's camera: a soup of 2048 triangles
+    # and a camera grazing the floor (culling, shadow rays).
+    for label, scene3, cam3, cfg3_ in parity.k1_cull_cases(dev):
+        table, tris, lv = mk._tables(scene3, cfg3_, None)
+        camv3 = mk.camera_vector(cam3)
+        pid = torch.arange(cfg3_.num_pixels, dtype=torch.int32, device=dev)
+        k0 = mk.bounce0_fwd(table, tris, lv, camv3, pid, 5, cfg3_)
+        p0 = mk.bounce0_fwd_plain(table, tris, lv, camv3, pid, 5, cfg3_)
+        torch.cuda.synchronize()
+        stats = parity.check_bounce(f"bounce0_fwd, {label}", k0, p0)
+        log(f"[3 kernel] bounce0_fwd, {label}, {cfg3_.width}x{cfg3_.height}")
+        log_stats("bounce0_fwd", stats)
+        max_err["bounce0_fwd"] = max(max_err["bounce0_fwd"], stats["max_abs_err"])
+        k1_counts(label, torch, mk, bc, rng, table, tris, lv, camv3, pid, 5, cfg3_, k0, p0)
 
     # 3b. Each backward kernel against its plain version, on the forward
     # kernels' winners and state, with seeded cotangents shared by both.
@@ -786,8 +907,19 @@ def main() -> int:
     bwd_tab_bytes = 2 * (table.numel() + lv.numel()) * 4
     by0 = bwd_bytes(cfg, torch.ones_like(b0[3]), b0[5], True) + bwd_tab_bytes + 2 * 16 * 4
     by1 = bwd_bytes(cfg, state[3], b1[5], False) + bwd_tab_bytes
-    bounds = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, R_main * T_main * MT_FLOPS),
-              "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, alive1 * T_main * MT_FLOPS),
+    # The forward kernels' operations: 45 flops for each (ray, triangle)
+    # pair whose line meets the triangle below the ray's limit (hit_pairs);
+    # the dense bound, which charges every pair, is printed beside it.
+    from mini_opencl_raytracer_tpu_torch.ops.camera import rays_from_basis
+    seeds0 = rng.pixel_seeds(main_ids, 0)
+    o0, d0 = rays_from_basis(camv[0:3], camv[3:6], camv[6:9], camv[9:12], cfg, main_ids, seeds0)
+    lim = torch.full((R_main,), min(cfg.t_max, 3.0e38), device=dev)
+    need0 = hit_pairs(torch, tris, o0, d0, lim, cfg.backface_cull)
+    need1 = hit_pairs(torch, tris, b0[0].T, b0[1].T, lim, cfg.backface_cull, b0[3] > 0)
+    dense = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, R_main * T_main * MT_FLOPS),
+             "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, alive1 * T_main * MT_FLOPS)}
+    bounds = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, need0 * MT_FLOPS),
+              "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, need1 * MT_FLOPS),
               "bounce0_bwd": bound(by0, flops0), "bounce_bwd": bound(by1, flops1)}
     for name, fl, nb in (("bounce0_bwd", flops0, by0), ("bounce_bwd", flops1, by1)):
         log(f"[6 bound] {name} at 1080p: {nb / 1e6:.2f} MB and {fl / 1e9:.4f} GFLOP needed "
@@ -795,6 +927,15 @@ def main() -> int:
             f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}); kernel "
             f"{times[name][0]:.4f} ms (bound / kernel "
             f"{bounds[name]['bound_ms'] / times[name][0]:.1%})")
+    for name, need in (("bounce0_fwd", need0), ("bounce_fwd", need1)):
+        b_new, b_old = bounds[name], dense[name]
+        log(f"[5/6 bound] {name} at 1080p: {need} (ray, triangle) pairs meet below the limit "
+            f"({need / R_main:.3f} per ray): bound {b_new['bound_ms']:.4f} ms "
+            f"({b_new['bound_by']}), {b_new['bound_ms'] / times[name][0]:.1%} of the kernel; "
+            f"charging every pair (the dense bound): {b_old['bound_ms']:.4f} ms "
+            f"({b_old['bound_by']}), {b_old['bound_ms'] / times[name][0]:.1%}")
+    log(f"[5/6 count] bounce0_fwd M-T tests per ray at 1080p (main path): "
+        f"{k1_mean[cases[0][0]]:.3f} of {T_main} triangles")
     launches = {k: launches[k] for k in mk.LAUNCHES}
 
     # 8. K5 against its plain version: the 1080p Cornell wavefront's
@@ -815,8 +956,17 @@ def main() -> int:
             lambda o, d, tl: panel.panel_any(tri_k5, o, d, tl, cull),
             lambda o, d, tl: panel.run_panel_plain(tri_k5, o, d, tl, cull)[1] >= 0,
             rays_b, cfg8.t_max))
+        for kind_r in ("primary", "bounce1", "bounce1_sorted", "shadow"):
+            o, d = rays_b[kind_r][:2]
+            limit = (rays_b[kind_r][2] if kind_r == "shadow"
+                     else torch.full((o.shape[0],), cfg8.t_max, device=dev))
+            k5_exact(f"{label} {kind_r}", torch, panel, bc, tri_k5, o, d, limit, cull)
         if label == "1920x1080":
             rays_k5 = rays_b
+    log("[8 kernel] panel (K5) on the adversarial sets of its cull (parity.cull_ray_sets)")
+    for name, (geo, o, d, limit) in parity.cull_ray_sets(dev).items():
+        for cull in (False, True):
+            k5_exact(name, torch, panel, bc, panel.pack_triangles(geo), o, d, limit, cull)
 
     # 9. K6 against its plain version on the bunny and sponza scenes.
     cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
@@ -869,6 +1019,21 @@ def main() -> int:
                 raise AssertionError("K6 at an open limit differs from its plain version")
             log(f"  clustered open limit along (1, 1, 1) ({o.shape[0]} rays): bitwise equal, "
                 f"closest and any, hit {(p[1] >= 0).float().mean().item():.4f}")
+    # K6 at grazing incidence behind a decoy (parity.grazing_decoys): the
+    # grazed triangle F, whose M-T t lies below its own box's entry, wins.
+    decoys = 0
+    for cos in (1e-3, 1e-4):
+        for cg_d, o, d, t_f, _, _ in parity.grazing_decoys(dev, cos):
+            ti = torch.full((1,), 1e5, device=dev)
+            k, p = cl.clustered_closest(cg_d, o, d, ti), cl.run_clustered_plain(cg_d, o, d, ti, False)
+            if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                    and p[1].item() == cl.CLUSTER and p[0].item() == t_f
+                    and bool(cl.clustered_any(cg_d, o, d, ti).item())):
+                raise AssertionError(f"K6 behind a grazing decoy (cos {cos}) differs from its "
+                                     "plain version or misses the grazed triangle")
+            decoys += 1
+    log(f"  clustered behind grazing decoys (cos 1e-3, 1e-4): {decoys} scenes, (t, slot) "
+        "bitwise equal, the grazed triangle wins in each")
 
     # 10. Path B: Cornell through the wavefront on K5 against the mega path.
     for label, kw in (("defaults", {}),
@@ -1027,18 +1192,31 @@ def main() -> int:
     # 13. K5 and K6 alone against their plain versions at the paths' shapes.
     t_max = main_cfg.t_max
     full = lambda o: torch.full((o.shape[0],), t_max, device=o.device)
-    for kind_r in ("primary", "bounce1"):
-        o, d = rays_k5[kind_r]
-        ti = full(o)
-        k_ms = time_ms(lambda: panel.panel_closest(tri_k5, o, d, ti), 20)
+    T5 = tri_k5.shape[0]
+    for kind_r in ("primary", "bounce1", "bounce1_sorted", "shadow"):
+        o, d = rays_k5[kind_r][:2]
+        ti = rays_k5[kind_r][2] if kind_r == "shadow" else full(o)
+        R5 = o.shape[0]
+        st = torch.zeros((R5,), dtype=torch.int32, device=dev)
+        # Device time of the kernel alone: panel._run, not panel_any, whose
+        # idx >= 0 is a kernel of its own.
+        any_r = kind_r == "shadow"
+        name_r = "panel_any" if any_r else "panel_closest"
+        panel._run(name_r, any_r, tri_k5, o, d, ti, False, stats=st)
+        k_ms = device_ms(lambda: panel._run(name_r, any_r, tri_k5, o, d, ti, False))
         p_ms = time_ms(lambda: panel.run_panel_plain(tri_k5, o, d, ti, False), 3)
-        log(f"[13 time] panel (K5) Cornell 1080p {kind_r} ({o.shape[0]} rays): kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms ({card})")
+        need = hit_pairs(torch, tri_k5, o, d, ti, False)
+        b5 = bound(R5 * 36 + tri_k5.numel() * 4, need * MT_FLOPS)
+        b5_dense = bound(R5 * 36 + tri_k5.numel() * 4, R5 * cornell.num_triangles * MT_FLOPS)
+        log(f"[13 time] panel (K5) Cornell 1080p {kind_r} ({R5} rays): kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.3f} ms; M-T tests per ray {st.float().mean().item():.3f} of {T5} "
+            f"records; {need} pairs meet ({need / R5:.3f} per ray): bound "
+            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']}), {b5['bound_ms'] / k_ms:.1%} of the "
+            f"kernel; charging every pair (the dense bound): {b5_dense['bound_ms']:.4f} ms "
+            f"({b5_dense['bound_by']}) ({card})")
         if kind_r == "primary":
-            T5 = cornell.num_triangles
             times["panel"] = (k_ms, p_ms)
-            bounds["panel"] = bound(o.shape[0] * 36 + tri_k5.numel() * 4,
-                                    o.shape[0] * T5 * MT_FLOPS)
+            bounds["panel"] = b5
     big_rays = wavefront_rays(mrt, torch, sponza, cam,
                               mrt.RenderConfig(width=3840, height=2160, bounces=1),
                               *cl.make_intersectors(sponza.geometry, cfg3,

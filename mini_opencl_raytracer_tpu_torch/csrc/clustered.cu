@@ -31,9 +31,10 @@
 // The function needs its rays (28 bytes in, 144 out with the row) and the
 // scene once: a 36-byte record per real triangle (2.5 MB at bunny scale,
 // 9.3 MB at sponza scale, resident in the 50 MB L2), the boxes, the rows
-// of the winners; and ~45 flops per Moller-Trumbore test (~21 tests a
-// config-3 primary ray; the box tests are the walk's own cost, not the
-// function's). That bound is 2-16% of the time. On a
+// of the winners; and ~45 flops per Moller-Trumbore test (~45 tests a
+// config-3 primary ray, ~21 while the walk culled by the best t; the box
+// tests are the walk's own cost, not the function's). That bound is 3-12%
+// of the time (config 3 primary, sponza 4K). On a
 // large launch (8.3 M rays at sponza scale) the kernel is set by its
 // instruction stream: ~130 static instructions per M-T test in its loop
 // under -fmad=false. On a small one (262 k rays at config 3) by its tail:
@@ -50,10 +51,11 @@
 //   * front to back: a node's hit children are sorted by (entry, index)
 //     (a network of compare-exchanges in registers); the nearest is
 //     entered at once and the others are pushed far to near on a short
-//     per-thread stack (kStack entries, in local memory). A popped entry
-//     that lies beyond the current best t plus the slack is skipped: that
-//     is the slab test of its box against the current best t. The first
-//     hits found are near, so the cull prunes the rest early;
+//     per-thread stack (kStack entries, in local memory). No node is
+//     culled by the best t found so far (see below), so a closest walk
+//     visits the same clusters in any order; the order still pays: with a
+//     ballot of the children hit, entered in index order, closest
+//     launches ran 3-6% slower (and any launches 9% faster; PERF.md);
 //   * kLanes = 4 lanes per ray: they slab-test a node's 4 children at once
 //     and share the entries by shuffles, take a cluster's slots in rounds
 //     of 4 (neighbouring lanes read neighbouring records), and reduce the
@@ -76,25 +78,27 @@
 // max(tmin, 0) is no larger and its min(tmax, t_far) no smaller: a parent's
 // slab test never rejects a box whose own test passes. So every cluster
 // whose box the ray hits has all its ancestors hit, and the kernel reaches
-// every cluster that the flat scan reached, up to the cull. A culled node's
-// entry exceeds best * (1 + kCullRel) + kCullAbs * scale / |d|, and so
-// does the entry of every cluster below it. The slack covers
-// Moller-Trumbore's error against the box entry: for a triangle whose
-// corner or face lies on its cluster's box, the hit can come out below the
-// box's entry by a few ulps of t (the relative term) or, for a ray starting
-// near the triangle, by rounding of o - v0 at the scene's scale (the
-// absolute term; scale = the largest |coordinate| of the root box and the
-// ray's origin). Near grazing incidence M-T's error grows as 1 / cos and
-// can outrun the slack: there a near-tie may still go to the other
-// candidate. A candidate wins if 0 < t < best, or t == best and its
-// original triangle id is lower (read through slot_to_tri only on
+// every cluster that the plain version tests, and, testing every box at
+// t_init, no other. Why no cull by the best t: Moller-Trumbore's t can
+// come out below the slab entry of its own cluster's box, by a few ulps of
+// t on a face or corner of the box, by 1.2% of t for a ray starting near
+// the triangle, and by a share of t that grows as 1 / cos of the ray to
+// the triangle near grazing incidence (6% at cos 1e-4). A cull of the
+// boxes whose entry lies beyond the best t plus a slack then drops a
+// nearer hit (ops/cuda/parity.grazing_decoys). A sound slack needs, per
+// node and ray, a lower bound on |cos| over the node's triangles; on the
+// bunny and sponza scenes, in 90% of the clusters some normal lies 82
+// degrees or more from the axis of their normals' cone, so a cone's bound
+// is 0 at 93-97% of the nodes tested, and a cull with it saved 0.4% of
+// the M-T tests (PERF.md). A candidate wins if 0 < t < best, or t == best
+// and its original triangle id is lower (read through slot_to_tri only on
 // equality), so the result is the least (t, id) key over the clusters
 // reached, whatever the order of the visits, the split of a cluster's
 // slots over lanes, the stack discipline or the split of rays over warps.
 //
 // Semantics are ops/cuda/clustered.run_clustered_plain's, which tests every
-// cluster the ray's slab test hits at t_init instead of walking the tree
-// and culling by the running best t; ops/cuda/clustered_walk.py models the
+// cluster the ray's slab test hits at t_init, in one flat pass instead of
+// walking the tree; ops/cuda/clustered_walk.py models the
 // walk itself, stack order and counts included. Closest mode writes t, the
 // winner's slot (-1 on a miss) and, optionally, its shading row (zeros on
 // a miss); any mode stops at the end of the first round of slots that
@@ -114,8 +118,6 @@ constexpr int kStack = 64;
 constexpr int kAabbCols = 8;
 constexpr int kAttrCols = 34;
 constexpr int kClusterBlock = 128;
-constexpr float kCullRel = 1e-4f;
-constexpr float kCullAbs = 64.0f * 1.1920929e-7f;   // 64 float32 ulps of 1
 
 struct Scene {
   int R, n_inner, n_clusters, cull;   // n_clusters = C_pad
@@ -134,11 +136,6 @@ struct Scene {
   int* stats;                // [R, 3] or null
 };
 
-struct Entry {
-  int node;
-  float entry;
-};
-
 // A group of kLanes lanes of one warp walks one ray; ``g`` is the lane's
 // index in its group and ``gmask`` the group's lanes.
 template <typename T>
@@ -146,32 +143,30 @@ __device__ __forceinline__ T gshfl(unsigned gmask, T v, int src) {
   return __shfl_sync(gmask, v, src, kLanes);
 }
 
-// The walk of ray i by its group. ``ext`` is the largest |coordinate| of
-// the root box. Every lane of the group holds the same ray state, stack
-// and node; the lanes split the children's slab tests and a cluster's
-// slots.
+// The walk of ray i by its group. Every lane of the group holds the same
+// ray state, stack and node; the lanes split the children's slab tests and
+// a cluster's slots.
 template <bool kAny>
-__device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, unsigned gmask) {
+__device__ __forceinline__ void trace(const Scene& s, int i, int g, unsigned gmask) {
   const float kMiss = __int_as_float(0x7f800000);   // +inf: a child the ray misses
   const V3 ro = ld3(s.o + 3 * (size_t)i), rd = ld3(s.d + 3 * (size_t)i);
   // 1 / d with |d| <= 1e-20 replaced by 1e-20 (the JAX kernel's slab).
   const V3 inv = mk(1.0f / (fabsf(rd.x) > 1e-20f ? rd.x : 1e-20f),
                     1.0f / (fabsf(rd.y) > 1e-20f ? rd.y : 1e-20f),
                     1.0f / (fabsf(rd.z) > 1e-20f ? rd.z : 1e-20f));
-  const float scale = fmaxf(ext, fmaxf(fmaxf(fabsf(ro.x), fabsf(ro.y)), fabsf(ro.z)));
-  const float reach = kCullAbs * scale / sqrtf(fmaxf(dot(rd, rd), 1e-30f));
   const bool cl = s.cull != 0;
 #ifdef MRT_K6_CYCLES
   const long long clk0 = clock64();
 #endif
-  float best = s.t_init[i];
+  const float lim = s.t_init[i];
+  float best = lim;
   int bs = -1;
   int tests = 0, visits = 0, boxes = 1;
-  Entry stack[kStack];
+  int stack[kStack];
   int sp = 0;
 
   bool hit;
-  slab(s.tree, ro, inv, best + best * kCullRel + reach, hit);
+  slab(s.tree, ro, inv, lim, hit);
   int node = hit ? 0 : -1;
   while (node >= 0) {
     // Descend through inner nodes until this ray holds a cluster (or has
@@ -183,7 +178,6 @@ __device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, u
       // The children that exist: all kArity of an inner level, the real
       // leaf rows (none past C_pad) of the last.
       const int kids = max(min(kArity, s.n_inner + s.n_clusters - c0), 0);
-      const float lim = best + best * kCullRel + reach;
       // Lane g tests children g, g + kLanes, ...; the group then shares
       // the keys, so every lane sorts the same (entry, index) pairs.
       constexpr int kPer = (kArity + kLanes - 1) / kLanes;
@@ -224,20 +218,9 @@ __device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, u
       }
 #pragma unroll
       for (int k = kArity - 1; k > 0; --k) {
-        if (key[k] != kMiss) stack[sp++] = {id[k], key[k]};
+        if (key[k] != kMiss) stack[sp++] = id[k];
       }
-      if (key[0] != kMiss) {
-        node = id[0];
-        continue;
-      }
-      node = -1;
-      while (sp > 0) {
-        const Entry top = stack[--sp];
-        if (top.entry <= lim) {
-          node = top.node;
-          break;
-        }
-      }
+      node = key[0] != kMiss ? id[0] : sp > 0 ? stack[--sp] : -1;
     }
     while (node >= s.n_inner) {
       // The cluster's real slots, lane g taking g, g + kLanes, ... in
@@ -288,15 +271,7 @@ __device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, u
         best = lt;
         bs = ls;
       }
-      node = -1;
-      const float lim = best + best * kCullRel + reach;
-      while (sp > 0) {
-        const Entry top = stack[--sp];
-        if (top.entry <= lim) {
-          node = top.node;
-          break;
-        }
-      }
+      node = sp > 0 ? stack[--sp] : -1;
     }
   }
 
@@ -325,13 +300,6 @@ __device__ __forceinline__ void trace(const Scene& s, int i, float ext, int g, u
 template <bool kAny>
 __global__ void __launch_bounds__(kClusterBlock)
 clustered_kernel(Scene s, int* counter) {
-  // The scene's scale: the largest |coordinate| of the root box (the far
-  // point of an empty scene left out).
-  float ext = 0.0f;
-  for (int k = 0; k < 6; ++k) {
-    const float a = fabsf(s.tree[k]);
-    if (a < 1e37f) ext = fmaxf(ext, a);
-  }
   const int lane = threadIdx.x % 32, g = lane % kLanes;
   const unsigned gmask = (kLanes == 32 ? 0xffffffffu : (1u << kLanes) - 1u) << (lane - g);
   for (;;) {
@@ -340,7 +308,7 @@ clustered_kernel(Scene s, int* counter) {
     first = __shfl_sync(0xffffffffu, first, 0);
     if (first >= s.R) break;
     const int i = first + lane / kLanes;
-    if (i < s.R) trace<kAny>(s, i, ext, g, gmask);
+    if (i < s.R) trace<kAny>(s, i, g, gmask);
   }
   // A warp counts itself done only after its last take from the counter
   // returned, so the last one to count sees every take made.

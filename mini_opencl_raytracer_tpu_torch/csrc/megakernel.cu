@@ -48,69 +48,133 @@
 // of 262,144 (0.1%) at 512x512 against the plain version; without it,
 // none.
 
+#include "bundle.cuh"
 #include "megakernel.cuh"
 
 namespace {
 
+// One closest-hit test of record ``tr``: true where its t is below t_best,
+// with (t, u, v). NaN-safe comparisons reject what the plain version's
+// (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0) rejects.
+__device__ __forceinline__ bool mt_closest(const float* tr, V3 o, V3 d, bool cull,
+                                           float t_best, float& t_out, float& u_out,
+                                           float& v_out) {
+  const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
+  const V3 pvec = cross(d, e2);
+  const float det = dot(e1, pvec);
+  if (!(cull ? det > kDetEps : fabsf(det) > kDetEps)) return false;
+  const float inv = 1.0f / det;
+  const V3 tvec = o - v0;
+  const float u = dot(tvec, pvec) * inv;
+  if (!(u >= 0.0f)) return false;
+  const V3 qvec = cross(tvec, e1);
+  const float v = dot(d, qvec) * inv;
+  if (!(v >= 0.0f) || !(u + v <= 1.0f)) return false;
+  const float t = dot(e2, qvec) * inv;
+  if (!(t > 0.0f && t < t_best)) return false;
+  t_out = t;
+  u_out = u;
+  v_out = v;
+  return true;
+}
+
 // Closest hit over the staged triangles. Returns the winner index (-1 on a
-// miss) and its (t, u, v). NaN-safe comparisons reject what the plain
-// version's (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0) rejects.
+// miss) and its (t, u, v); a strict '<' in index order, so the lowest
+// index wins a tie.
 __device__ __forceinline__ int closest_hit(const float* s_tris, int T, V3 o, V3 d,
                                            float t_max, bool cull, float& t_out,
                                            float& u_out, float& v_out) {
   int best = -1;
   float t_best = t_max;
-  for (int k = 0; k < T; ++k) {
-    const float* tr = s_tris + kTriCols * k;
-    const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
-    const V3 pvec = cross(d, e2);
-    const float det = dot(e1, pvec);
-    if (!(cull ? det > kDetEps : fabsf(det) > kDetEps)) continue;
-    const float inv = 1.0f / det;
-    const V3 tvec = o - v0;
-    const float u = dot(tvec, pvec) * inv;
-    if (!(u >= 0.0f)) continue;
-    const V3 qvec = cross(tvec, e1);
-    const float v = dot(d, qvec) * inv;
-    if (!(v >= 0.0f) || !(u + v <= 1.0f)) continue;
-    const float t = dot(e2, qvec) * inv;
-    if (t > 0.0f && t < t_best) {
-      t_best = t;
-      best = k;
-      u_out = u;
-      v_out = v;
+  for (int k = 0; k < T; ++k)
+    if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out)) best = k;
+  t_out = t_best;
+  return best;
+}
+
+// One any-hit test: true where record ``tr`` lies at 0 < t < t_lim.
+// Division-free on sign-adjusted determinants (megakernel.py:595-601).
+__device__ __forceinline__ bool mt_occludes(const float* tr, V3 o, V3 d, float t_lim,
+                                            bool cull) {
+  const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
+  const V3 pvec = cross(d, e2);
+  float det = dot(e1, pvec);
+  const V3 tvec = o - v0;
+  float ud = dot(tvec, pvec);
+  const V3 qvec = cross(tvec, e1);
+  float vd = dot(d, qvec);
+  float td = dot(e2, qvec);
+  if (!cull && det < 0.0f) {
+    det = -det;
+    ud = -ud;
+    vd = -vd;
+    td = -td;
+  }
+  return det > kDetEps && ud >= 0.0f && vd >= 0.0f && ud + vd <= det && td > 0.0f &&
+         td < t_lim * det;
+}
+
+// Any-hit: true where some triangle lies at 0 < t < t_lim, exiting at the
+// first occluder; ``tests`` gains the records tested.
+__device__ __forceinline__ bool any_hit(const float* s_tris, int T, V3 o, V3 d,
+                                        float t_lim, bool cull, int& tests) {
+  for (int k = 0; k < T; ++k)
+    if (mt_occludes(s_tris + kTriCols * k, o, d, t_lim, cull)) {
+      tests += k + 1;
+      return true;
+    }
+  tests += T;
+  return false;
+}
+
+// closest_hit behind the warp's cull (bundle.cuh): called by all 32 lanes;
+// a lane with ``live`` false tests nothing and misses. ``tests`` counts
+// this lane's exact tests.
+__device__ __forceinline__ int closest_bundle(const float* s_tris, int T, V3 o, V3 d,
+                                              float t_max, bool cull, bool live, float& t_out,
+                                              float& u_out, float& v_out, int& tests) {
+  const Bundle b = make_bundle(live, o, d, t_max);
+  if (b.dense) {  // the whole warp runs closest_hit's loop
+    t_out = t_max;
+    if (!live) return -1;
+    tests += T;
+    return closest_hit(s_tris, T, o, d, t_max, cull, t_out, u_out, v_out);
+  }
+  int best = -1;
+  float t_best = t_max;
+  for (int r = 0; r < T; r += 32) {
+    unsigned mask = round_mask(b, s_tris, r, T);
+    while (mask) {
+      const int k = r + __ffs(mask) - 1;
+      mask &= mask - 1;
+      if (!live) continue;
+      ++tests;
+      if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out)) best = k;
     }
   }
   t_out = t_best;
   return best;
 }
 
-// Any-hit: true where some triangle lies at 0 < t < t_lim. Division-free
-// on sign-adjusted determinants (megakernel.py:595-601), exiting at the
-// first occluder.
-__device__ __forceinline__ bool any_hit(const float* s_tris, int T, V3 o, V3 d,
-                                        float t_lim, bool cull) {
-  for (int k = 0; k < T; ++k) {
-    const float* tr = s_tris + kTriCols * k;
-    const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
-    const V3 pvec = cross(d, e2);
-    float det = dot(e1, pvec);
-    const V3 tvec = o - v0;
-    float ud = dot(tvec, pvec);
-    const V3 qvec = cross(tvec, e1);
-    float vd = dot(d, qvec);
-    float td = dot(e2, qvec);
-    if (!cull && det < 0.0f) {
-      det = -det;
-      ud = -ud;
-      vd = -vd;
-      td = -td;
+// any_hit behind the warp's cull, as closest_bundle; a warp stops when each
+// of its rays has found an occluder.
+__device__ __forceinline__ bool any_bundle(const float* s_tris, int T, V3 o, V3 d,
+                                           float t_lim, bool cull, bool live, int& tests) {
+  const Bundle b = make_bundle(live, o, d, t_lim);
+  bool hit = false;
+  if (b.dense) return live && any_hit(s_tris, T, o, d, t_lim, cull, tests);
+  for (int r = 0; r < T; r += 32) {
+    if (__all_sync(kFull, hit || !live)) break;
+    unsigned mask = round_mask(b, s_tris, r, T);
+    while (mask) {
+      const int k = r + __ffs(mask) - 1;
+      mask &= mask - 1;
+      if (hit || !live) continue;
+      ++tests;
+      hit = mt_occludes(s_tris + kTriCols * k, o, d, t_lim, cull);
     }
-    if (det > kDetEps && ud >= 0.0f && vd >= 0.0f && ud + vd <= det && td > 0.0f &&
-        td < t_lim * det)
-      return true;
   }
-  return false;
+  return hit;
 }
 
 // One bounce of ray i (ops/integrator.shade_hit after the closest hit).
@@ -120,9 +184,15 @@ struct RayOut {
   int winner, occ;
 };
 
+// kCull (K1): the closest hit and the shadow rays run behind the warp's
+// cull, so every lane of the warp stays in the body while a warp reduction may
+// follow: a lane whose path ends goes on with its result set and its
+// later work discarded. Without it (K2), the loops are dense and a lane
+// returns as soon as its path ends.
+template <bool kCull>
 __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
                               const float* s_lights, const float* __restrict__ tab,
-                              V3 o, V3 d, V3 beta, bool alive, uint32_t seed) {
+                              V3 o, V3 d, V3 beta, bool alive, uint32_t seed, int& tests) {
   RayOut r;
   r.o = o;
   r.d = d;
@@ -131,19 +201,23 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   r.alive = false;
   r.winner = -1;
   r.occ = 0;
-  if (!alive) return r;
+  if (!kCull && !alive) return r;
 
   const bool cull = p.flags & F_CULL;
-  float t, u, v;
-  const int best = closest_hit(s_tris, p.num_tris, o, d, p.t_max, cull, t, u, v);
+  const bool shadow = p.flags & F_SHADOW;
+  // With the cull and shadow rays, every lane stays for the shadow rays' bundles.
+  const bool stay = kCull && shadow;
+  float t, u = 0.0f, v = 0.0f;
+  const int best =
+      kCull ? closest_bundle(s_tris, p.num_tris, o, d, p.t_max, cull, alive, t, u, v, tests)
+            : closest_hit(s_tris, p.num_tris, o, d, p.t_max, cull, t, u, v);
   const V3 sky = mk(p.sky[0], p.sky[1], p.sky[2]);
-  if (best < 0) {  // miss -> constant-grey sky (kernel_bvh.cl:358-362)
-    r.rad = beta * sky;
-    return r;
-  }
+  const bool hit = best >= 0;
+  if (!hit && alive) r.rad = beta * sky;  // miss -> constant-grey sky (kernel_bvh.cl:358-362)
+  if (stay ? !__any_sync(kFull, hit) : !hit) return r;
   r.winner = best;
 
-  const float* row = tab + (size_t)best * kTabCols;
+  const float* row = tab + (size_t)(hit ? best : 0) * kTabCols;
   const V3 n0 = ld3(row + kN0), n1 = ld3(row + kN1), n2 = ld3(row + kN2);
   const V3 kd = ld3(row + kKD), ks = ld3(row + kKS), ke = ld3(row + kKE);
   const float ns = row[kNS];
@@ -235,15 +309,15 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   const V3 mul = f * (cos_i / pdf_safe);
   const bool ok = valid && pdf > 0.0f && isfinite(mul.x) && isfinite(mul.y) &&
                   isfinite(mul.z);
-  if (!ok) {  // the path ends here (kernel_bvh.cl:371-372)
-    r.rad = rad;
-    return r;
+  const bool go = hit && ok;
+  if (!go) {  // the path ends here (kernel_bvh.cl:371-372)
+    if (hit) r.rad = rad;
+    if (!stay) return r;
   }
   const V3 beta_new = beta * mul;
 
   // Direct analytic light (lightPixel, kernel_bvh.cl:304-347), weighted by
   // Kd and the updated beta.
-  const bool shadow = p.flags & F_SHADOW;
   const bool dspec = p.flags & F_DSPEC;
   float diff_w = 0.0f, spec_w = 0.0f;
   int occ = 0;
@@ -269,7 +343,8 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
     if (shadow) {
       const V3 so = pos + l_unit * p.ray_eps;
       const float t_lim = is_dir ? kBig : dist - 2.0f * p.ray_eps;
-      blocked = any_hit(s_tris, p.num_tris, so, l_unit, t_lim, cull);
+      blocked = kCull ? any_bundle(s_tris, p.num_tris, so, l_unit, t_lim, cull, go, tests)
+                      : any_hit(s_tris, p.num_tris, so, l_unit, t_lim, cull, tests);
       if (blocked) occ |= 1 << li;
     }
     if (!blocked) diff_w += attn * intensity * ndotl;
@@ -284,6 +359,7 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   V3 direct = diff_w * kd;
   if (dspec) direct = direct + spec_w * ks;
   rad = rad + cov * direct * beta_new;
+  if (!go) return r;
 
   r.o = pos + wi * p.ray_eps;  // respawn (kernel_bvh.cl:380)
   r.d = wi;
@@ -325,16 +401,17 @@ bounce0_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __r
                    const float* __restrict__ lights, const float* __restrict__ cam,
                    const int* __restrict__ pixel_ids, float* o_out, float* d_out,
                    float* beta_out, float* alive_out, float* rad_out, int* idx_out,
-                   int* occ_out, int* seeds_out) {
+                   int* occ_out, int* seeds_out, int* stats) {
   extern __shared__ float smem[];
   float* s_tris = smem;
   float* s_lights = smem + p.num_tris * kTriCols;
   stage(p, tris, lights, s_tris, s_lights);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.num_rays) return;
+  // Lanes past the last ray stay for the warp's cull, without a ray.
+  const bool in = i < p.num_rays;
 
   // Raygen (ops/camera.rays_from_basis + ops/rng.pixel_seeds).
-  const int pid = pixel_ids[i];
+  const int pid = in ? pixel_ids[i] : 0;
   const uint32_t seed = mix_u32((uint32_t)pid ^ p.rg_frame);
   const float px = (float)(pid % p.width);
   const float py = (float)(pid / p.width);
@@ -346,9 +423,13 @@ bounce0_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __r
                          ld3(cam + kCamFront));
   const V3 o = ld3(cam + kCamPos);
 
-  const RayOut r = bounce_body(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f), true, seed);
+  int tests = 0;
+  const RayOut r =
+      bounce_body<true>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f), in, seed, tests);
+  if (!in) return;
   store(r, i, p.num_rays, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
   seeds_out[i] = (int)seed;
+  if (stats) stats[i] = tests;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -368,8 +449,9 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
   const V3 o = mk(o_in[i], o_in[R + i], o_in[2 * R + i]);
   const V3 d = mk(d_in[i], d_in[R + i], d_in[2 * R + i]);
   const V3 beta = mk(beta_in[i], beta_in[R + i], beta_in[2 * R + i]);
-  const RayOut r = bounce_body(p, s_tris, s_lights, tab, o, d, beta, alive_in[i] > 0.0f,
-                               (uint32_t)seeds[i]);
+  int tests = 0;
+  const RayOut r = bounce_body<false>(p, s_tris, s_lights, tab, o, d, beta, alive_in[i] > 0.0f,
+                                      (uint32_t)seeds[i], tests);
   store(r, i, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
 }
 
@@ -392,14 +474,14 @@ cudaError_t prepare(K kernel, size_t smem) {
 extern "C" int mrt_bounce0_fwd(const MegaParams* p, const float* tab, const float* tris,
                                const float* lights, const float* cam, const int* pixel_ids,
                                float* o, float* d, float* beta, float* alive, float* rad,
-                               int* idx, int* occ, int* seeds, void* stream) {
+                               int* idx, int* occ, int* seeds, int* stats, void* stream) {
   if (p->num_rays <= 0) return 0;
   const size_t smem = smem_bytes(*p);
   cudaError_t e = prepare(bounce0_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p->num_rays + kBlock - 1) / kBlock;
   bounce0_fwd_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      *p, tab, tris, lights, cam, pixel_ids, o, d, beta, alive, rad, idx, occ, seeds);
+      *p, tab, tris, lights, cam, pixel_ids, o, d, beta, alive, rad, idx, occ, seeds, stats);
   return (int)cudaGetLastError();
 }
 

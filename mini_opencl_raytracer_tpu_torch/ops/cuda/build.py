@@ -34,8 +34,8 @@ _I = ctypes.c_int
 # params struct and the stream are c_void_p.
 _SIGNATURES = {
     # (params, table, tris, lights, cam, pixel_ids,
-    #  o, d, beta, alive, rad, idx, occ, seeds, stream)
-    "mrt_bounce0_fwd": ([_P] * 15, _I),
+    #  o, d, beta, alive, rad, idx, occ, seeds, stats, stream)
+    "mrt_bounce0_fwd": ([_P] * 16, _I),
     # (params, table, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
     #  o, d, beta, alive, rad, idx, occ, stream)
     "mrt_bounce_fwd": ([_P] * 17, _I),
@@ -47,8 +47,8 @@ _SIGNATURES = {
     #  d_lights, stream)
     "mrt_bounce_bwd": ([_P] + [_I] * 2 + [_P] * 20, _I),
     # csrc/panel.cu: (R, T, cull, any, tris, o, d, t_init, t_out, idx,
-    #  stream)
-    "mrt_panel": ([_I] * 4 + [_P] * 7, _I),
+    #  stats, stream)
+    "mrt_panel": ([_I] * 4 + [_P] * 8, _I),
     # csrc/clustered.cu: (R, inner nodes, clusters, grid, cull, any, tree,
     #  cl_aabb, tris, slot_to_tri, cl_count, attrs, o, d, t_init, t_out,
     #  slot, rows, stats, counter, stream); (any, out)

@@ -64,9 +64,6 @@ _TRI_COLS = 9
 _AABB_COLS = 8
 _BIG = 3.0e38
 _INV_EPS = 1e-20
-# The kernel's cull slack (kCullRel, kCullAbs = 64 float32 ulps of 1).
-CULL_REL = 1e-4
-CULL_ABS = 64 * 2.0 ** -23
 _NO_KEY = torch.iinfo(torch.int64).max
 # Bounds on the plain version's intermediates: [rays x clusters] slab
 # panels and [pairs x CLUSTER] Möller–Trumbore panels.

@@ -2,15 +2,17 @@
 in PyTorch, vectorised over rays, for the tests and the smoke run.
 
 ``walk`` repeats the kernel step by step: the root's slab test, then per
-inner node the slab tests of its children that exist (all ARITY of an
-inner level, the real leaf rows of the last) against the current best t
-plus the slack, the hit children sorted by (entry, index) with the
-kernel's compare-exchange network, the nearest entered at once and the
-others pushed far to near; per cluster the Möller–Trumbore tests of its
-real slots in slot order with the tie rule; then pops that skip entries
-beyond the current best t plus the slack. It returns the kernel's (t,
-slot) and its counts. Arithmetic is float32 in the kernel's operation
-order, so on the same inputs the counts are the kernel's exactly.
+inner node the slab tests at t_init of its children that exist (all
+ARITY of an inner level, the real leaf rows of the last), the hit
+children sorted by (entry, index) with the kernel's compare-exchange
+network, the nearest entered at once and the others pushed far to near;
+per cluster the Möller–Trumbore tests of its real slots in slot order
+with the tie rule; then the next node popped. No node is culled by the
+best t found so far: the walk visits every cluster that the plain
+version tests, and any mode ends at the first hit. It returns the
+kernel's (t, slot) and its counts. Arithmetic is float32 in the kernel's
+operation order, so on the same inputs the counts are the kernel's
+exactly.
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..intersect import ray_triangle_edges
-from .clustered import (ARITY, CLUSTER, CULL_ABS, CULL_REL, LANES, ClusteredGeometry,
-                        _inverse, _NO_KEY)
+from .clustered import ARITY, CLUSTER, LANES, ClusteredGeometry, _inverse, _NO_KEY
 
 _INF = float("inf")
 _CHUNK = 1 << 15
@@ -42,17 +43,11 @@ class _Walk:
 
     def __init__(self, cg: ClusteredGeometry, o, d, t_init, backface_cull: bool,
                  any_hit: bool):
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=o.device)
         self.cg, self.o, self.d = cg, o, d
         self.cull, self.any = backface_cull, any_hit
         self.inv = _inverse(d)
-        root = cg.tree[0, :6].abs()
-        ext = torch.where(root < 1e37, root, torch.zeros_like(root)).amax()
-        scale = torch.maximum(ext, o.abs().amax(dim=1))
-        dd = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
-        self.reach = f32(CULL_ABS) * scale / torch.sqrt(torch.clamp(dd, min=1e-30))
-        self.rel = f32(CULL_REL)
         R = o.shape[0]
+        self.t_init = t_init
         self.best = t_init.clone()
         self.slot = torch.full((R,), -1, dtype=torch.int64, device=o.device)
         self.stats = torch.zeros((R, 3), dtype=torch.int64, device=o.device)
@@ -60,8 +55,8 @@ class _Walk:
         self.lane = torch.arange(CLUSTER, device=o.device)
 
     def bound(self, r):
-        b = self.best[r]
-        return b + b * self.rel + self.reach[r]
+        """The limit of rays ``r``'s slab tests: their t_init."""
+        return self.t_init[r]
 
     def visit(self, r, c) -> None:
         """Rays ``r`` each test the real slots of their cluster ``c``."""
@@ -109,7 +104,6 @@ class _Walk:
         n_rows = n_inner + cg.cl_count.shape[0]
         depth = cg.depth
         stk_node = torch.zeros((R, (ARITY - 1) * depth + 1), dtype=torch.int64, device=dev)
-        stk_entry = torch.zeros(stk_node.shape, dtype=torch.float32, device=dev)
         sp = torch.zeros((R,), dtype=torch.int64, device=dev)
         every = torch.arange(R, device=dev)
         _, hit = _slab_rows(cg.tree[None, 0:1].expand(R, 1, 8), self.o, self.inv,
@@ -146,7 +140,6 @@ class _Walk:
                     m = key[:, k] != _INF
                     rr = r[m]
                     stk_node[rr, sp[rr]] = ids[m, k]
-                    stk_entry[rr, sp[rr]] = key[m, k]
                     sp[rr] += 1
                 go = key[:, 0] != _INF
                 node[r] = torch.where(go, ids[:, 0], -1)
@@ -158,14 +151,9 @@ class _Walk:
                 pop[r] = True
                 if self.any:
                     pop &= ~self.found
-            while True:
-                r = (pop & (sp > 0)).nonzero()[:, 0]
-                if not r.numel():
-                    break
-                sp[r] -= 1
-                ok = stk_entry[r, sp[r]] <= self.bound(r)
-                node[r[ok]] = stk_node[r[ok], sp[r[ok]]]
-                pop[r[ok]] = False
+            r = (pop & (sp > 0)).nonzero()[:, 0]
+            sp[r] -= 1
+            node[r] = stk_node[r, sp[r]]
 
 
 def walk(cg: ClusteredGeometry, o, d, t_init, backface_cull: bool = False,

@@ -400,12 +400,13 @@ def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
     return p
 
 
-def _launch(name: str, fn, device, params, tensors, *ints):
-    """Launch entry point ``fn``: (params, *ints, *tensor pointers, stream)."""
+def _launch(name: str, fn, device, params, tensors, *ints, ptrs=()):
+    """Launch entry point ``fn``: (params, *ints, *tensor pointers, *ptrs,
+    stream); ``ptrs`` are raw pointers that may be None (null)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(params), *ints,
-                 *[t.data_ptr() for t in tensors], stream)
+                 *[t.data_ptr() for t in tensors], *ptrs, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
 
@@ -419,10 +420,14 @@ def _empty_state(R: int, device):
 
 
 def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame: int,
-                cfg: RenderConfig):
+                cfg: RenderConfig, stats=None):
     """Raygen-fused first bounce over ``pixel_ids`` [R] int32.
 
-    Returns (o, d, beta, alive, radiance, winner, occ_bits, seeds)."""
+    Returns (o, d, beta, alive, radiance, winner, occ_bits, seeds).
+    ``stats`` (int32 [R], CUDA only) receives each ray's count of exact
+    Möller–Trumbore tests, closest hit and shadow rays: the kernel runs
+    them behind a per-warp cull (csrc/bundle.cuh, modelled by
+    ops/cuda/bundle_cull.py)."""
     device = pixel_ids.device
     R = pixel_ids.shape[0]
     _check_common(table_rows, tris, lights, cfg, device,
@@ -431,16 +436,21 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame: int,
     _check(camv, "camv", torch.float32, (_CAM_COLS,), device)
     _check(pixel_ids, "pixel_ids", torch.int32, (R,), device)
     if device.type == "cpu":
+        if stats is not None:
+            raise ValueError("bounce0_fwd: stats are counted by the kernel only")
         return bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids,
                                  frame, cfg)
     if device.type != "cuda":
         raise ValueError(f"bounce0_fwd runs on cpu or cuda, not {device}")
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (R,), device)
     out = _empty_state(R, device) + (
         torch.empty((R,), dtype=torch.int32, device=device),)
     if R:
         params = _params(cfg, R, tris.shape[0], lights.shape[0], 0, frame)
         _launch("bounce0_fwd", build.library().mrt_bounce0_fwd, device,
-                params, (table_rows, tris, lights, camv, pixel_ids) + out)
+                params, (table_rows, tris, lights, camv, pixel_ids) + out,
+                ptrs=(None if stats is None else stats.data_ptr(),))
     return out
 
 

@@ -10,6 +10,9 @@ its plain PyTorch version: the same arithmetic (ops/intersect
 The wrappers ``panel_closest`` and ``panel_any`` run the plain version for
 tensors on the CPU and launch the kernel for tensors on a CUDA device;
 there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+The kernel culls the records per warp of rays before its exact test
+(``csrc/bundle.cuh``); ``bundle_cull.cull_hits`` models that, counts
+included, and ``stats=`` returns the kernel's per-ray count of exact tests.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ def run_panel_plain(tris, o, d, t_init, backface_cull: bool):
     return torch.cat(ts), torch.cat(idxs).to(torch.int32)
 
 
-def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool):
+def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool, stats=None):
     device = o.device
     R = o.shape[0]
     T = tris.shape[0]
@@ -93,9 +96,13 @@ def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool):
                              "differentiable; detach the inputs")
         _check(t, n, torch.float32, shape, device)
     if device.type == "cpu":
+        if stats is not None:
+            raise ValueError(f"{name}: stats are counted by the kernel only")
         return run_panel_plain(tris, o, d, t_init, backface_cull)
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (R,), device)
     t_out = torch.empty((R,), dtype=torch.float32, device=device)
     idx = torch.empty((R,), dtype=torch.int32, device=device)
     if R:
@@ -103,22 +110,25 @@ def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = build.library().mrt_panel(
                 R, T, int(backface_cull), int(any_hit), tris.data_ptr(), o.data_ptr(),
-                d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(), idx.data_ptr(), stream)
+                d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(), idx.data_ptr(),
+                None if stats is None else stats.data_ptr(), stream)
         build.check(err, name)
         LAUNCHES[name] += 1
     return t_out, idx
 
 
-def panel_closest(tris, o, d, t_init, backface_cull: bool = False):
+def panel_closest(tris, o, d, t_init, backface_cull: bool = False, stats=None):
     """Closest hit below ``t_init`` [R] of rays o, d [R, 3] against the
     [T_pad, 9] records. Returns (t [R] float32, idx [R] int32, -1 and
-    t_init on a miss)."""
-    return _run("panel_closest", False, tris, o, d, t_init, backface_cull)
+    t_init on a miss). ``stats`` (int32 [R], CUDA only) receives each
+    ray's count of exact M-T tests."""
+    return _run("panel_closest", False, tris, o, d, t_init, backface_cull, stats)
 
 
-def panel_any(tris, o, d, t_limit, backface_cull: bool = False) -> torch.Tensor:
-    """Any hit with 0 < t < ``t_limit`` [R] (finite): bool [R]."""
-    return _run("panel_any", True, tris, o, d, t_limit, backface_cull)[1] >= 0
+def panel_any(tris, o, d, t_limit, backface_cull: bool = False, stats=None) -> torch.Tensor:
+    """Any hit with 0 < t < ``t_limit`` [R] (finite): bool [R]. ``stats``
+    as in ``panel_closest``."""
+    return _run("panel_any", True, tris, o, d, t_limit, backface_cull, stats)[1] >= 0
 
 
 def _rays(o, d):

@@ -23,7 +23,7 @@ import torch
 
 from ...models.cornell import cornell_scene
 from ...models.scene import (LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT,
-                             Geometry, Lights, Scene)
+                             Camera, Geometry, Lights, Scene)
 
 MEAN_TOL, ERR_TOL, FRAC_TOL, WINNER_AGREE = 1e-4, 1e-3, 1e-4, 0.9999
 GRAD_TOL, FD_TOL = 2e-3, 5e-2
@@ -207,3 +207,220 @@ def soup_scene(device, n: int = 2048, seed: int = 3) -> Scene:
                    mat_idx=_t(rs.integers(0, 6, n), device, torch.int32))
     base = cornell_scene(device=device)
     return Scene(geometry=geo, materials=base.materials, lights=base.lights)
+
+
+def _unit(a):
+    return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+
+def _warps(origins, targets, rs, jitter: float):
+    """32 rays per (origin, target) pair: origins jittered by ``jitter``,
+    each aimed exactly at its target (a tight, coherent warp)."""
+    o = np.repeat(origins, 32, axis=0) + rs.normal(0.0, jitter, (32 * len(origins), 3))
+    d = _unit(np.repeat(targets, 32, axis=0) - o)
+    return o, d
+
+
+def cull_ray_sets(device, seed: int = 0) -> dict:
+    """Adversarial rays for the per-warp cull of the panel and first-bounce
+    kernels (csrc/bundle.cuh), in warps of 32 coherent rays: name ->
+    (scene geometry, o [R, 3], d [R, 3], limit [R]), all float32 on
+    ``device``. On Cornell: rays aimed at every vertex and at points on
+    every edge; at the floor where the boxes' bottoms lie on it (coplanar
+    pairs, a tie decided by the last ulp of t); grazing the walls and box
+    faces at cos 1e-2 ... 1e-4; directions with components of exactly +0
+    and -0; limits inf and 3e38. Then a scene of 3 triangles (padding rows
+    past them) and a seeded soup of 2048 triangles (four tiles of the panel
+    kernel) under camera-like and random rays."""
+    rs = np.random.default_rng(seed)
+    cornell = cornell_scene(device="cpu").geometry
+    V = np.stack([cornell.v0.numpy(), cornell.v1.numpy(), cornell.v2.numpy()], 1).astype(np.float64)
+    room_lo, room_hi = np.array([-7.5, 0.5, 0.5]), np.array([7.5, 19.5, 16.5])
+    room = lambda n: rs.uniform(room_lo, room_hi, (n, 3))
+    sets = {}
+    # Vertices and edge points (at 0, 1/3, 1/2 of each edge).
+    targets = [V[:, k] + f * (V[:, (k + 1) % 3] - V[:, k])
+               for k in range(3) for f in (0.0, 1.0 / 3.0, 0.5)]
+    targets = np.concatenate(targets)
+    sets["vertices_edges"] = (cornell,) + _warps(room(len(targets)), targets, rs, 1e-4)
+    # The floor (triangles 6, 7) under the boxes' bottoms (20, 21, 32, 33).
+    w = rs.dirichlet([1.0, 1.0, 1.0], 96)
+    tri = rs.choice([20, 21, 32, 33], 96)
+    targets = np.einsum("nk,nkc->nc", w, V[tri])
+    above = room(96)
+    above[:, 2] = rs.uniform(0.5, 16.5, 96)
+    below = above.copy()
+    below[:, 2] = -rs.uniform(0.5, 10.0, 96)
+    sets["coplanar"] = (cornell,) + _warps(np.concatenate([above, below]),
+                                           np.concatenate([targets, targets]), rs, 1e-3)
+    # Grazing: per triangle and cosine, a warp of rays meeting it at a point
+    # near an edge, at that cosine to its plane.
+    nrm = _unit(np.cross(V[:, 1] - V[:, 0], V[:, 2] - V[:, 0]))
+    os_, ds = [], []
+    for cos in (1e-2, 1e-3, 1e-4):
+        for k in range(V.shape[0]):
+            p = V[k, 0] + rs.uniform(0.0, 0.02) * (V[k, 1] - V[k, 0]) + rs.uniform(0.0, 1.0) * (
+                V[k, 2] - V[k, 0]) * 0.5
+            r = _unit(np.cross(nrm[k], rs.normal(size=3)))
+            d = _unit(r * np.sqrt(1.0 - cos * cos) - cos * nrm[k])
+            d = np.repeat(d[None], 32, 0)
+            L = rs.uniform(1.0, 20.0, (32, 1))
+            os_.append(p - L * d)
+            ds.append(d)
+    sets["grazing"] = (cornell, np.concatenate(os_), np.concatenate(ds))
+    # Directions with exact +0 / -0 components, in warps of one direction.
+    dirs = []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            for zsign in (1.0, -1.0):
+                d = np.full(3, 0.0 * zsign)
+                d[axis] = sign
+                dirs.append(d)
+    dirs += [np.array([0.6, 0.8, -0.0]), np.array([-0.0, 0.6, -0.8]), np.array([0.8, 0.0, 0.6])]
+    d = np.repeat(np.array(dirs), 32, 0)
+    o = np.repeat(room(len(dirs)), 32, 0) + rs.normal(0.0, 0.5, (32 * len(dirs), 3))
+    sets["signed_zeros"] = (cornell, o, d)
+    # Open limits: inf and 3e38 (set below), camera-like rays into the room.
+    sets["open_limits"] = (cornell,) + _warps(np.tile([[0.0, -25.0, 8.5]], (64, 1)),
+                                              room(64), rs, 1e-3)
+    # Three triangles: the panel pads them to eight rows.
+    small = Geometry(**{k: getattr(cornell, k)[[6, 20, 24]] for k in (
+        "v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat_idx")})
+    sets["padding"] = (small,) + _warps(room(48), np.einsum(
+        "nk,nkc->nc", rs.dirichlet([1.0, 1.0, 1.0], 48), V[rs.choice([6, 20, 24], 48)]), rs, 1e-3)
+    soup = soup_scene("cpu").geometry
+    cam = np.tile([[0.0, -25.0, 8.5]], (64, 1))
+    far = rs.uniform([-10.0, 10.0, -2.0], [10.0, 10.0, 18.0], (64, 3))
+    o1, d1 = _warps(cam, far, rs, 1e-3)
+    o2, d2 = _warps(room(32), room(32), rs, 0.3)
+    sets["soup2048"] = (soup, np.concatenate([o1, o2]), np.concatenate([d1, d2]))
+    out = {}
+    for name, (geo, o, d) in sets.items():
+        R = o.shape[0]
+        limit = np.full((R,), 1e5)
+        if name == "open_limits":
+            limit[: R // 2] = np.inf
+            limit[R // 2:] = 3e38
+            limit[R // 2 - 16: R // 2 + 16] = rs.uniform(5.0, 30.0, 32)   # a mixed warp
+        elif name in ("coplanar", "grazing"):
+            limit[::3] = rs.uniform(1.0, 30.0, len(limit[::3]))
+        geo = Geometry(**{f: getattr(geo, f).to(device) for f in (
+            "v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat_idx")})
+        out[name] = (geo, _t(o, device), _t(d, device), _t(limit, device))
+    return out
+
+
+def grazing_camera(device) -> Camera:
+    """A camera in the Cornell box 2 cm above the floor, looking along it
+    and down by 0.002: its rays meet the floor and the boxes' bottoms
+    (coplanar with it) at cos down to ~1e-3."""
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    front = t([0.0, 1.0, -0.002])
+    return Camera(position=t([0.5, 0.5, 0.02]), front=front / torch.linalg.norm(front),
+                  up=t([0.0, 0.0, 1.0]))
+
+
+def k1_cull_cases(device):
+    """(label, scene, camera, cfg) cases of the first-bounce kernel's cull
+    beyond the smoke run's Cornell cases: a 2048-triangle soup, and a
+    grazing camera with and without backface culling and shadow rays."""
+    from ...config import RenderConfig
+    cornell = cornell_scene(device=device)
+    cam = Camera.default(device=device)
+    graze = grazing_camera(device)
+    return (("soup of 2048 triangles", soup_scene(device), cam, RenderConfig(width=256, height=256)),
+            ("grazing camera", cornell, graze, RenderConfig()),
+            ("grazing camera, backface_cull + shadow rays", cornell, graze,
+             RenderConfig(backface_cull=True, shadow_rays=True)))
+
+
+def grazing_surface(seed: int = 3, n: int = 24):
+    """A tilted, slightly bumpy surface of 2 n^2 triangles (1152 at n = 24:
+    nine clusters) on the CPU, for grazing rays: (geometry, vertices [V, 3],
+    triangles [T, 3] as vertex ids, the plane's normal), float64 numpy
+    beside the float32 geometry."""
+    gen = np.random.default_rng(seed)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    nrm = unit(np.array([0.3, 1.0, 0.2]))
+    a = unit(np.cross(nrm, [1.0, 0.0, 0.0]))
+    b = np.cross(nrm, a)
+    ij = np.stack(np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij"),
+                  -1).reshape(-1, 2).astype(np.float64)
+    pts = ((ij[:, :1] - n / 2) * a + (ij[:, 1:] - n / 2) * b
+           + gen.normal(scale=1e-3, size=(len(ij), 1)) * nrm)
+    k = lambda i, j: i * (n + 1) + j
+    tris = np.array([t for i in range(n) for j in range(n)
+                     for t in ((k(i, j), k(i + 1, j), k(i + 1, j + 1)),
+                               (k(i, j), k(i + 1, j + 1), k(i, j + 1)))])
+    V = torch.tensor(pts[tris], dtype=torch.float32)
+    z3, z2 = torch.zeros((len(tris), 3)), torch.zeros((len(tris), 2))
+    geo = Geometry(v0=V[:, 0], v1=V[:, 1], v2=V[:, 2], n0=z3, n1=z3, n2=z3, uv0=z2, uv1=z2,
+                     uv2=z2, mat_idx=torch.zeros((len(tris),), dtype=torch.int32))
+    return geo, pts, tris, nrm
+
+
+def grazing_rays(pts, tris, nrm, cos: float, n: int = 4096, seed: int = 11):
+    """n rays (o, d, float32 [n, 3] on the CPU) at ``grazing_surface``:
+    each aimed at a point of a triangle's edge (often shared by two
+    triangles in two clusters, whose t then differ by a few ulps), from 2
+    to 20 away, meeting the surface's plane at ``cos``."""
+    gen = np.random.default_rng(seed)
+    e = tris[gen.integers(0, len(tris), n)]
+    k = gen.integers(0, 3, n)
+    p0, p1 = pts[e[np.arange(n), k]], pts[e[np.arange(n), (k + 1) % 3]]
+    target = p0 + gen.uniform(0.05, 0.95, (n, 1)) * (p1 - p0)
+    r = np.cross(nrm, gen.normal(size=(n, 3)))
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    d = r * np.sqrt(1.0 - cos * cos) - cos * nrm
+    o = target - gen.uniform(2.0, 20.0, (n, 1)) * d
+    return tuple(torch.tensor(a, dtype=torch.float32) for a in (o, d))
+
+
+def grazing_decoys(device, cos: float, cases: int = 16, n: int = 20_000, seed: int = 1):
+    """Two-triangle scenes in which a cull of the cluster boxes by the best
+    t plus a slack would drop the nearest hit. Triangle F (seeded, in
+    [-10, 10]^3, slivers among them) is met at ``cos`` near its vertex 0,
+    5 to 30 away, where Möller–Trumbore's t falls below the slab entry of
+    F's box by more than 0.2% of t; a small decoy facing the ray sits
+    between that t and the entry, in another cluster, which a walk
+    visits first. Returns up to ``cases`` tuples (accel on
+    ``device`` with the decoy in cluster 0 and F in cluster 1, o [1, 3],
+    d [1, 3], F's t, the decoy's t along the ray, the entry of F's box)."""
+    from ..intersect import ray_triangle_edges
+    from .clustered import build_clusters
+
+    gen = np.random.default_rng(seed)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    V = gen.uniform(-10, 10, size=(n, 3, 3))
+    nrm = unit(np.cross(V[:, 1] - V[:, 0], V[:, 2] - V[:, 0]))
+    w = gen.uniform(0, 1e-3, size=(n, 2))
+    p = V[:, 0] + w[:, :1] * (V[:, 1] - V[:, 0]) + w[:, 1:] * (V[:, 2] - V[:, 0])
+    r = unit(np.cross(nrm, gen.normal(size=(n, 3))))
+    d = unit(r * np.sqrt(1 - cos * cos) - cos * nrm * np.sign(gen.normal(size=(n, 1))))
+    o = p - gen.uniform(5, 30, size=(n, 1)) * d
+    v0, v1, v2, o, d = f32(V[:, 0]), f32(V[:, 1]), f32(V[:, 2]), f32(o), f32(d)
+    t, _, _, ok = ray_triangle_edges(o, d, v0, v1 - v0, v2 - v0)
+    lo = torch.minimum(torch.minimum(v0, v1), v2)
+    hi = torch.maximum(torch.maximum(v0, v1), v2)
+    inv = 1.0 / d
+    entry = torch.minimum((lo - o) * inv, (hi - o) * inv).amax(1).clamp(min=0)
+    live = ok & (entry - t > 2e-3 * t)
+    out = []
+    z3, z2 = torch.zeros((2, 3), device=device), torch.zeros((2, 2), device=device)
+    for i in torch.nonzero(live)[:, 0][:cases].tolist():
+        t_dec = t[i] + 0.3 * (entry[i] - t[i])
+        a = torch.linalg.cross(d[i], f32([0.0, 0.0, 1.0]))
+        a = a / torch.linalg.norm(a)
+        b = torch.linalg.cross(d[i], a)
+        c = o[i] + t_dec * d[i]
+        corners = [torch.stack([x, y]).to(device) for x, y in
+                   zip((v0[i], v1[i], v2[i]), (c + 1e-3 * a, c + 1e-3 * b, c - 1e-3 * (a + b)))]
+        geo = Geometry(v0=corners[0], v1=corners[1], v2=corners[2], n0=z3, n1=z3, n2=z3,
+                       uv0=z2, uv1=z2, uv2=z2,
+                       mat_idx=torch.zeros((2,), dtype=torch.int32, device=device))
+        leaves = (np.array([1, 0], np.int32), np.array([0, 1], np.int32),
+                  np.array([1, 1], np.int32))
+        out.append((build_clusters(geo, leaf_info=leaves), o[i:i + 1].to(device),
+                    d[i:i + 1].to(device), t[i].item(), t_dec.item(), entry[i].item()))
+    return out

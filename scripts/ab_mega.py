@@ -8,7 +8,9 @@ parent), each in a fresh process.
 Per checkout: Cornell 1920x1080 x 9 bounces, defaults; after a warm-up,
 the median of 7 ``render(frames=4)`` calls under ``torch.no_grad()``
 (ms/frame, CUDA events) and of 7 ``grad.loss_and_grads`` steps (ms/step);
-then the backward wrappers alone on the main path's state with seeded
+then the forward kernels alone on the main path's state, ``bounce0_fwd``
+(K1) and ``bounce_fwd`` (K2) at bounce 1, by CUDA events over 20
+launches (``chip_smoke.time_ms``), and the backward wrappers with seeded
 cotangents, ``bounce0_bwd`` at bounce 0 and ``bounce_bwd`` at bounces 1, 4
 and 8: device time per call (``chip_smoke.device_ms``: CUDA events around
 20 calls queued behind a sleep kernel, after a warm-up).
@@ -55,11 +57,11 @@ def child(root: str) -> None:
             for _ in range(7)]
     print(f"{root}: forward {statistics.median(fwd):.4f} ms/frame "
           f"(min {min(fwd):.4f}), step {statistics.median(step):.4f} ms/step "
-          f"(min {min(step):.4f}); " + backward_times(torch, mrt, cfg, scene, cam),
+          f"(min {min(step):.4f}); " + kernel_times(torch, mrt, cfg, scene, cam),
           flush=True)
 
 
-def backward_times(torch, mrt, cfg, scene, cam) -> str:
+def kernel_times(torch, mrt, cfg, scene, cam) -> str:
     from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
     from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
 
@@ -77,9 +79,13 @@ def backward_times(torch, mrt, cfg, scene, cam) -> str:
     gen = torch.Generator(device=camv.device).manual_seed(1)
     cot = lambda x: tuple(torch.randn(x.shape, generator=gen, device=x.device) for _ in range(4))
     f = mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg)
+    s1 = (f[0], f[1], f[2], f[3], f[7])
+    out = {"bounce0_fwd": smoke.time_ms(
+               lambda: mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg), 20),
+           "bounce_fwd b1": smoke.time_ms(lambda: mk.bounce_fwd(table, tris, lv, *s1, 1, cfg), 20)}
     c = cot(f[2])
-    out = {"bounce0_bwd b0": kernel_ms(
-        lambda: mk.bounce0_bwd(table, lv, camv, ids, 0, f[5], f[6], c, cfg))}
+    out["bounce0_bwd b0"] = (kernel_ms(
+        lambda: mk.bounce0_bwd(table, lv, camv, ids, 0, f[5], f[6], c, cfg)))
     state = (f[0], f[1], f[2], f[3], f[7])
     for b in range(1, 9):
         f = mk.bounce_fwd(table, tris, lv, *state, b, cfg)

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""The cluster-traversal kernel (K6) and the paths that run it, timed for
-two or more checkouts of the port in one call, in turns (e.g. parent,
-change, change, parent), each in a fresh process.
+"""The wavefront's intersection kernels (K6, the cluster traversal, and
+K5, the panel) and the paths that run them, timed for two or more
+checkouts of the port in one call, in turns (e.g. parent, change, change,
+parent), each in a fresh process.
 
-    python3 scripts/ab_wavefront.py [--k6-only] OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+    python3 scripts/ab_wavefront.py [--kernels-only] OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
 
 Per checkout, after a warm-up, each number the median and the least of 3
 repeats (5 for frames and steps, whose host time varies more):
 ``clustered_closest`` by CUDA events over 20 launches on the ray sets of
 ``chip_smoke.py`` phase 13 (BASELINE config 3 primary rays; its bounce-1
 rays in pixel order, coherence-sorted and shuffled; sponza 3840x2160
-primary rays); then, unless ``--k6-only``, path A's ``render`` ms/frame
+primary rays), and ``clustered_any`` on config 3's shadow rays;
+``panel_closest`` the same way on Cornell's 1920x1080 primary rays and
+bounce-1 rays (pixel order and sorted), and the any-hit kernel alone
+(``panel._run``, by ``chip_smoke.device_ms``) on its shadow rays toward
+light 0 (phase 8's sets); then, unless
+``--kernels-only``, path A's ``render`` ms/frame
 (config 3 sorted and unsorted over 4 frames, bunny 1920x1080 x 9 and
 sponza 3840x2160 x 1 over 2), path C's ``loss_and_grads`` ms/step at
 config 3 (3 steps), and the mega path's Cornell 1920x1080 x 9 forward
-(4 frames) and training step. Scenes, accels and rays are built with each
+(4 frames) and training step, and path B's Cornell 1920x1080 x 9
+forward on the panel (``backend="pallas"``, 4 frames). Scenes, accels and rays are built with each
 checkout's own package (``device="cuda"``); the ray sets come from this
 script's ``chip_smoke.wavefront_rays``. Needs a CUDA device.
 """
@@ -38,13 +45,14 @@ def _smoke():
     return smoke
 
 
-def child(root: str, k6_only: bool) -> None:
+def child(root: str, kernels_only: bool) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
     import mini_opencl_raytracer_tpu_torch as mrt
     from mini_opencl_raytracer_tpu_torch import grad
     from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import panel
 
     assert mrt.__file__.startswith(root), mrt.__file__
     smoke = _smoke()
@@ -76,7 +84,25 @@ def child(root: str, k6_only: bool) -> None:
                               ("K6 sponza 4K primary", acc["sponza"], big["primary"])):
         ti = torch.full((o.shape[0],), cfg3.t_max, device=dev)
         out[label] = med(lambda: smoke.time_ms(lambda: cl.clustered_closest(cg, o, d, ti), 20))
-    if not k6_only:
+    so, sd, tl = rays["shadow"]
+    out["K6 config 3 shadow (any)"] = med(lambda: smoke.time_ms(
+        lambda: cl.clustered_any(acc["bunny"], so, sd, tl), 20))
+    cornell = mrt.cornell_scene(device=dev)
+    cfg_b = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+    tri5 = panel.pack_triangles(cornell.geometry)
+    r5 = smoke.wavefront_rays(mrt, torch, cornell, cam, cfg_b,
+                              *panel.make_intersectors(cornell.geometry, cfg_b))
+    for kind in ("primary", "bounce1", "bounce1_sorted"):
+        o, d = r5[kind]
+        ti = torch.full((o.shape[0],), cfg_b.t_max, device=dev)
+        out[f"K5 {kind}"] = med(lambda: smoke.time_ms(
+            lambda: panel.panel_closest(tri5, o, d, ti), 20))
+    so, sd, tl = r5["shadow"]
+    # The kernel alone by device time: panel_any's idx >= 0 is a kernel of
+    # its own, and the wrapper's Python outlasts the kernel at this size.
+    out["K5 shadow (any, device)"] = med(lambda: smoke.device_ms(
+        lambda: panel._run("panel_any", True, tri5, so, sd, tl, False)))
+    if not kernels_only:
         loss_fn = lambda img: img.mean()
         cases = (("config 3 sorted", bunny, cfg3, 4, "bunny"),
                  ("config 3 unsorted", bunny, dataclasses.replace(cfg3, sort_rays=False), 4,
@@ -85,8 +111,9 @@ def child(root: str, k6_only: bool) -> None:
                   2, "bunny"),
                  ("sponza 4K x 1", sponza, mrt.RenderConfig(width=3840, height=2160, bounces=1),
                   2, "sponza"),
-                 ("mega Cornell 1080p x 9", mrt.cornell_scene(device=dev),
-                  mrt.RenderConfig(width=1920, height=1080, bounces=9), 4, None))
+                 ("path B Cornell 1080p x 9", cornell,
+                  dataclasses.replace(cfg_b, backend="pallas"), 4, None),
+                 ("mega Cornell 1080p x 9", cornell, cfg_b, 4, None))
         with torch.no_grad():
             for label, sc, cfg, n, name in cases:
                 a = acc[name] if name else None
@@ -106,10 +133,10 @@ def child(root: str, k6_only: bool) -> None:
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--k6-only"]
-    k6_only = len(args) < len(sys.argv) - 1
+    args = [a for a in sys.argv[1:] if a != "--kernels-only"]
+    kernels_only = len(args) < len(sys.argv) - 1
     if len(args) > 1 and args[0] == "--child":
-        child(args[1], k6_only)
+        child(args[1], kernels_only)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -117,7 +144,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     for root in args:
         subprocess.run([sys.executable, __file__, "--child", root]
-                       + (["--k6-only"] if k6_only else []), check=True)
+                       + (["--kernels-only"] if kernels_only else []), check=True)
     return 0
 
 

@@ -3,7 +3,7 @@
 spills per kernel from ``ptxas -v``, and the static SASS instruction mix of
 each kernel from ``cuobjdump -sass`` of the built library.
 
-    python3 scripts/kernel_sass.py [--match bwd]
+    python3 scripts/kernel_sass.py [--match bwd] [--listing]
 
 Per kernel whose name contains ``--match``: the instruction count and how
 many are MUFU (sin, cos, ex2, lg2, rsq, rcp: the transcendental unit),
@@ -13,6 +13,7 @@ loop (a backward branch that encloses no other) with its instructions,
 its mix and its MUFU.RCP count: in the intersection kernels one RCP is one
 Möller–Trumbore test's 1 / det, so instructions / RCP is the static size
 of a test in that loop. Counts are static, not executed instructions.
+``--listing`` also prints each innermost loop's instructions.
 Needs ``nvcc`` and ``cuobjdump``.
 """
 
@@ -54,7 +55,7 @@ def sass_mix(lib: Path, match: str):
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
         if cur is not None and m:
-            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
     mix, loops = {}, {}
     for name, ins in code.items():
         mix[name] = _classify([op for _, op, _ in ins])
@@ -65,7 +66,8 @@ def sass_mix(lib: Path, match: str):
                 spans.append((int(t.group(1), 16), addr))
         inner = [a for a in spans if not any(b != a and a[0] <= b[0] and b[1] <= a[1]
                                              for b in spans)]
-        loops[name] = [(lo, hi, _classify([op for a, op, _ in ins if lo <= a <= hi]))
+        loops[name] = [(lo, hi, _classify([op for a, op, _ in ins if lo <= a <= hi]),
+                        [f"{op} {rest}" for a, op, rest in ins if lo <= a <= hi])
                        for lo, hi in sorted(set(inner))]
     return mix, loops
 
@@ -73,6 +75,7 @@ def sass_mix(lib: Path, match: str):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--match", default="bwd")
+    ap.add_argument("--listing", action="store_true")
     args = ap.parse_args()
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     build.library_path().unlink(missing_ok=True)  # rebuild, so that ptxas reports
@@ -86,10 +89,12 @@ def main() -> int:
     for name, c in mix.items():
         print(f"sass {name}: {c['n']} instructions; " + ", ".join(
             f"{k} {c[k]}" for k in CLASSES) + f"; MUFU share {c['MUFU'] / max(c['n'], 1):.4f}")
-        for lo, hi, lc in loops[name]:
+        for lo, hi, lc, text in loops[name]:
             per = f", {lc['n'] / lc['RCP']:.1f} per RCP" if lc["RCP"] else ""
             print(f"  innermost loop 0x{lo:x}-0x{hi:x}: {lc['n']} instructions, RCP "
                   f"{lc['RCP']}{per}; " + ", ".join(f"{k} {lc[k]}" for k in CLASSES))
+            if args.listing:
+                print("\n".join(f"    {t}" for t in text))
     return 0
 
 

@@ -359,8 +359,8 @@ def _flat_walk(cg, o, d, t_init, any_hit=False):
 
 @pytest.mark.parametrize("case", [name for name, _ in _walk_cases()])
 def test_walk_matches_plain(case):
-    """The model of the kernel's walk (stack order, cull and slack as in
-    csrc/clustered.cu) and the flat walk it replaced return
+    """The model of the kernel's walk (stack order as in csrc/clustered.cu,
+    no cull by the best t) and the flat walk it replaced return
     run_clustered_plain's (t, slot) exactly, closest and any-hit, at an
     open and at a short limit; the tree tests fewer boxes."""
     cg, o, d = dict(_walk_cases())[case]()
@@ -377,7 +377,7 @@ def test_walk_matches_plain(case):
             boxes[order] = stats[:, 2].sum().item()
         if case != "tie":
             assert 0.3 < (p_slot >= 0).float().mean() < 1.0
-            assert boxes["tree"] < boxes["flat"] / 2
+            assert boxes["tree"] < 0.6 * boxes["flat"]
     if case == "tie":
         assert cg.slot_to_tri[p_slot[0].long()].item() == 40
 

@@ -27,7 +27,8 @@ import torch
 import mini_opencl_raytracer_tpu_torch as P
 from mini_opencl_raytracer_tpu_torch import native as pnative
 from mini_opencl_raytracer_tpu_torch.ops import integrator, rng
-from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
+from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays, rays_from_basis
+from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
 from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
@@ -399,8 +400,7 @@ def test_sorted_wavefront_bitwise_on_card():
 
 # A ray starting 2.3e-4 before a tilted triangle F, next to the corner
 # that bounds F's box (float32 values): Moller-Trumbore puts the hit about
-# 1.2% of t below the slab entry of F's box, more than the cull's relative
-# slack of 1e-4.
+# 1.2% of t below the slab entry of F's box.
 _F = ((2.98009991645813, -9.715656280517578, -4.385581016540527),
       (6.7950758934021, -7.85994815826416, -7.030585289001465),
       (-0.21197199821472168, -10.590027809143066, -7.030278205871582))
@@ -452,8 +452,8 @@ def test_short_range_case_hits_below_its_box_entry():
 
 def test_walk_short_range_case():
     """The model of the kernel's walk finds F, as the plain version does:
-    front to back it visits the decoy's cluster first, and the slack keeps
-    F's cluster, whose entry lies beyond the decoy's t, in the walk."""
+    it visits the decoy's cluster first, then F's cluster, whose entry
+    lies beyond the decoy's t."""
     _, cg, o, d = short_range_case()
     t_init = torch.full((1,), 1e5)
     t, slot, stats = walk(cg, o, d, t_init)
@@ -465,7 +465,7 @@ def test_walk_short_range_case():
 @pytest.mark.cuda
 def test_clustered_short_range_hit_on_card():
     """K6 finds F, as its plain version does, though M-T puts F's hit
-    below its box's entry by more than the relative slack."""
+    below its box's entry by 1.2% of t."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -480,3 +480,112 @@ def test_clustered_short_range_hit_on_card():
     torch.cuda.synchronize()
     assert p_slot.item() == pcl.CLUSTER            # F, the first slot of cluster 1
     assert k_slot.item() == p_slot.item() and k_t.item() == p_t.item()
+
+
+CULL_SETS = ("vertices_edges", "coplanar", "grazing", "signed_zeros", "open_limits",
+             "padding", "soup2048")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CULL_SETS)
+def test_panel_cull_on_card(name):
+    """K5 on the adversarial sets of its per-warp cull: (t, idx) bitwise
+    equal to run_panel_plain's (closest mode), and t, idx and each ray's
+    M-T count equal to the model of the cull (ops/cuda/bundle_cull.py) in
+    closest and any mode, with and without backface culling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    geo, o, d, limit = parity.cull_ray_sets(dev)[name]
+    tris = ppanel.pack_triangles(geo)
+    R = o.shape[0]
+    for cull in (False, True):
+        st, sa = (torch.zeros((R,), dtype=torch.int32, device=dev) for _ in range(2))
+        k = ppanel.panel_closest(tris, o, d, limit, cull, stats=st)
+        ka = ppanel._run("panel_any", True, tris, o, d, limit, cull, sa)
+        p = ppanel.run_panel_plain(tris, o, d, limit, cull)
+        m = bc.cull_hits(tris, o, d, limit, cull)
+        ma = bc.cull_hits(tris, o, d, limit, cull, any_hit=True)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert torch.equal(k[0], m[0]) and torch.equal(k[1], m[1]) and torch.equal(st, m[2])
+        assert torch.equal(ka[0], ma[0]) and torch.equal(ka[1], ma[1]) and torch.equal(sa, ma[2])
+        assert torch.equal(ka[1] >= 0, p[1] >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(3))
+def test_bounce0_cull_on_card(case):
+    """K1's cull on a 2048-triangle soup and under a camera grazing the
+    floor (with backface culling and shadow rays in the last case), at
+    128x128: every output bitwise equal to the plain version's, and
+    without shadow rays each ray's M-T count equal to the model's on the
+    plain version's camera rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    label, scene, cam, cfg = parity.k1_cull_cases(dev)[case]
+    cfg = dataclasses.replace(cfg, width=128, height=128)
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    camv = pmk.camera_vector(cam)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    st = torch.zeros((cfg.num_pixels,), dtype=torch.int32, device=dev)
+    k0 = pmk.bounce0_fwd(table, tris, lv, camv, pid, 2, cfg, stats=st)
+    p0 = pmk.bounce0_fwd_plain(table, tris, lv, camv, pid, 2, cfg)
+    torch.cuda.synchronize()
+    parity.check_bounce(f"bounce0_fwd, {label}", k0, p0)
+    assert all(torch.equal(a, b) for a, b in zip(k0, p0)), label
+    if not cfg.shadow_rays:
+        seeds = rng.pixel_seeds(pid, 2)
+        o, d = rays_from_basis(camv[0:3], camv[3:6], camv[6:9], camv[9:12], cfg, pid, seeds)
+        limit = torch.full((cfg.num_pixels,), min(cfg.t_max, 3.0e38), device=dev)
+        model = bc.cull_hits(tris, o.contiguous(), d.contiguous(), limit, cfg.backface_cull)[2]
+        assert torch.equal(model, st), label
+    assert 0 < st.float().mean() < tris.shape[0] + (2 * tris.shape[0] if cfg.shadow_rays else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sah", "morton"])
+def test_clustered_grazing_on_card(layout):
+    """K6 on near-tie rays grazing a bumpy surface at cos 1e-2 ... 1e-4
+    (tests/test_torch_bundle_cull.py holds its walk's model to the plain
+    version on the same rays): (t, slot) equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    geo, pts, tris, nrm = parity.grazing_surface()
+    cg = pcl.build_accel(geo) if layout == "sah" else pcl.build_clusters(geo)
+    cg = pcl.ClusteredGeometry(**{f.name: (v.to(dev) if torch.is_tensor(v) else v)
+                                  for f in dataclasses.fields(cg)
+                                  for v in [getattr(cg, f.name)]})
+    for cos in (1e-2, 1e-3, 1e-4):
+        o, d = (a.to(dev) for a in parity.grazing_rays(pts, tris, nrm, cos))
+        t_init = torch.full((o.shape[0],), 1e5, device=dev)
+        k_t, k_slot, _ = pcl.clustered_closest(cg, o, d, t_init)
+        p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, t_init, False)
+        torch.cuda.synchronize()
+        assert torch.equal(k_slot, p_slot) and torch.equal(k_t, p_t), cos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cos", [1e-3, 1e-4])
+def test_clustered_grazing_decoy_on_card(cos):
+    """K6 on the decoy scenes of parity.grazing_decoys (the CPU test
+    tests/test_torch_bundle_cull.py::test_walk_finds_the_grazed_triangle_behind_a_decoy
+    holds the walk's model on them): (t, slot) and the any-hit equal to
+    the plain version's, F in every scene, both clusters visited."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cases = parity.grazing_decoys(dev, cos)
+    assert cases
+    for cg, o, d, t_f, _, _ in cases:
+        t_init = torch.full((1,), 1e5, device=dev)
+        stats = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+        k_t, k_slot, _ = pcl.clustered_closest(cg, o, d, t_init, stats=stats)
+        k_any = pcl.clustered_any(cg, o, d, t_init)
+        p_t, p_slot, _ = pcl.run_clustered_plain(cg, o, d, t_init, False)
+        torch.cuda.synchronize()
+        assert p_slot.item() == pcl.CLUSTER and p_t.item() == t_f
+        assert torch.equal(k_slot, p_slot) and torch.equal(k_t, p_t)
+        assert bool(k_any.item()) and stats[0, 1].item() == 2
