@@ -83,9 +83,28 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    tests, cluster visits and box tests per ray and the share of idle
    lanes per warp; on config 3's primary rays the kernel's (t, slot) and
    counts against the model of its walk (ops/cuda/clustered_walk.py,
-   equal).
+   equal);
+14. the shell on the card: ``python -m mini_opencl_raytracer_tpu_torch.cli``
+   in subprocesses (``--device cuda``), each printing the kernels' launch
+   counts of its process. ``write_cornell_obj`` then ``load_scene``
+   (leaves equal ``cornell_scene()``'s within 1e-5, native = Python
+   parser); ``cli render`` of that OBJ at 1920x1080 x 9, 4 frames with
+   ``--checkpoint``, then ``--resume`` for 4 more: the resumed image
+   bitwise equal to an 8-frame ``render`` in process, the PNG of the
+   first run equal to the 4-frame image's bytes; ``cli benchmark`` at
+   1080p x 9 with ``--occupancy``; ``cli optimize --steps 10`` at
+   512x512 x 9 (K1-K4; the loss falls, every step finite); ``cli render
+   --backend pallas`` at 512x512 x 9 (K5) against mega (PFM); the bunny
+   written as an OBJ (``load_scene`` timed), ``cli render`` at config 3
+   (K6) against the in-process render of ``bunny_scene()``; the LBVH
+   (``backend="bvh"``, plain PyTorch): ``build_bvh`` on both scenes,
+   ``intersect_bvh`` / ``occluded_bvh`` on primary, bounce-1 and shadow
+   rays against the brute-force oracle (Cornell, 512x512) and K6 (bunny,
+   256x256),
+   and ``render(backend="bvh")`` of Cornell at 512x512 x 4 against mega,
+   with ms/frame beside mega's.
 
-Gates (phases 3, 3b, 4, 7-12): ops/cuda/parity.py. The forward
+Gates (phases 3, 3b, 4, 7-12, 14): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
 pair whose line meets the triangle below the ray's limit (``hit_pairs``),
 what the inputs need; the bound that charged every pair is printed beside
@@ -516,6 +535,315 @@ def idle_lanes(stats, rays_per_warp: int) -> dict:
     return {"tests": tests.mean().item(), "visits": stats[:, 1].float().mean().item(),
             "boxes": stats[:, 2].float().mean().item(),
             "total_tests": int(stats[:, 0].sum().item()), "idle": 1.0 - busy.item()}
+
+
+_CLI = "mini_opencl_raytracer_tpu_torch.cli"
+# Runs the CLI as ``python -m`` does (runpy), then prints that process's
+# kernel launch counts on stderr (they start at 0 in a new process).
+_CLI_RUNNER = f"""
+import json, runpy, sys
+from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
+try:
+    runpy.run_module({_CLI!r}, run_name="__main__", alter_sys=True)
+finally:
+    counts = {{**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES}}
+    print("LAUNCHES " + json.dumps(counts), file=sys.stderr)
+"""
+
+
+def cli_run(args, timeout: int = 600):
+    """``python -m mini_opencl_raytracer_tpu_torch.cli ARGS`` from the repo
+    root in a subprocess: (stdout, stderr, launch counts, seconds).
+    Raises unless it exits 0."""
+    import os
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _CLI_RUNNER] + [str(a) for a in args],
+                       capture_output=True, text=True, timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    sec = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cli {' '.join(map(str, args))} exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    line = [ln for ln in r.stderr.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    return r.stdout, r.stderr, json.loads(line[len("LAUNCHES "):]), sec
+
+
+def expect_launches(label: str, counts: dict, want: dict) -> None:
+    """A CLI run launched each kernel of ``want`` that many times and no
+    other kernel."""
+    if counts != {name: want.get(name, 0) for name in counts}:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def read_png(torch, path: str):
+    """An RGB8 PNG as a [H, W, 3] uint8 tensor: through PIL where it is
+    installed, else the unfiltered form utils/image._write_png_pure writes."""
+    import numpy as np
+    try:
+        from PIL import Image
+        return torch.from_numpy(np.asarray(Image.open(path)).copy())
+    except ImportError:
+        pass
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: filtered PNG rows need PIL to read")
+    return torch.from_numpy(raw[:, 1:].reshape(h, w, 3).copy())
+
+
+def read_pfm(torch, path: str):
+    """A PFM written by utils/image.write_pfm as a [H, W, 3] float32 tensor."""
+    import numpy as np
+    with open(path, "rb") as f:
+        if f.readline() != b"PF\n":
+            raise AssertionError(f"{path}: not an RGB PFM")
+        w, h = (int(x) for x in f.readline().split())
+        if float(f.readline()) >= 0:
+            raise AssertionError(f"{path}: not little-endian")
+        arr = np.frombuffer(f.read(), "<f4").reshape(h, w, 3)[::-1]
+    return torch.from_numpy(arr.copy())
+
+
+def write_scene_obj(scene, directory: str, stem: str):
+    """Test scaffolding: ``scene`` as an .obj/.mtl pair with flat per-corner
+    v/vt/vn records, ``usemtl`` runs and materials named by the Cornell
+    table, every float as ``%.9g`` (float32 round-trips exactly)."""
+    import os
+    import numpy as np
+    from mini_opencl_raytracer_tpu_torch.models.cornell import CORNELL_MATERIAL_NAMES
+    g, m = scene.geometry, scene.materials
+    names = CORNELL_MATERIAL_NAMES[:m.count]
+    obj, mtl = (os.path.join(directory, f"{stem}.{ext}") for ext in ("obj", "mtl"))
+    fmt = lambda a: "\n".join(" ".join("%.9g" % x for x in row) for row in a)
+    with open(mtl, "w") as f:
+        for i, name in enumerate(names):
+            f.write(f"newmtl {name}\n")
+            for key, arr in (("Kd", m.diffuse), ("Ks", m.specular), ("Ke", m.emission)):
+                f.write(f"{key} {fmt(arr[i:i + 1].cpu().numpy())}\n")
+            f.write(f"Ns %.9g\nNi %.9g\n" % (m.roughness[i].item(), m.ior[i].item()))
+    corners = lambda a, b, c: np.stack([x.cpu().numpy() for x in (a, b, c)], 1).reshape(
+        -1, a.shape[1])
+    T = g.num_triangles
+    mats = g.mat_idx.cpu().numpy()
+    with open(obj, "w") as f:
+        f.write(f"mtllib {stem}.mtl\n")
+        for tag, arr in (("v", corners(g.v0, g.v1, g.v2)), ("vt", corners(g.uv0, g.uv1, g.uv2)),
+                         ("vn", corners(g.n0, g.n1, g.n2))):
+            f.write("\n".join(f"{tag} " + row for row in fmt(arr).split("\n")) + "\n")
+        starts = np.flatnonzero(np.r_[True, mats[1:] != mats[:-1]])
+        for s0, s1 in zip(starts, list(starts[1:]) + [T]):
+            f.write(f"usemtl {names[mats[s0]]}\n")
+            i = 3 * np.arange(s0, s1) + 1
+            f.write("\n".join(f"f {a}/{a}/{a} {a + 1}/{a + 1}/{a + 1} {a + 2}/{a + 2}/{a + 2}"
+                               for a in i) + "\n")
+    return obj, mtl
+
+
+def leaf_diff(torch, a, b) -> float:
+    """Largest |difference| over the geometry and material leaves of two
+    scenes (inf where a leaf's shape or dtype differs)."""
+    worst = 0.0
+    for group in ("geometry", "materials"):
+        ga, gb = getattr(a, group), getattr(b, group)
+        for f in dataclasses.fields(ga):
+            x, y = getattr(ga, f.name), getattr(gb, f.name)
+            if x.shape != y.shape or x.dtype != y.dtype:
+                return float("inf")
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
+
+
+def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
+    """The shell on the card (module docstring, phase 14)."""
+    import os
+    import tempfile
+    from mini_opencl_raytracer_tpu_torch.models import objloader
+    from mini_opencl_raytracer_tpu_torch.utils import checkpoint as ckpt
+    from mini_opencl_raytracer_tpu_torch.utils.image import to_uint8
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    cam = mrt.Camera.from_angles([0.0, -25.0, 8.5], 1.571, 1.571, device=dev)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        at = lambda name: os.path.join(tmp, name)
+        # 14.1 Scene ingest.
+        obj, _ = mrt.write_cornell_obj(tmp)
+        scene = mrt.load_scene(obj, device=dev)
+        diff = leaf_diff(torch, scene, mrt.cornell_scene(device=dev))
+        names = {n: i for i, n in enumerate(mrt.load_mtl(obj[:-4] + ".mtl")[0])}
+        if objloader._native_triangles(obj, names) is None:
+            raise AssertionError("load_obj did not take the native parser")
+        native_py = leaf_diff(torch, mrt.load_scene(obj, device=dev),
+                              mrt.Scene(*mrt.load_obj(obj, use_native=False, device=dev)[:2],
+                                        lights=scene.lights))
+        log(f"[14 shell] write_cornell_obj + load_scene: {scene.num_triangles} triangles, "
+            f"max |leaf - cornell_scene()| {diff:.2e} (gate 1e-5); native vs Python parser "
+            f"max |diff| {native_py:.1e}")
+        if not (diff <= 1e-5 and native_py == 0.0):
+            raise AssertionError("the Cornell OBJ does not load as cornell_scene()")
+
+        # 14.2 cli render 1080p x 9, 4 frames, checkpoint; resume 4 more.
+        cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+        args = ["render", "--scene", obj, "--width", 1920, "--height", 1080, "--bounces", 9,
+                "--device", "cuda"]
+        _, _, n1, s1 = cli_run(args + ["--frames", 4, "--checkpoint", at("st.npz"),
+                                       "--out", at("four.png")])
+        _, err2, n2, s2 = cli_run(args + ["--frames", 4, "--resume", at("st.npz"),
+                                          "--checkpoint", at("st8.npz"), "--out", at("eight.npy")])
+        for label, n in (("render", n1), ("render --resume", n2)):
+            expect_launches(label, n, {"bounce0_fwd": 4, "bounce_fwd": 32})
+        if "resumed at 4 samples" not in err2:
+            raise AssertionError(f"cli render --resume: {err2[-500:]}")
+        with torch.no_grad():
+            four = mrt.render(scene, cam, cfg, frames=4)
+            eight = mrt.render(scene, cam, cfg, frames=8)
+        import numpy as np
+        got8 = torch.from_numpy(np.load(at("eight.npy"))).to(dev)
+        state = ckpt.load_render_state(at("st8.npz"), mrt.RenderState.create(cfg, dev))
+        png = read_png(torch, at("four.png"))
+        third = cfg.width // 3
+        left, right = got8[:, :third].mean((0, 1)), got8[:, -third:].mean((0, 1))
+        log(f"[14 shell] cli render 1920x1080x9: 4 frames {s1:.1f} s, --resume 4 more "
+            f"{s2:.1f} s (process, CUDA init and library load included); launches {n2}; "
+            f"resumed image bitwise equal to render(frames=8): {torch.equal(got8, eight)}; "
+            f"checkpoint {state.num_samples} samples; PNG {tuple(png.shape)} equal to the "
+            f"4-frame image's bytes: {torch.equal(png, torch.from_numpy(to_uint8(four)))}; "
+            f"left third rgb {left.tolist()}, right third rgb {right.tolist()}")
+        if not (torch.equal(got8, eight) and state.num_samples == 8
+                and torch.equal(png, torch.from_numpy(to_uint8(four)))
+                and tuple(got8.shape) == (1080, 1920, 3) and bool(torch.isfinite(got8).all())
+                and left[0] > left[1] and right[1] > right[0]):
+            raise AssertionError("cli render / resume disagrees with the in-process render")
+
+        # 14.3 cli benchmark 1080p x 9 with occupancy.
+        out, _, n3, s3 = cli_run(["benchmark", "--scene", obj, "--width", 1920, "--height",
+                                  1080, "--bounces", 9, "--occupancy", "--device", "cuda"])
+        bench = json.loads(out.strip().splitlines()[-1])
+        log(f"[14 shell] cli benchmark ({s3:.1f} s): {json.dumps(bench)}")
+        log(f"[14 shell] cli benchmark 1920x1080x9: {bench['seconds_per_frame'] * 1e3:.3f} "
+            f"ms/frame (events over 8 frames back to back, median of 5) against phase 5's "
+            f"render(frames=4) {ms_phase5:.3f} ms/frame; launches {n3} ({card})")
+        expect_launches("benchmark", n3, {"bounce0_fwd": 48, "bounce_fwd": 384,
+                                          "panel_closest": 9})
+        occ = bench["live_ray_fraction_per_bounce"]
+        if not (bench["backend"] == "mega" and len(occ) == 9
+                and all(0.0 <= x <= 1.0 for x in occ)
+                and all(b <= a for a, b in zip(occ, occ[1:]))):
+            raise AssertionError(f"cli benchmark: {bench}")
+
+        # 14.4 cli optimize, 10 steps at 512x512 x 9 through K1-K4.
+        out, err, n4, s4 = cli_run(["optimize", "--steps", 10, "--lr", 0.1, "--device",
+                                    "cuda"])
+        losses = [float(ln.split()[-1]) for ln in err.splitlines() if ln.startswith("step ")]
+        res = json.loads(out.strip().splitlines()[-1])
+        log(f"[14 shell] cli optimize 512x512x9 --steps 10 --lr 0.1 ({s4:.1f} s): losses "
+            f"{losses}; {res}; launches {n4}")
+        expect_launches("optimize", n4, {"bounce0_fwd": 11, "bounce_fwd": 88,
+                                         "bounce0_bwd": 10, "bounce_bwd": 80})
+        if not (len(losses) == 10 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and np.isfinite(res["final_loss"])):
+            raise AssertionError(f"cli optimize: the loss did not fall: {losses}")
+
+        # 14.5 cli render --backend pallas (K5) against mega.
+        cfg5 = mrt.RenderConfig(width=512, height=512, bounces=9)
+        _, _, n5, s5 = cli_run(["render", "--scene", obj, "--width", 512, "--height", 512,
+                                "--frames", 1, "--backend", "pallas", "--out", at("p.pfm"),
+                                "--device", "cuda"])
+        expect_launches("render --backend pallas", n5, {"panel_closest": 9})
+        lin = read_pfm(torch, at("p.pfm")).to(dev)
+        with torch.no_grad():
+            mega = mrt.render_radiance(scene, cam, cfg5, frames=1)
+        log(f"[14 shell] cli render --backend pallas 512x512x9 ({s5:.1f} s, launches {n5}) "
+            "vs mega in process")
+        log_stats("radiance", {"radiance": parity.check_float("cli pallas vs mega", lin, mega)})
+
+        # 14.6 The bunny as an OBJ through K6.
+        bunny = mrt.bunny_scene(device=dev)
+        bobj, _ = write_scene_obj(bunny, tmp, "bunny")
+        t0 = time.perf_counter()
+        bscene = mrt.load_scene(bobj, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        bdiff = leaf_diff(torch, bscene, bunny)
+        cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+        _, _, n6, s6 = cli_run(["render", "--scene", bobj, "--width", 512, "--height", 512,
+                                "--bounces", 2, "--frames", 4, "--out", at("bunny.npy"),
+                                "--device", "cuda"])
+        expect_launches("render bunny", n6, {"clustered_closest": 8})
+        got = torch.from_numpy(np.load(at("bunny.npy"))).to(dev)
+        with torch.no_grad():
+            ref = mrt.render(bunny, cam, cfg3, frames=4, accel=mrt.build_accel(bunny, cfg3))
+        log(f"[14 shell] bunny OBJ ({os.path.getsize(bobj) / 2**20:.1f} MiB): load_scene "
+            f"{bscene.num_triangles} triangles in {t_load:.3f} s (native parser); max |leaf - "
+            f"bunny_scene()| {bdiff:.1e}; cli render config 3, 4 frames ({s6:.1f} s, launches "
+            f"{n6}) vs render of bunny_scene() in process: bitwise {torch.equal(got, ref)}")
+        log_stats("image", {"image": parity.check_float("cli bunny vs in process", got, ref)})
+        if bscene.num_triangles != bunny.num_triangles or bdiff != 0.0:
+            raise AssertionError("the bunny OBJ does not load as bunny_scene()")
+
+        # 14.7 The LBVH (plain PyTorch) against the oracle and K6.
+        # The walk is host-bound (dozens of small launches a step, a step
+        # per node popped: up to ~15 on Cornell, hundreds on the bunny),
+        # so the bunny's rays are 256x256 to keep the phase short.
+        cfg_r = mrt.RenderConfig(width=512, height=512, bounces=4)
+        acc_b = mrt.build_accel(bunny, cfg3)
+        for label, sc, cfg_w, ref_fns in (
+                ("Cornell OBJ", scene, cfg_r, mrt.make_intersectors(
+                    scene, dataclasses.replace(cfg_r, backend="bruteforce"))),
+                ("bunny", bunny, mrt.RenderConfig(width=256, height=256, bounces=4),
+                 cl.make_intersectors(bunny.geometry, cfg3, accel=acc_b,
+                                      materials=bunny.materials))):
+            t0 = time.perf_counter()
+            b = mrt.build_bvh(sc.geometry)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            rays = wavefront_rays(mrt, torch, sc, cam, cfg_w, *ref_fns)
+            msg = []
+            for kind_r in ("primary", "bounce1"):
+                o, d = rays[kind_r]
+                t0 = time.perf_counter()
+                h = mrt.intersect_bvh(o, d, b, t_max=cfg_w.t_max)
+                torch.cuda.synchronize()
+                t_walk = time.perf_counter() - t0
+                r = ref_fns[0](o, d)
+                as_hits = lambda x: (torch.where(x.hit, x.t, torch.full_like(x.t, cfg_w.t_max)),
+                                     torch.where(x.hit, x.tri_idx.long(), -1))
+                st = parity.check_hits(f"bvh {label} {kind_r}", as_hits(h), as_hits(r))
+                msg.append(f"{kind_r} {o.shape[0]} rays: winners {st['winner_agree']:.6f}, "
+                           f"hit {st['hit_frac']:.4f}, {t_walk * 1e3:.1f} ms")
+            o, d, tl = rays["shadow"]
+            parity.check_any(f"bvh {label} shadow", mrt.occluded_bvh(o, d, tl, b),
+                             ref_fns[1](o, d, tl))
+            log(f"[14 shell] build_bvh {label}: {sc.num_triangles} triangles, {b.num_leaves} "
+                f"leaves, depth {b.depth}, {t_build:.3f} s; intersect_bvh vs "
+                f"{'bruteforce' if label.startswith('Cornell') else 'K6'}: " + "; ".join(msg)
+                + f"; occluded_bvh on {o.shape[0]} shadow rays equal")
+        cfg_bvh = dataclasses.replace(cfg_r, backend="bvh")
+        with torch.no_grad():
+            acc = mrt.build_accel(scene, cfg_bvh)
+            img_b = mrt.render_radiance(scene, cam, cfg_bvh, frames=1, accel=acc)
+            img_m = mrt.render_radiance(scene, cam, cfg_r, frames=1)
+            log("[14 shell] render(backend='bvh') Cornell OBJ 512x512x4 vs mega")
+            log_stats("radiance", {"radiance": parity.check_float("bvh vs mega", img_b, img_m)})
+            n = 2
+            ms_b = events_ms(lambda: mrt.render(scene, cam, cfg_bvh, frames=n, accel=acc), n)
+            acc_m = mrt.build_accel(scene, cfg_r)
+            ms_m = events_ms(lambda: mrt.render(scene, cam, cfg_r, frames=n, accel=acc_m), n)
+        log(f"[14 shell] Cornell 512x512x4: bvh (plain PyTorch walk, host-bound) {ms_b:.3f} "
+            f"ms/frame, mega {ms_m:.3f} ms/frame ({n} frames each; {card})")
+    log(f"[14 shell] phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1270,6 +1598,9 @@ def main() -> int:
                 f"model on every ray; box tests per ray {lanes['boxes']:.2f}, M-T tests "
                 f"{lanes['tests']:.2f}")
         log(msg + f" ({card})")
+
+    # 14. The shell on the card.
+    phase14(mrt, torch, parity, cl, dev, card, ms_frame)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -7,10 +7,14 @@ four fused bounce kernels written in CUDA for Hopper (csrc/megakernel.cu
 forward, csrc/megakernel_bwd.cu backward); the wavefront ``pallas``
 backend on the panel kernel (csrc/panel.cu, small scenes) and the
 cluster-traversal kernel (csrc/clustered.cu, large scenes, laid out by
-the native SAH build); the procedural bunny- and sponza-scale scenes;
-and the brute-force oracle. Every kernel has a plain PyTorch version that
-runs on the CPU. Importing the package needs neither CUDA nor nvcc; the
-kernels build at first use on a CUDA device.
+the native SAH build); the LBVH ``bvh`` backend (plain PyTorch, as the
+JAX package's is jnp); the brute-force oracle; scene ingest (OBJ/MTL,
+the procedural Cornell, bunny- and sponza-scale scenes); and the shell:
+``cli.py`` (render / benchmark / optimize, checkpoint and resume) and
+``utils/`` (images, checkpoints, metrics, error decoding). Every kernel
+has a plain PyTorch version that runs on the CPU. Importing the package
+needs neither CUDA nor nvcc; the kernels build at first use on a CUDA
+device.
 
 Entry points put their tensors on ``config.DEFAULT_DEVICE`` ("cuda")
 unless given ``device=``; without a CUDA device the default raises.
@@ -20,6 +24,7 @@ Public API::
     import mini_opencl_raytracer_tpu_torch as mrt
 
     scene  = mrt.cornell_scene()                         # on the card
+    # or mrt.load_scene("model.obj"), with model.mtl beside it
     camera = mrt.Camera.default()
     cfg    = mrt.RenderConfig(width=1920, height=1080, bounces=9)
     image  = mrt.render(scene, camera, cfg, frames=4)   # [H, W, 3]
@@ -36,10 +41,12 @@ Public API::
 from .config import DEFAULT_DEVICE, BVHConfig, MeshConfig, RenderConfig
 from .convert import camera_from_numpy, scene_from_numpy, scene_to_numpy
 from .models.cornell import (CORNELL_MATERIAL_NAMES, cornell_geometry,
-                             cornell_materials, cornell_scene)
+                             cornell_materials, cornell_scene, write_cornell_obj)
+from .models.objloader import load_mtl, load_obj, load_scene
 from .models.procedural import bunny_scene, sponza_scene
 from .models.scene import (LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT, Camera,
                            Geometry, Lights, Materials, Scene)
+from .ops.bvh import BVH, build_bvh, intersect_bvh, occluded_bvh
 from .ops.intersect import Hit, intersect_brute, occluded_brute, ray_triangle
 from .render import (RenderState, accumulate, build_accel, make_intersectors,
                      render, render_radiance, render_sample, resolve_backend,
@@ -48,13 +55,14 @@ from .render import (RenderState, accumulate, build_accel, make_intersectors,
 __version__ = "0.1.0"
 
 __all__ = [
-    "BVHConfig", "Camera", "CORNELL_MATERIAL_NAMES", "DEFAULT_DEVICE",
+    "BVH", "BVHConfig", "Camera", "CORNELL_MATERIAL_NAMES", "DEFAULT_DEVICE",
     "Geometry", "Hit",
     "LIGHT_DIRECTIONAL", "LIGHT_POINT", "LIGHT_SPOT", "Lights", "Materials",
     "MeshConfig", "RenderConfig", "RenderState", "Scene", "accumulate",
-    "build_accel", "bunny_scene", "camera_from_numpy", "cornell_geometry",
-    "cornell_materials", "cornell_scene", "intersect_brute",
-    "make_intersectors", "occluded_brute", "ray_triangle", "render",
+    "build_accel", "build_bvh", "bunny_scene", "camera_from_numpy",
+    "cornell_geometry", "cornell_materials", "cornell_scene", "intersect_brute",
+    "intersect_bvh", "load_mtl", "load_obj", "load_scene", "make_intersectors",
+    "occluded_brute", "occluded_bvh", "ray_triangle", "render",
     "render_radiance", "render_sample", "resolve_backend", "scene_from_numpy",
-    "scene_to_numpy", "sponza_scene", "to_image",
+    "scene_to_numpy", "sponza_scene", "to_image", "write_cornell_obj",
 ]

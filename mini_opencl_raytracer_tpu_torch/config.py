@@ -22,15 +22,13 @@ DEFAULT_DEVICE = "cuda"
 
 def default_device(device=None) -> torch.device:
     """``device``, or ``DEFAULT_DEVICE`` when it is None. Raises when the
-    default names CUDA and there is no CUDA device, so that nothing runs
-    on the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
-    dev = torch.device(DEFAULT_DEVICE)
+    device names CUDA and there is no CUDA device, so that nothing runs on
+    the CPU unasked (utils/errors.py decodes the message)."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"the default device is {DEFAULT_DEVICE!r} and there is no CUDA "
-            "device here; pass device='cpu' to build on the CPU")
+            f"the device is {str(dev)!r} and there is no CUDA device here; "
+            "pass device='cpu' to build on the CPU")
     return dev
 
 
@@ -112,7 +110,8 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BVHConfig:
-    """LBVH build settings (kept for parity; the BVH is not ported yet)."""
+    """LBVH build settings (ops/bvh.build_bvh reads ``leaf_size``; the other
+    two fields are kept for parity with the JAX config)."""
 
     leaf_size: int = 8
     morton_bits: int = 21

@@ -2,14 +2,15 @@
 
 The same generator as the JAX package's ``models/cornell.py`` (same
 materials, same triangles in the same order, built in numpy float32), so
-every leaf is bit-identical to the reference's. The ``.obj`` writer waits
-for the port of the OBJ loader.
+every leaf is bit-identical to the reference's; ``write_cornell_obj``
+writes the same .obj/.mtl bytes as the JAX package's writer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +138,51 @@ def cornell_scene(lights: Optional[Lights] = None, device=None) -> Scene:
     return Scene(geometry=cornell_geometry(device),
                  materials=cornell_materials(device=device),
                  lights=lights.to(device))
+
+
+def write_cornell_obj(directory: str, stem: str = "cornell") -> Tuple[str, str]:
+    """Write the procedural Cornell box as an .obj/.mtl pair (flat per-corner
+    v/vt/vn records, 1-based v/vt/vn faces, the only face form the
+    reference parses, CLOBJloader.cpp:96; ``usemtl`` runs). Returns
+    (obj_path, mtl_path)."""
+    os.makedirs(directory, exist_ok=True)
+    obj_path = os.path.join(directory, stem + ".obj")
+    mtl_path = os.path.join(directory, stem + ".mtl")
+
+    with open(mtl_path, "w") as f:
+        f.write("# generated by mini_opencl_raytracer_tpu\n")
+        for name in CORNELL_MATERIAL_NAMES:
+            kd, ks, ke, ns, ni = CORNELL_MATERIALS[name]
+            f.write(f"\nnewmtl {name}\n")
+            f.write(f"Ns {ns:.6f}\n")
+            f.write(f"Kd {kd[0]:.6f} {kd[1]:.6f} {kd[2]:.6f}\n")
+            f.write(f"Ks {ks[0]:.6f} {ks[1]:.6f} {ks[2]:.6f}\n")
+            f.write(f"Ke {ke[0]:.6f} {ke[1]:.6f} {ke[2]:.6f}\n")
+            f.write(f"Ni {ni:.6f}\nd 1.000000\nillum 2\n")
+
+    geo = cornell_geometry(device="cpu")
+    v0, v1, v2 = (a.numpy() for a in (geo.v0, geo.v1, geo.v2))
+    n0 = geo.n0.numpy()
+    uv0, uv1, uv2 = (a.numpy() for a in (geo.uv0, geo.uv1, geo.uv2))
+    mats = geo.mat_idx.numpy()
+
+    with open(obj_path, "w") as f:
+        f.write(f"# generated by mini_opencl_raytracer_tpu\nmtllib {stem}.mtl\n")
+        for t in range(v0.shape[0]):
+            for p in (v0[t], v1[t], v2[t]):
+                f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+        for t in range(v0.shape[0]):
+            for uv in (uv0[t], uv1[t], uv2[t]):
+                f.write(f"vt {uv[0]:.6f} {uv[1]:.6f}\n")
+        for t in range(v0.shape[0]):
+            nv = n0[t]
+            for _ in range(3):
+                f.write(f"vn {nv[0]:.6f} {nv[1]:.6f} {nv[2]:.6f}\n")
+        cur = -1
+        for t in range(v0.shape[0]):
+            if mats[t] != cur:
+                cur = int(mats[t])
+                f.write(f"usemtl {CORNELL_MATERIAL_NAMES[cur]}\n")
+            i = 3 * t + 1
+            f.write(f"f {i}/{i}/{i} {i+1}/{i+1}/{i+1} {i+2}/{i+2}/{i+2}\n")
+    return obj_path, mtl_path

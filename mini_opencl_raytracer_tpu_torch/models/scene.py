@@ -89,6 +89,24 @@ class Camera:
             up=torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device),
         )
 
+    @staticmethod
+    def from_angles(position, pitch: float, yaw: float, dtype=torch.float32,
+                    device=None) -> "Camera":
+        """Spherical-angle camera like CLCamera::Update (CLcamera.h:15-21):
+        front = (cos(yaw) sin(pitch), sin(yaw) sin(pitch), cos(pitch)),
+        up = +z. The angles are rounded to float32 and the products taken
+        in float32, as ``jnp.cos`` / ``jnp.sin`` of Python floats do."""
+        device = default_device(device)
+        p = torch.tensor(pitch, dtype=torch.float32)
+        y = torch.tensor(yaw, dtype=torch.float32)
+        front = torch.stack([torch.cos(y) * torch.sin(p),
+                             torch.sin(y) * torch.sin(p), torch.cos(p)])
+        return Camera(
+            position=torch.as_tensor(position, dtype=dtype).to(device),
+            front=front.to(device=device, dtype=dtype),
+            up=torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device),
+        )
+
     def to(self, device) -> "Camera":
         return _to(self, device)
 

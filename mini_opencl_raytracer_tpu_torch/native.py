@@ -4,7 +4,7 @@ The port's ctypes loader for the C++ sources in the repository's
 ``native/`` directory (``objparse.cpp``, ``sahbvh.cpp``), the same
 sources and the same ``g++`` flags as the JAX package uses, so both
 packages get the same SAH layout. The library is built at first use into
-``build/native/`` at the repository root, under a name keyed by a hash of
+``build/native/`` at the repository root (utils/cache.py), under a name keyed by a hash of
 the sources, the flags and what ``-march=native`` resolves to on this
 host, so neither a stale library nor one built for another CPU is ever
 loaded. Without a compiler everything returns None and callers take
@@ -25,9 +25,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .utils.cache import NATIVE_DIR as BUILD_DIR
+
 _REPO = Path(__file__).resolve().parents[1]
 _SOURCES = [_REPO / "native" / f for f in ("objparse.cpp", "sahbvh.cpp")]
-BUILD_DIR = _REPO / "build" / "native"
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()

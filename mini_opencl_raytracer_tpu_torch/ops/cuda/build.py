@@ -3,7 +3,7 @@
 ``csrc/*.cu`` compile in parallel, one ``nvcc`` per source, and link into
 one shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes), written to
-``build/torch_kernels/`` at the repository root under a name keyed by a
+``build/torch_kernels/`` at the repository root (utils/cache.py) under a name keyed by a
 hash of the sources and flags, so a stale library is never loaded. The
 build runs at first use, never at import: importing this module needs
 neither CUDA nor ``nvcc``.
@@ -20,9 +20,10 @@ import tempfile
 from pathlib import Path
 from typing import Optional
 
+from ...utils.cache import KERNEL_DIR as BUILD_DIR
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # -fmad=false: no multiply-add contraction, so the kernels round like
 # their plain PyTorch versions (csrc/megakernel.cu explains why).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

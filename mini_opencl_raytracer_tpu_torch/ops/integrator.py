@@ -149,13 +149,16 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
 def trace_paths(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
                 directions: torch.Tensor, seeds: torch.Tensor,
                 intersect_fn: Callable[[torch.Tensor, torch.Tensor], Hit],
-                occluder_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Trace one wavefront for ``cfg.bounces`` bounces -> radiance [R, 3]."""
+                occluder_fn: Optional[Callable] = None, with_stats: bool = False):
+    """Trace one wavefront for ``cfg.bounces`` bounces -> radiance [R, 3].
+
+    ``with_stats=True`` also returns the fraction of rays alive after each
+    bounce, [bounces] (utils/metrics.bounce_occupancy)."""
     sort_on = (cfg.sort_rays if cfg.sort_rays is not None
                else scene.num_triangles > SORT_RAYS_MIN_TRIS)
     if sort_on and cfg.bounces > 1:
         return _trace_paths_sorted(scene, cfg, origins, directions, seeds,
-                                   intersect_fn, occluder_fn)
+                                   intersect_fn, occluder_fn, with_stats)
     R = origins.shape[0]
     dtype = cfg.torch_dtype()
     dev = origins.device
@@ -165,14 +168,24 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
              torch.zeros((R, 3), dtype=dtype, device=dev),
              torch.ones((R,), dtype=torch.bool, device=dev),
              seeds)
+    stats = []
     for bounce in range(cfg.bounces):
         carry = step(carry, bounce)
+        if with_stats:
+            stats.append(carry[4].to(dtype).mean())
     # Final clamp (kernel_bvh.cl:383).
-    return vmax(carry[3], 0.0)
+    return _result(vmax(carry[3], 0.0), stats, with_stats, dtype)
+
+
+def _result(radiance, stats, with_stats: bool, dtype):
+    if not with_stats:
+        return radiance
+    return radiance, (torch.stack(stats) if stats
+                      else torch.zeros((0,), dtype=dtype, device=radiance.device))
 
 
 def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
-                        seeds, intersect_fn, occluder_fn) -> torch.Tensor:
+                        seeds, intersect_fn, occluder_fn, with_stats: bool = False):
     """The wavefront with a permuted carry: bounce 0 runs in the caller's
     (tile-ordered, already coherent) ray order; before each later bounce
     the carry is re-sorted (stable) by the coherence key of its live rays,
@@ -196,6 +209,7 @@ def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
                   torch.zeros((R, 3), dtype=dtype, device=dev),
                   torch.ones((R,), dtype=torch.bool, device=dev),
                   seeds), 0)
+    stats = [carry[4].to(dtype).mean()] if with_stats else []
     ridx = torch.arange(R, device=dev)
     for bounce in range(1, cfg.bounces):
         o, d, beta, radiance, alive, seeds_ = carry
@@ -208,7 +222,9 @@ def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
         o = torch.where(am, o, park_o)
         d = torch.where(am, d, park_d)
         carry = step((o, d, beta, radiance, alive, seeds_), bounce)
+        if with_stats:
+            stats.append(carry[4].to(dtype).mean())
     inverse = torch.empty_like(ridx)
     inverse[ridx] = torch.arange(R, device=dev)
     # Final clamp (kernel_bvh.cl:383).
-    return vmax(carry[3][inverse], 0.0)
+    return _result(vmax(carry[3][inverse], 0.0), stats, with_stats, dtype)

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from ..models.scene import Geometry
-from .linalg import cross, dot
+from .linalg import cross, dot, normalize
 
 _DET_EPS = 1e-10
 
@@ -103,6 +103,42 @@ def intersect_brute(o: torch.Tensor, d: torch.Tensor, geometry: Geometry,
         o, d, g.v0[best_idx], e1[best_idx], e2[best_idx], backface_cull)
     t_out = torch.where(hit & valid_re, t_re, torch.full_like(t_re, t_max))
     return Hit(t=t_out, tri_idx=best_idx, hit=hit)
+
+
+@dataclasses.dataclass
+class ShadingPoint:
+    """Interpolated surface data at a hit (IntersectData's pos / normal /
+    uv, kernel_bvh.cl:144-147)."""
+
+    pos: torch.Tensor      # [R, 3]
+    normal: torch.Tensor   # [R, 3] interpolated unit shading normal
+    uv: torch.Tensor       # [R, 2]
+    mat_idx: torch.Tensor  # [R] int32
+
+
+def shading_point(o: torch.Tensor, d: torch.Tensor, hit: Hit, geometry: Geometry,
+                  backface_cull: bool = False) -> ShadingPoint:
+    """Recompute differentiable (u, v) on the hit triangle and interpolate
+    as kernel_bvh.cl:144-147: pos = o + d t; n = normalize(u n1 + v n2 +
+    (1-u-v) n0); uv = u uv1 + v uv2 + (1-u-v) uv0. Misses get t = u = v
+    = 0."""
+    idx = hit.tri_idx.long()
+    take = lambda a: a.index_select(0, idx)
+    t, u, v, _ = ray_triangle(o, d, take(geometry.v0), take(geometry.v1),
+                              take(geometry.v2), backface_cull=backface_cull)
+    zero = torch.zeros_like(t)
+    t = torch.where(hit.hit, t, zero)
+    u = torch.where(hit.hit, u, zero)
+    v = torch.where(hit.hit, v, zero)
+    w = 1.0 - u - v
+    pos = o + d * t[..., None]
+    normal = normalize(u[..., None] * take(geometry.n1)
+                       + v[..., None] * take(geometry.n2)
+                       + w[..., None] * take(geometry.n0))
+    uv = (u[..., None] * take(geometry.uv1)
+          + v[..., None] * take(geometry.uv2)
+          + w[..., None] * take(geometry.uv0))
+    return ShadingPoint(pos=pos, normal=normal, uv=uv, mat_idx=take(geometry.mat_idx))
 
 
 def occluded_edges(o, d, t_limit, v0, e1, e2, backface_cull: bool = False,

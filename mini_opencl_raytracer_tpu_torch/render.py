@@ -8,12 +8,12 @@ Progressive accumulation keeps the linear radiance sum and a sample count
 and applies gamma at readout (kernel_bvh.cl:449-455 re-derives the same
 average from a gamma-encoded buffer every frame).
 
-Backends resolve as in the JAX package (``resolve_backend``). This port
-runs ``mega`` (the CUDA bounce kernels), ``pallas`` (the wavefront
-integrator on the panel kernel for small scenes and the cluster-traversal
-kernel for large ones) and the ``bruteforce`` oracle (plain PyTorch);
-on the CPU every kernel runs as its plain PyTorch version. ``bvh`` raises
-``NotImplementedError``; nothing else runs instead.
+Backends resolve as in the JAX package (``resolve_backend``): ``mega``
+(the CUDA bounce kernels), ``pallas`` (the wavefront integrator on the
+panel kernel for small scenes and the cluster-traversal kernel for large
+ones), ``bvh`` (the wavefront integrator on the LBVH walk, plain PyTorch
+as the JAX package's is jnp) and the ``bruteforce`` oracle (plain
+PyTorch). On the CPU every kernel runs as its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -24,8 +24,9 @@ from typing import Optional
 
 import torch
 
-from .config import RenderConfig
+from .config import BVHConfig, RenderConfig
 from .models.scene import Camera, Scene
+from .ops import bvh as bvh_mod
 from .ops import rng
 from .ops.camera import generate_rays
 from .ops.cuda import intersect as pallas_mod
@@ -33,12 +34,6 @@ from .ops.cuda import megakernel as mega_mod
 from .ops.integrator import trace_paths
 from .ops.intersect import intersect_brute, occluded_brute
 from .ops.linalg import vmax
-
-# Backends of the JAX package that are not ported yet, and where ROADMAP.md
-# queues them.
-_NOT_PORTED = {
-    "bvh": "ROADMAP.md Queue 1 item 8 (the LBVH of ops/bvh.py)",
-}
 
 
 def resolve_backend(scene: Scene, cfg: RenderConfig) -> str:
@@ -49,27 +44,21 @@ def resolve_backend(scene: Scene, cfg: RenderConfig) -> str:
     return cfg.backend
 
 
-def _require_ported(backend: str, device: torch.device) -> None:
-    if backend in ("mega", "pallas", "bruteforce"):
-        return
-    where = _NOT_PORTED.get(backend)
-    if where is None:
-        raise ValueError(f"unknown backend: {backend!r}")
-    raise NotImplementedError(
-        f"backend {backend!r} on {device.type} is not ported yet: {where}")
-
-
-def make_intersectors(scene: Scene, cfg: RenderConfig, accel=None,
+def make_intersectors(scene: Scene, cfg: RenderConfig,
+                      bvh: Optional[bvh_mod.BVH] = None, accel=None,
                       backend: Optional[str] = None):
     """(closest_hit_fn, any_hit_fn) of the wavefront integrator for
-    ``bruteforce`` (the all-pairs oracle) or ``pallas`` (the panel and
-    cluster-traversal kernels). ``mega`` has none (the whole bounce is one
-    kernel) and resolves to ``pallas`` here, as in the JAX package."""
+    ``bruteforce`` (the all-pairs oracle), ``bvh`` (the LBVH walk; built
+    here unless ``bvh`` or an ``accel`` that is a BVH is given) or
+    ``pallas`` (the panel and cluster-traversal kernels). ``mega`` has
+    none (the whole bounce is one kernel) and resolves to ``pallas`` here,
+    as in the JAX package."""
     if backend is None:
         backend = resolve_backend(scene, cfg)
         if backend == "mega":
             backend = "pallas"
-    _require_ported(backend, scene.device)
+    if bvh is None and isinstance(accel, bvh_mod.BVH):
+        bvh = accel
     geo = scene.geometry
     if backend == "bruteforce":
         closest = functools.partial(
@@ -78,6 +67,14 @@ def make_intersectors(scene: Scene, cfg: RenderConfig, accel=None,
         any_hit = functools.partial(
             occluded_brute, geometry=geo,
             backface_cull=cfg.backface_cull, ray_chunk=cfg.ray_chunk)
+        return closest, any_hit
+    if backend == "bvh":
+        if bvh is None:
+            bvh = bvh_mod.build_bvh(geo, BVHConfig())
+        closest = functools.partial(bvh_mod.intersect_bvh, bvh=bvh, t_max=cfg.t_max,
+                                    backface_cull=cfg.backface_cull)
+        any_hit = functools.partial(bvh_mod.occluded_bvh, bvh=bvh,
+                                    backface_cull=cfg.backface_cull)
         return closest, any_hit
     if backend == "pallas":
         return pallas_mod.make_intersectors(geo, cfg, accel=accel,
@@ -90,15 +87,18 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     and passed to ``render`` as ``accel``: the [T, 9] triangle records for
     ``mega``; for ``pallas`` the clustered slot layout above 2048
     triangles (native SAH when the C++ library builds) and None
-    below; None for ``bruteforce``."""
+    below; the LBVH for ``bvh``; None for ``bruteforce``."""
     backend = resolve_backend(scene, cfg)
-    _require_ported(backend, scene.device)
+    if backend == "bvh":
+        return bvh_mod.build_bvh(scene.geometry, BVHConfig())
     if backend == "mega":
         return mega_mod.build_accel(scene.geometry)
     if backend == "pallas":
         return pallas_mod.build_accel(scene.geometry, cfg,
                                       materials=scene.materials)
-    return None
+    if backend == "bruteforce":
+        return None
+    raise ValueError(f"unknown backend: {backend!r}")
 
 
 @dataclasses.dataclass
@@ -157,7 +157,6 @@ def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
     and camera are moved there."""
     scene, camera, device = _on(scene, camera, device)
     backend = resolve_backend(scene, cfg)
-    _require_ported(backend, device)
     R = cfg.num_pixels
     pixel_ids = _swizzled_ids(cfg, device)
     swizzled = pixel_ids is not None

@@ -589,3 +589,56 @@ def test_clustered_grazing_decoy_on_card(cos):
         assert p_slot.item() == pcl.CLUSTER and p_t.item() == t_f
         assert torch.equal(k_slot, p_slot) and torch.equal(k_t, p_t)
         assert bool(k_any.item()) and stats[0, 1].item() == 2
+
+
+@pytest.mark.cuda
+def test_cli_render_on_card(tmp_path):
+    """The CLI on the card at 128x128 x 9: render 2 frames with a
+    checkpoint through K1/K2, resume 2 more; the resumed image bitwise
+    equal to a 4-frame render in process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import cli
+    dev = torch.device("cuda")
+    ck, out = str(tmp_path / "st.npz"), str(tmp_path / "img.npy")
+    args = ["render", "--width", "128", "--height", "128", "--bounces", "9",
+            "--device", "cuda"]
+    n0 = dict(pmk.LAUNCHES)
+    assert cli.main(args + ["--frames", "2", "--checkpoint", ck, "--out", out]) == 0
+    assert pmk.LAUNCHES["bounce0_fwd"] - n0["bounce0_fwd"] == 2
+    assert pmk.LAUNCHES["bounce_fwd"] - n0["bounce_fwd"] == 16
+    assert cli.main(args + ["--frames", "2", "--resume", ck, "--out", out]) == 0
+    cam = P.Camera.from_angles([0.0, -25.0, 8.5], 1.571, 1.571, device=dev)
+    cfg = P.RenderConfig(width=128, height=128, bounces=9)
+    with torch.no_grad():
+        ref = P.render(P.cornell_scene(device=dev), cam, cfg, frames=4)
+    assert torch.equal(torch.from_numpy(np.load(out)), ref.cpu())
+
+
+@pytest.mark.cuda
+def test_intersect_bvh_on_card():
+    """The LBVH walk (plain PyTorch) on the card against the brute-force
+    oracle: Cornell 128x128 primary rays and seeded random rays, winners
+    and hits equal, any-hit equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    scene = P.cornell_scene(device=dev)
+    cfg = P.RenderConfig(width=128, height=128)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    o, d = generate_rays(P.Camera.default(device=dev), cfg, pid, rng.pixel_seeds(pid, 0))
+    g = torch.Generator().manual_seed(3)
+    o2 = (torch.rand((4096, 3), generator=g) * torch.tensor([14.0, 39.0, 15.0])
+          + torch.tensor([-7.0, -20.0, 1.0])).to(dev)
+    d2 = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=1).to(dev)
+    bvh = P.build_bvh(scene.geometry)
+    assert bvh.pv0.device.type == "cuda"
+    for oo, dd in ((o, d), (o2, d2)):
+        ref = P.intersect_brute(oo, dd, scene.geometry, t_max=1e5)
+        got = P.intersect_bvh(oo, dd, bvh, t_max=1e5)
+        assert torch.equal(got.hit, ref.hit)
+        assert (got.tri_idx == ref.tri_idx)[ref.hit].float().mean().item() > 0.9999
+        torch.testing.assert_close(got.t[ref.hit], ref.t[ref.hit], rtol=1e-5, atol=0)
+        limit = torch.full((oo.shape[0],), 8.0, device=dev)
+        assert torch.equal(P.occluded_bvh(oo, dd, limit, bvh),
+                           P.occluded_brute(oo, dd, limit, scene.geometry))
