@@ -102,9 +102,33 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    rays against the brute-force oracle (Cornell, 512x512) and K6 (bunny,
    256x256),
    and ``render(backend="bvh")`` of Cornell at 512x512 x 4 against mega,
-   with ms/frame beside mega's.
+   with ms/frame beside mega's;
+15. the parallel paths (``parallel/``). 15a, an NCCL group of one rank in
+   this process (a file store under ``build/``): ``render_sample_dp`` of
+   Cornell 1920x1080 x 9 against ``render_sample`` (bitwise, or within the
+   radiance gates with the difference printed; ms a call beside
+   ``render_sample``'s, timed the same way), ``train_step_dp`` with
+   ``grad_buckets`` 1 and 4 against ``loss_and_grads`` (loss to 1e-6, the
+   scene gradients in the gradient gate, K1-K4 launches per step =
+   buckets x (1, 8, 1, 8), ms/step beside ``loss_and_grads``' timed the
+   same way just before, one step of one bucket under ``torch.profiler``
+   as phase 6 profiles its step), and
+   ``render_sample_ring`` / ``render_sample_a2a`` at tp=1 on sponza 4K x 1
+   against ``render_sample``. 15b, four ranks sharing the card over gloo
+   (``python -m torch.distributed.run --standalone --nproc-per-node 4
+   chip_smoke.py --parallel-child OUTDIR``; NCCL refuses two ranks on one
+   GPU): dp=4 render and ``train_step_dp(grad_buckets=4)`` at Cornell
+   1080p x 9 (K1-K4) against 15a's; on a 2 x 2 mesh the ring on sponza 4K
+   x 1 (BASELINE config 5, K6 on 129,810-triangle slices), the all-to-all
+   on the bunny at config 3 (K6) and the ring on Cornell 1080p x 9 (K5 on
+   18-triangle slices); ``render_sample_pp`` (4 stages, Cornell 512x512 x
+   8, 8 microbatches, K5) and ``render_sample_ep`` (ep=4, Cornell 512x512
+   x 9, default capacity and capacity 4, K5), each against the
+   single-device render. Each rank checks and logs its launches of K1-K6,
+   ms per call and the bytes it hands to each collective; the times of
+   15b are gloo staging through host memory on one shared card.
 
-Gates (phases 3, 3b, 4, 7-12, 14): ops/cuda/parity.py. The forward
+Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
 pair whose line meets the triangle below the ray's limit (``hit_pairs``),
 what the inputs need; the bound that charged every pair is printed beside
@@ -254,12 +278,12 @@ def events_ms(fn, count: int = 1) -> float:
     return start.elapsed_time(end) / count
 
 
-def profile_step(torch, step, card: str) -> None:
+def profile_step(torch, step, card: str, label: str = "6 profile") -> None:
     """One training step under torch.profiler: device time per kernel (K1-K4,
     the backward's finishing sum, the rest), device busy time, and the idle
     share of that same step against its own time by CUDA events around it
     (the profiler's host overhead included). A trace that lacks some of the
-    step's kernel launches is taken again."""
+    step's kernel launches is taken again. Lines start with ``[label]``."""
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -278,7 +302,7 @@ def profile_step(torch, step, card: str) -> None:
                 if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
         busy = sum(dev_us(e) for e in rows) / 1e3
         if busy == 0:
-            log("[6 profile] torch.profiler shows no device time: not measured")
+            log(f"[{label}] torch.profiler shows no device time: not measured")
             return
         per = {n: [0.0, 0] for n in tuple(expect) + ("other",)}
         for e in rows:
@@ -288,9 +312,9 @@ def profile_step(torch, step, card: str) -> None:
         whole = all(per[n][1] == c for n, c in expect.items())
         if whole:
             break
-        log(f"[6 profile] the trace lacks launches ({ {n: per[n][1] for n in expect} }): "
+        log(f"[{label}] the trace lacks launches ({ {n: per[n][1] for n in expect} }): "
             "taken again")
-    log(f"[6 profile] one step under the profiler: device busy {busy:.3f} ms of "
+    log(f"[{label}] one step under the profiler: device busy {busy:.3f} ms of "
         f"{ms_step:.3f} ms (events around it), idle share "
         f"{max(0.0, 1.0 - busy / ms_step):.3f}; " + "; ".join(
             f"{n} {t:.3f} ms ({c} launches)" for n, (t, c) in per.items()) + f" ({card})"
@@ -844,6 +868,267 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
         log(f"[14 shell] Cornell 512x512x4: bvh (plain PyTorch walk, host-bound) {ms_b:.3f} "
             f"ms/frame, mega {ms_m:.3f} ms/frame ({n} frames each; {card})")
     log(f"[14 shell] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 15: the parallel paths.
+
+def kernel_counts() -> dict:
+    """Launches of K1-K6 since the last reset_all, nonzero entries only."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
+    counts = {**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+def reset_all() -> None:
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
+    from mini_opencl_raytracer_tpu_torch.parallel import comm
+    reset_counts(megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, comm.BYTES)
+
+
+def timed_call(torch, label: str, fn, want: dict, reps: int = 1):
+    """``fn`` once to warm up, then ``reps`` times with the launch and byte
+    counts at 0: (the last result, ms a call by the host clock to a
+    synchronize, the launches and the bytes handed to each collective a
+    call). Raises unless the launches a call are ``want``."""
+    from mini_opencl_raytracer_tpu_torch.parallel import comm
+    fn()
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    counts = {k: v // reps for k, v in kernel_counts().items()}
+    if kernel_counts() != {k: v * reps for k, v in want.items()}:
+        raise AssertionError(f"{label}: launches {kernel_counts()} in {reps} calls, "
+                             f"expected {want} a call")
+    return out, ms, counts, {k: v // reps for k, v in comm.BYTES.items() if v}
+
+
+def check_image(parity, label: str, got, ref) -> str:
+    """Bitwise, or within the radiance gates; returns which."""
+    if tuple(got.shape) != tuple(ref.shape):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)}, expected {tuple(ref.shape)}")
+    if got.equal(ref):
+        return "bitwise equal"
+    st = parity.check_float(label, got, ref)
+    return (f"within the radiance gates (max {st['max']:.2e}, mean {st['mean']:.2e}, "
+            f"frac {st['frac']:.2e})")
+
+
+def check_scene_grads(parity, grad, label: str, got, ref) -> float:
+    """Every float scene leaf within 2e-3 of max |reference|; the largest
+    ratio."""
+    ref = dict(grad._leaves(ref))
+    return max(parity.check_grad_sum(f"{label} {name}", g, ref[name])["rel"]
+               for name, g in grad._leaves(got) if g.is_floating_point())
+
+
+# Ranks of phase 15b, all on the one card.
+_RANKS = 4
+
+
+def parallel_child(outdir: str) -> int:
+    """One rank of phase 15b, started by ``torch.distributed.run``: joins
+    the launcher's gloo group with its tensors and kernels on cuda:0 (the
+    four ranks share one card), runs every scenario, writes its launches,
+    ms per call and collective bytes to OUTDIR/rank<r>.log, and rank 0
+    saves the results to OUTDIR."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import mini_opencl_raytracer_tpu_torch as mrt
+    from mini_opencl_raytracer_tpu_torch import grad
+    from mini_opencl_raytracer_tpu_torch.config import MeshConfig
+    from mini_opencl_raytracer_tpu_torch.parallel import expert, multihost, pipeline, shard
+    from mini_opencl_raytracer_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda:0")
+    if not multihost.initialize(backend="gloo", device=dev):
+        raise AssertionError("initialize() found no launcher environment")
+    rank = dist.get_rank()
+    if dist.get_world_size() != _RANKS:
+        raise AssertionError(f"world size {dist.get_world_size()}, expected {_RANKS}")
+    # gloo is a host transport: the meshes are host meshes, the tensors and
+    # kernels stay on cuda:0 (parallel/comm.py stages each collective).
+    m41 = make_mesh(MeshConfig(dp=4, tp=1), device_type="cpu")
+    m22 = make_mesh(MeshConfig(dp=2, tp=2), device_type="cpu")
+    mpp = init_device_mesh("cpu", (4,), mesh_dim_names=("pp",))
+    cam = mrt.Camera.default(device=dev)
+    cornell = mrt.cornell_scene(device=dev)
+    main_cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+    cfg512 = lambda b: mrt.RenderConfig(width=512, height=512, bounces=b)
+    img = lambda x: {"img": x.cpu()}
+
+    def run(name, fn, want, save):
+        out, ms, counts, nbytes = timed_call(torch, f"15b rank {rank} {name}", fn, want)
+        with open(os.path.join(outdir, f"rank{rank}.log"), "a") as f:
+            f.write(f"[15b rank {rank}] {name}: {ms:.1f} ms a call; launches {counts}; "
+                    f"bytes {nbytes}\n")
+        if rank == 0:
+            torch.save(save(out), os.path.join(outdir, f"{name}.pt"))
+
+    with torch.no_grad():
+        run("dp4 Cornell 1080p x 9", lambda: shard.render_sample_dp(cornell, cam, main_cfg, m41),
+            {"bounce0_fwd": 1, "bounce_fwd": 8}, img)
+    run("train_step_dp(grad_buckets=4) Cornell 1080p x 9",
+        lambda: shard.train_step_dp(cornell, cam, main_cfg, m41, grad_buckets=4),
+        {"bounce0_fwd": 4, "bounce_fwd": 32, "bounce0_bwd": 4, "bounce_bwd": 32},
+        lambda r: dict(grad._leaves(r[1]), loss=r[0].cpu()))
+    with torch.no_grad():
+        sponza = mrt.sponza_scene(device=dev)
+        run("ring 2x2 sponza 4K x 1 (config 5)",
+            lambda: shard.render_sample_ring(sponza, cam, mrt.RenderConfig(
+                width=3840, height=2160, bounces=1), m22), {"clustered_closest": 2}, img)
+        del sponza
+        bunny = mrt.bunny_scene(device=dev)
+        run("a2a 2x2 bunny 512x512 x 2 (config 3)",
+            lambda: shard.render_sample_a2a(bunny, cam, cfg512(2), m22),
+            {"clustered_closest": 2}, img)
+        run("ring 2x2 Cornell 1080p x 9",
+            lambda: shard.render_sample_ring(cornell, cam, main_cfg, m22),
+            {"panel_closest": 18}, img)
+        run("pp4 Cornell 512x512 x 8, n_micro 8",
+            lambda: pipeline.render_sample_pp(cornell, cam, cfg512(8), mpp, n_micro=8),
+            {"panel_closest": 2 * (8 + _RANKS - 1)}, img)
+        for cap in (None, 4):
+            run(f"ep4 Cornell 512x512 x 9, capacity {cap or 'default'}",
+                lambda: expert.render_sample_ep(cornell, cam, cfg512(9), m41,
+                                                capacity=cap),
+                {"panel_closest": 9}, img)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponza,
+            accels, ms_step: float) -> None:
+    """The parallel paths on the card (module docstring, phase 15)."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from mini_opencl_raytracer_tpu_torch.config import MeshConfig
+    from mini_opencl_raytracer_tpu_torch.parallel import multihost, shard
+    from mini_opencl_raytracer_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    main_cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    cfg5 = mrt.RenderConfig(width=3840, height=2160, bounces=1)
+    cfg512 = lambda b: mrt.RenderConfig(width=512, height=512, bounces=b)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # 15a. An NCCL group of one rank in this process: real NCCL
+        # collectives on device tensors.
+        multihost.initialize(coordinator_address=f"file://{tmp}/store", num_processes=1,
+                             process_id=0, device=dev)
+        mesh = make_mesh(MeshConfig(dp=1, tp=1), device_type="cuda")
+        log(f"[15a nccl] backend {dist.get_backend()}, world {dist.get_world_size()}, "
+            f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+        with torch.no_grad():
+            ref_main, ms_ref, _, _ = timed_call(
+                torch, "15a render_sample", lambda: mrt.render_sample(cornell, cam, main_cfg),
+                {"bounce0_fwd": 1, "bounce_fwd": 8}, reps=5)
+            img_dp, ms, n, nb = timed_call(
+                torch, "15a dp", lambda: shard.render_sample_dp(cornell, cam, main_cfg, mesh),
+                {"bounce0_fwd": 1, "bounce_fwd": 8}, reps=5)
+        how = check_image(parity, "15a render_sample_dp vs render_sample", img_dp, ref_main)
+        log(f"[15a nccl] render_sample_dp Cornell 1080p x 9 vs render_sample: {how}; "
+            f"{ms:.3f} ms a call (5 calls) against render_sample's {ms_ref:.3f} timed the "
+            f"same way just before; launches {n}; bytes {nb} a call ({card})")
+        want_step = {"bounce0_fwd": 1, "bounce_fwd": 8, "bounce0_bwd": 1, "bounce_bwd": 8}
+        (loss_ref, g_ref, _), _, _, _ = timed_call(
+            torch, "15a loss_and_grads",
+            lambda: grad.loss_and_grads(cornell, cam, main_cfg, lambda im: im.mean()),
+            want_step)
+        train = {}
+        for k in (1, 4):
+            # The single-device step timed the same way just before, so
+            # that the two share the host's state of the moment.
+            _, ms_ref, _, _ = timed_call(
+                torch, "15a loss_and_grads",
+                lambda: grad.loss_and_grads(cornell, cam, main_cfg, lambda im: im.mean()),
+                want_step, reps=5)
+            (loss, g), ms, n, nb = timed_call(
+                torch, f"15a train_step_dp {k}",
+                lambda: shard.train_step_dp(cornell, cam, main_cfg, mesh, grad_buckets=k),
+                {"bounce0_fwd": k, "bounce_fwd": 8 * k, "bounce0_bwd": k, "bounce_bwd": 8 * k},
+                reps=5)
+            rel = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+            worst = check_scene_grads(parity, grad, f"15a train_step_dp({k})", g, g_ref)
+            log(f"[15a nccl] train_step_dp(grad_buckets={k}) Cornell 1080p x 9 vs "
+                f"loss_and_grads: loss {loss.item():.7f} vs {loss_ref.item():.7f} (rel "
+                f"{rel:.1e}, gate 1e-6); largest max|diff| / max|ref| over scene leaves "
+                f"{worst:.2e} (gate 2e-3); {ms:.3f} ms/step (5 steps) against "
+                f"loss_and_grads' {ms_ref:.3f} timed the same way just before (phase 6: "
+                f"{ms_step:.3f}); launches {n}; bytes {nb} a step ({card})")
+            if rel > 1e-6:
+                raise AssertionError(f"15a train_step_dp({k}): loss off by {rel:.2e}")
+            train[k] = (loss, g)
+        # Where a dp step's time goes, beside phase 6's profile.
+        profile_step(torch, lambda: shard.train_step_dp(cornell, cam, main_cfg, mesh), card,
+                     label="15a profile")
+        with torch.no_grad():
+            ref5 = mrt.render_sample(sponza, cam, cfg5, accel=accels["sponza"])
+            for name, fn in (("ring", shard.render_sample_ring),
+                             ("a2a", shard.render_sample_a2a)):
+                got, ms, n, nb = timed_call(torch, f"15a {name}",
+                                            lambda: fn(sponza, cam, cfg5, mesh),
+                                            {"clustered_closest": 1})
+                how = check_image(parity, f"15a {name} sponza", got, ref5)
+                log(f"[15a nccl] render_sample_{name} tp=1 sponza 4K x 1 (config 5) vs "
+                    f"phase 11's render_sample: {how}; {ms:.3f} ms a call (the slice's "
+                    f"accel built in the call); launches {n}; bytes {nb} ({card})")
+            del got
+        dist.destroy_process_group()
+
+        # 15b. Four ranks on the one card over gloo, by PyTorch's launcher.
+        outdir = os.path.join(tmp, "ranks")
+        os.makedirs(outdir)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                            "--nproc-per-node", str(_RANKS), os.path.abspath(__file__),
+                            "--parallel-child", outdir],
+                           capture_output=True, text=True, timeout=600, cwd=root)
+        for rank in range(_RANKS):
+            path = os.path.join(outdir, f"rank{rank}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f.read().rstrip())
+        if r.returncode != 0:
+            raise AssertionError(f"phase 15b: the ranks exited {r.returncode}:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-5000:]}")
+        log(f"[15b gloo] {_RANKS} ranks on one card in {time.perf_counter() - t0:.1f} s "
+            f"(start-up included); their times are gloo staging through host memory on one "
+            f"shared card and say nothing about scaling over several GPUs ({card})")
+        res = lambda name: torch.load(os.path.join(outdir, f"{name}.pt"))
+        got = res("dp4 Cornell 1080p x 9")["img"].to(dev)
+        log(f"[15b gloo] dp4 Cornell 1080p x 9 vs 15a's: "
+            f"{check_image(parity, '15b dp4', got, img_dp)}")
+        t4 = res("train_step_dp(grad_buckets=4) Cornell 1080p x 9")
+        loss4, g4 = train[4]
+        rel = abs(t4["loss"].item() - loss4.item()) / abs(loss4.item())
+        g_got = grad._rebuild(g4, {k: v.to(dev) for k, v in t4.items() if k != "loss"})
+        worst = check_scene_grads(parity, grad, "15b train_step_dp(4)", g_got, g4)
+        log(f"[15b gloo] train_step_dp(grad_buckets=4) vs 15a's: loss rel {rel:.1e} (gate "
+            f"1e-6); largest max|diff| / max|ref| {worst:.2e} (gate 2e-3)")
+        if rel > 1e-6:
+            raise AssertionError(f"15b train_step_dp: loss off by {rel:.2e}")
+        with torch.no_grad():
+            refs = {"ring 2x2 sponza 4K x 1 (config 5)": ref5,
+                    "a2a 2x2 bunny 512x512 x 2 (config 3)":
+                        mrt.render_sample(bunny, cam, cfg3, accel=accels["bunny"]),
+                    "ring 2x2 Cornell 1080p x 9": ref_main,
+                    "pp4 Cornell 512x512 x 8, n_micro 8":
+                        mrt.render_sample(cornell, cam, cfg512(8))}
+            ref_ep = mrt.render_sample(cornell, cam, cfg512(9))
+        for cap in ("default", 4):
+            refs[f"ep4 Cornell 512x512 x 9, capacity {cap}"] = ref_ep
+        for name, ref in refs.items():
+            how = check_image(parity, f"15b {name}", res(name)["img"].to(dev), ref)
+            log(f"[15b gloo] {name} vs the single-device render_sample: {how}")
+    log(f"[15 parallel] phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1602,6 +1887,9 @@ def main() -> int:
     # 14. The shell on the card.
     phase14(mrt, torch, parity, cl, dev, card, ms_frame)
 
+    # 15. The parallel paths on the card.
+    phase15(mrt, torch, parity, grad, dev, card, cam, cornell, bunny, sponza, accels, ms_step)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -1617,4 +1905,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2]))
     sys.exit(main())

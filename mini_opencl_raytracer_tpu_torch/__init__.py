@@ -11,7 +11,11 @@ the native SAH build); the LBVH ``bvh`` backend (plain PyTorch, as the
 JAX package's is jnp); the brute-force oracle; scene ingest (OBJ/MTL,
 the procedural Cornell, bunny- and sponza-scale scenes); and the shell:
 ``cli.py`` (render / benchmark / optimize, checkpoint and resume) and
-``utils/`` (images, checkpoints, metrics, error decoding). Every kernel
+``utils/`` (images, checkpoints, metrics, error decoding); and the
+multi-device paths of ``parallel/`` on ``torch.distributed`` (one process
+per rank: pixel-sharded render and training step, geometry-sharded ring
+and all-to-all traversal, the bounce pipeline, expert material routing).
+Every kernel
 has a plain PyTorch version that runs on the CPU. Importing the package
 needs neither CUDA nor nvcc; the kernels build at first use on a CUDA
 device.

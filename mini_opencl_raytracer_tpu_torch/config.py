@@ -120,7 +120,9 @@ class BVHConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh settings (kept for parity; parallel/ is not ported yet)."""
+    """Device-mesh settings of parallel/: ``dp`` ranks over pixels (None:
+    the world size // tp) and ``tp`` over geometry, and the mesh
+    dimensions' names (parallel/mesh.make_mesh)."""
 
     dp: Optional[int] = None
     tp: int = 1

@@ -20,7 +20,9 @@ Above SORT_RAYS_MIN_TRIS triangles (or as ``cfg.sort_rays`` says) the
 wavefront is coherence-sorted between bounces (``_trace_paths_sorted``)
 so that neighbouring rays of the cluster-traversal kernel take similar
 paths; each ray's values do not depend on where it sits in the wavefront,
-so the sort changes no pixel.
+so the sort changes no pixel. ``make_bounce_step`` is the per-bounce
+transition in scan form for callers that run bounces apart (the pipeline
+stages of parallel/pipeline.py); it keeps the ray order.
 """
 
 from __future__ import annotations
@@ -144,6 +146,63 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
         return o, d, beta, radiance, alive, seeds
 
     return bounce_step
+
+
+def _sorted_wavefront(scene: Scene, intersect_fn, occluder_fn):
+    """Wrap the intersectors to run on a coherence-sorted permutation of
+    the rays and restore ray order on the way out (a stable ``torch.sort``
+    of the keys and index gathers). Each ray's result depends only on
+    that ray, so the values do not change."""
+    g = scene.geometry
+    pts = torch.cat([g.v0, g.v1, g.v2], dim=0).detach()
+    lo, hi = torch.amin(pts, dim=0), torch.amax(pts, dim=0)
+
+    def order(o, d):
+        keys = _ray_sort_keys(o.detach(), d.detach(), lo, hi)
+        perm = torch.sort(keys, stable=True).indices
+        inverse = torch.empty_like(perm)
+        inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return perm, inverse
+
+    def closest(o, d):
+        perm, inverse = order(o, d)
+        h = intersect_fn(o[perm], d[perm])
+        return Hit(t=h.t[inverse], tri_idx=h.tri_idx[inverse], hit=h.hit[inverse],
+                   rows=None if h.rows is None else h.rows[inverse])
+
+    if occluder_fn is None:
+        return closest, None
+
+    def any_hit(o, d, t_limit):
+        perm, inverse = order(o, d)
+        return occluder_fn(o[perm], d[perm], t_limit[perm])[inverse]
+
+    return closest, any_hit
+
+
+def make_bounce_step(scene: Scene, cfg: RenderConfig, intersect_fn,
+                     occluder_fn: Optional[Callable] = None, with_stats: bool = False):
+    """The per-bounce transition in ``lax.scan`` form: ``step(carry,
+    bounce) -> (carry, stat)`` with carry = (o, d, beta, radiance, alive,
+    seeds) and ``bounce`` the global bounce index; ``stat`` is the
+    fraction of rays alive after it with ``with_stats``, else None. Each
+    step keeps the ray order (coherence sorting, where on, happens inside
+    it through ``_sorted_wavefront``), so bounce segments can run as
+    pipeline stages (parallel/pipeline.py); ``trace_paths`` keeps its
+    wavefront permuted instead."""
+    occ = occluder_fn if cfg.shadow_rays else None
+    sort_on = (cfg.sort_rays if cfg.sort_rays is not None
+               else scene.num_triangles > SORT_RAYS_MIN_TRIS)
+    if sort_on:
+        intersect_fn, occ = _sorted_wavefront(scene, intersect_fn, occ)
+    core = make_bounce_core(scene, cfg, intersect_fn, occ)
+
+    def step(carry, bounce: int):
+        carry = core(carry, bounce)
+        stat = carry[4].to(cfg.torch_dtype()).mean() if with_stats else None
+        return carry, stat
+
+    return step
 
 
 def trace_paths(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,

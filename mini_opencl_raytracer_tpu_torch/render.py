@@ -1,6 +1,7 @@
 """Top-level headless render API.
 
   render_sample(scene, camera, cfg, frame)   -> linear radiance [H, W, 3]
+  render_ids(scene, camera, cfg, ids, ...)   -> radiance of a pixel slice
   render(scene, camera, cfg, frames)         -> accumulated gamma image
   RenderState / accumulate / to_image        -> progressive refinement
 
@@ -148,25 +149,15 @@ def _on(scene: Scene, camera: Camera, device):
     return scene.to(device), camera.to(device), device
 
 
-def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
-                  frame: int = 0, accel=None, device=None) -> torch.Tensor:
-    """Render one progressive sample -> linear radiance [H, W, 3].
-
-    ``frame`` seeds the per-pixel RNG (the reference's frameCount,
-    kernel_bvh.cl:445). ``device`` defaults to the scene's device; scene
-    and camera are moved there."""
-    scene, camera, device = _on(scene, camera, device)
-    backend = resolve_backend(scene, cfg)
-    R = cfg.num_pixels
-    pixel_ids = _swizzled_ids(cfg, device)
-    swizzled = pixel_ids is not None
-    if not swizzled:
-        pixel_ids = torch.arange(R, dtype=torch.int32, device=device)
-    if backend != "mega":
-        closest, any_hit = make_intersectors(scene, cfg, accel=accel,
-                                             backend=backend)
-
-    total = torch.zeros((R, 3), dtype=cfg.torch_dtype(), device=device)
+def render_ids(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_ids: torch.Tensor,
+               frame, backend: str, intersectors=None, accel=None) -> torch.Tensor:
+    """Radiance [len(pixel_ids), 3]: the mean of ``cfg.spp`` samples of the
+    pixels ``pixel_ids`` (flat ids, in any order) at ``frame``, on the
+    resolved ``backend``. ``intersectors`` are the (closest, any_hit) of a
+    wavefront backend (``make_intersectors``), None on ``mega``. The body
+    of ``render_sample`` and of the sharded paths of parallel/."""
+    total = torch.zeros((pixel_ids.shape[0], 3), dtype=cfg.torch_dtype(),
+                        device=pixel_ids.device)
     for s in range(cfg.spp):
         fr = (int(frame) * cfg.spp + s) & 0xFFFFFFFF
         if backend == "mega" and cfg.fused_raygen:
@@ -179,9 +170,28 @@ def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
                 radiance = mega_mod.trace_paths_mega(scene, cfg, o, d, seeds,
                                                      accel=accel)
             else:
-                radiance = trace_paths(scene, cfg, o, d, seeds, closest, any_hit)
+                radiance = trace_paths(scene, cfg, o, d, seeds, *intersectors)
         total = total + radiance
-    total = total / cfg.spp
+    return total / cfg.spp
+
+
+def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
+                  frame: int = 0, accel=None, device=None) -> torch.Tensor:
+    """Render one progressive sample -> linear radiance [H, W, 3].
+
+    ``frame`` seeds the per-pixel RNG (the reference's frameCount,
+    kernel_bvh.cl:445). ``device`` defaults to the scene's device; scene
+    and camera are moved there."""
+    scene, camera, device = _on(scene, camera, device)
+    backend = resolve_backend(scene, cfg)
+    pixel_ids = _swizzled_ids(cfg, device)
+    swizzled = pixel_ids is not None
+    if not swizzled:
+        pixel_ids = torch.arange(cfg.num_pixels, dtype=torch.int32, device=device)
+    intersectors = (None if backend == "mega"
+                    else make_intersectors(scene, cfg, accel=accel, backend=backend))
+    total = render_ids(scene, camera, cfg, pixel_ids, frame, backend, intersectors,
+                       accel=accel)
     if swizzled:
         return _unswizzle_image(total, cfg)
     return total.reshape(cfg.height, cfg.width, 3)
