@@ -19,7 +19,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    per ray (``stats``), without shadow rays equal ray by ray to the model
    of its per-warp cull (ops/cuda/bundle_cull.py), on those cases and on
    a soup of 2048 triangles and a camera grazing the floor (with
-   culling and shadow rays);
+   culling and shadow rays); every one of K2's outputs bitwise equal to
+   the plain version's on each of those bounces and on its edge cases
+   (parity.K2_CASES: every ray dead, every ray alive, a seeded 10% alive,
+   R = 1, 255 and 257, shuffled ids, 30 lights with shadow rays, backface
+   culling with soft edges) and on the adversarial rays of
+   parity.cull_ray_sets, every ray alive, at the limit 3e38;
 3b. each backward kernel against its plain version on the card, with
    seeded cotangents, and against a second run of itself (bitwise): at
    the main path's shape (1080p, tile-ordered ids, bounces 0-8 on the
@@ -34,15 +39,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    plain integrator on the card;
 5. the forward path under ``torch.no_grad()``: ``render`` of Cornell at
    1920x1080, 9 bounces, 4 frames, with launch counts, image checks and
-   ms/frame; then each forward kernel's time against its plain version;
+   ms/frame; then each forward kernel's time against its plain version,
+   and K2 at each bounce 1-8 of the main step from its carried state: its
+   device time and their sum, the live fraction, the warps with a live
+   lane and their lane use before (one thread a ray) and now (packed per
+   tile), and its bound by ray class (``fwd_bytes``);
 6. the training step, the slice's main path: the loss of
    ``mean(render_sample)`` and its gradients w.r.t. every float leaf of
    the scene and the camera (``grad.loss_and_grads``) for Cornell at
    1920x1080 with 9 bounces, with launch counts per step, finiteness, ms
    per step and fwd+bwd rays/s; one step under ``torch.profiler``: device
-   time per kernel (K1-K4 and the backward's finishing sum) and the idle
-   share of that step; then each backward kernel's time against its plain
-   version;
+   time per kernel (K1-K4 and the backward's finishing sum), K2's share of
+   the busy time and the idle share of that step; then each backward
+   kernel's time against its plain version;
 7. the slice against the oracle: ``scene_grad`` / ``camera_grad`` on mega
    against bruteforce (torch autograd) at 512x512 x 9 bounces, central
    finite differences at 256x256 x 9, and Adam steps on the diffuse
@@ -317,7 +326,8 @@ def profile_step(torch, step, card: str, label: str = "6 profile") -> None:
     log(f"[{label}] one step under the profiler: device busy {busy:.3f} ms of "
         f"{ms_step:.3f} ms (events around it), idle share "
         f"{max(0.0, 1.0 - busy / ms_step):.3f}; " + "; ".join(
-            f"{n} {t:.3f} ms ({c} launches)" for n, (t, c) in per.items()) + f" ({card})"
+            f"{n} {t:.3f} ms ({c} launches)" for n, (t, c) in per.items())
+        + f"; K2 (bounce_fwd_kernel) {per['bounce_fwd_kernel'][0] / busy:.1%} of busy ({card})"
         + ("" if whole else "; trace incomplete, busy is a lower bound"))
     rows.sort(key=dev_us, reverse=True)
     for e in rows[:8]:
@@ -362,6 +372,47 @@ def bwd_bytes(cfg, alive, winner, first: bool) -> int:
         return (R - live) * 32 + live * (8 + occ + 48)
     dead = int((alive <= 0).sum().item())
     return dead * 76 + (R - dead - live) * 92 + live * (48 + occ + 48 + 36)
+
+
+def fwd_bytes(alive) -> int:
+    """Bytes K2 must move on these rays, by class: a ray that is not alive
+    reads alive and (o, d, beta) and writes its pass-through (o, d, beta,
+    radiance, alive, winner, occlusion bits), 100 B; a live ray also reads
+    its seed, 104 B. (The table, triangles and lights, read once, are added
+    by the caller.)"""
+    live = int((alive > 0).sum().item())
+    return (alive.numel() - live) * 100 + live * 104
+
+
+# Rays of K2's tile where a live ray runs at most 256 M-T tests, as on
+# Cornell (csrc/megakernel.cu, mrt_bounce_fwd).
+K2_TILE = 128
+
+
+def lane_use(torch, alive, tile: int) -> dict:
+    """How K2 fills its warps on these rays. Before (the design it replaced: one
+    thread per ray, a warp of 32 consecutive rays runs the bounce if one of
+    them is alive): the share of warps with a live lane and the live lanes'
+    share of those warps. Now (csrc/megakernel.cu's rule, per tile of
+    ``tile`` rays: its live rays packed into ceil(live / 32) warps where
+    that is fewer than the warps holding them, else run in place): the
+    warps that run the bounce, as a share of the same R / 32, and their
+    live lanes' share."""
+    live = (alive > 0).cpu()
+    R = live.numel()
+    n = int(live.sum().item())
+    per_tile = -(-R // tile) * tile
+    pad = torch.zeros(per_tile, dtype=torch.bool)
+    pad[:R] = live
+    counts = pad.view(-1, tile // 32, 32).sum(2)
+    holding = (counts > 0).sum(1)
+    packed = (counts.sum(1) + 31) // 32
+    before = int(holding.sum().item())
+    now = int(torch.minimum(packed, holding).sum().item())
+    warps = -(-R // 32)
+    return {"live": n / R, "warps_before": before / warps,
+            "use_before": n / (32 * before) if before else 0.0,
+            "warps_now": now / warps, "use_now": n / (32 * now) if now else 0.0}
 
 
 def reset_counts(*tables) -> None:
@@ -466,6 +517,19 @@ def k5_exact(label, torch, panel, bc, tris, o, d, limit, cull: bool) -> float:
 
 
 K1_OUTS = ("o", "d", "beta", "alive", "radiance", "winner", "occ", "seeds")
+
+
+def k2_exact(label, torch, mk, parity, table, tris, lv, state, bounce: int, cfg):
+    """K2 against its plain version on the card: every output bitwise
+    (parity.check_bitwise). Returns (kernel outputs, plain outputs, max
+    |diff| over the float outputs)."""
+    k = mk.bounce_fwd(table, tris, lv, *state, bounce, cfg)
+    p = mk.bounce_fwd_plain(table, tris, lv, *state, bounce, cfg)
+    torch.cuda.synchronize()
+    err = parity.check_bitwise(label, k, p)
+    log(f"[3 kernel] {label}: {state[3].numel()} rays, {int((state[3] > 0).sum().item())} "
+        "alive, every output bitwise the plain version's")
+    return k, p, err
 
 
 def k1_counts(label, torch, mk, bc, rng, table, tris, lv, camv, pid, frame: int, cfg,
@@ -1212,15 +1276,25 @@ def main() -> int:
         max_err["bounce0_fwd"] = max(max_err["bounce0_fwd"], stats["max_abs_err"])
         state = (k0[0], k0[1], k0[2], k0[3], k0[7])
         for b in bounces:
-            k1 = mk.bounce_fwd(table, tris, lv, *state, b, cfg)
-            p1 = mk.bounce_fwd_plain(table, tris, lv, *state, b, cfg)
-            torch.cuda.synchronize()
-            stats = parity.check_bounce(f"bounce_fwd (bounce {b}), {label}", k1, p1)
-            log(f"[3 kernel] bounce_fwd (bounce {b}), {label}, "
-                f"{cfg.width}x{cfg.height}")
-            log_stats("bounce_fwd", stats)
-            max_err["bounce_fwd"] = max(max_err["bounce_fwd"], stats["max_abs_err"])
+            k1, p1, err = k2_exact(f"bounce_fwd (bounce {b}), {label}", torch, mk, parity,
+                                   table, tris, lv, state, b, cfg)
+            max_err["bounce_fwd"] = max(max_err["bounce_fwd"], err)
             state = (p1[0], p1[1], p1[2], p1[3], k0[7])
+
+    # 3, K2's edge cases, bitwise (parity.K2_CASES: the alive masks and
+    # shuffled ids at the main path's 1920x1080, the prefixes R = 1, 255,
+    # 257 of the shuffled state, 30 lights with shadow rays and backface
+    # culling with soft edges at 960x540), then the adversarial rays of
+    # parity.cull_ray_sets, every ray alive, at the limit 3e38.
+    k2_cases = [(f"{name}, {w}x{h}",) + parity.k2_case(name, dev, w, h)
+                for name in parity.K2_CASES
+                for w, h in [(960, 540) if name in ("30 lights + shadow rays",
+                                                   "backface_cull + soft_edge") else (1920, 1080)]]
+    for label, scene2, cfg2, state2, b2 in k2_cases + parity.k2_ray_set_cases(dev):
+        table, tris, lv = mk._tables(scene2, cfg2, None)
+        err = k2_exact(f"bounce_fwd, {label}", torch, mk, parity, table, tris, lv, state2, b2,
+                       cfg2)[2]
+        max_err["bounce_fwd"] = max(max_err["bounce_fwd"], err)
 
     # 3, the cull of K1 beyond Cornell's camera: a soup of 2048 triangles
     # and a camera grazing the floor (culling, shadow rays).
@@ -1390,6 +1464,33 @@ def main() -> int:
             time_ms(lambda: mk.bounce_fwd_plain(table, tris, lv, *state, 1, cfg), 3)),
     }
 
+    # K2 at each bounce 1-8 of the main step, from the carried state (the
+    # kernels' own outputs): device time, the bound by ray class
+    # (fwd_bytes; operations: 45 flops for each pair of a live ray that
+    # meets a triangle below the limit), and how the rays fill its warps.
+    k2_states, st = [], state
+    for b in range(1, cfg.bounces):
+        k2_states.append(st)
+        out = mk.bounce_fwd(table, tris, lv, *st, b, cfg)
+        st = (out[0], out[1], out[2], out[3], st[4])
+    lim2 = torch.full((main_ids.numel(),), min(cfg.t_max, 3.0e38), device=dev)
+    k2_tab = table.numel() * 4 + tris.numel() * 4 + lv.numel() * 4
+    k2_bounds, k2_ms = [], []
+    for b, st in enumerate(k2_states, 1):
+        k2_ms.append(device_ms(lambda: mk.bounce_fwd(table, tris, lv, *st, b, cfg)))
+        need = hit_pairs(torch, tris, st[0].T, st[1].T, lim2, cfg.backface_cull, st[3] > 0)
+        nb = fwd_bytes(st[3]) + k2_tab
+        k2_bounds.append(bound(nb, need * MT_FLOPS))
+        u = lane_use(torch, st[3], K2_TILE)
+        log(f"[5/6 K2] bounce {b}: {k2_ms[-1]:.4f} ms (device time); live "
+            f"{u['live']:.4f}; warps with a live lane {u['warps_before']:.4f} (one thread a "
+            f"ray) -> warps run {u['warps_now']:.4f} (packed per tile); lane use "
+            f"{u['use_before']:.4f} -> {u['use_now']:.4f}; {nb / 1e6:.2f} MB, {need} pairs "
+            f"meet; bound {k2_bounds[-1]['bound_ms']:.4f} ms ({k2_bounds[-1]['bound_by']}), "
+            f"{k2_bounds[-1]['bound_ms'] / k2_ms[-1]:.1%} of the kernel ({card})")
+    log(f"[5/6 K2] bounces 1-8: {sum(k2_ms):.4f} ms (device time), bound "
+        f"{sum(x['bound_ms'] for x in k2_bounds):.4f} ms ({card})")
+
     # 6. The training step: loss and gradients w.r.t. every float leaf of
     # the scene and the camera, Cornell 1080p x 9 bounces.
     loss_fn = lambda im: im.mean()
@@ -1530,9 +1631,9 @@ def main() -> int:
     need0 = hit_pairs(torch, tris, o0, d0, lim, cfg.backface_cull)
     need1 = hit_pairs(torch, tris, b0[0].T, b0[1].T, lim, cfg.backface_cull, b0[3] > 0)
     dense = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, R_main * T_main * MT_FLOPS),
-             "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, alive1 * T_main * MT_FLOPS)}
+             "bounce_fwd": bound(fwd_bytes(b0[3]) + tab_bytes, alive1 * T_main * MT_FLOPS)}
     bounds = {"bounce0_fwd": bound(R_main * (4 + 64) + tab_bytes, need0 * MT_FLOPS),
-              "bounce_fwd": bound(R_main * (44 + 60) + tab_bytes, need1 * MT_FLOPS),
+              "bounce_fwd": bound(fwd_bytes(b0[3]) + tab_bytes, need1 * MT_FLOPS),
               "bounce0_bwd": bound(by0, flops0), "bounce_bwd": bound(by1, flops1)}
     for name, fl, nb in (("bounce0_bwd", flops0, by0), ("bounce_bwd", flops1, by1)):
         log(f"[6 bound] {name} at 1080p: {nb / 1e6:.2f} MB and {fl / 1e9:.4f} GFLOP needed "

@@ -19,14 +19,31 @@
 // follows the plain PyTorch version (ops/integrator.shade_hit and its
 // callees) operation for operation; seeds and uniforms are bit-identical.
 //
-// What bounds it on this card: per-ray compute and warp divergence, not
-// bytes. For Cornell (36 triangles) a ray reads and writes ~60 bytes of
-// state per bounce but runs 36 (plus 36 per light with shadow rays)
+// What bounds it on this card. For Cornell (36 triangles) a live ray moves
+// ~104 bytes of state but runs 36 (plus 36 per light with shadow rays)
 // Moller-Trumbore tests and a few dozen transcendentals, and rays of one
-// warp take different lobes, miss, or die at different bounces.
+// warp take different lobes, miss, or die at different bounces. A dead ray
+// only passes its state through (100 bytes). On the main path (1080p x 9,
+// H100, scripts/ab_mega.py) K2 takes 0.075 ms with every ray dead: that
+// stream alone, 207 MB at ~2.8 TB/s, is 60-70% of every bounce >= 1, and
+// the live rays' bodies add to it rather than hide under it (0.210 ms with
+// every ray alive).
 //
 // What the design does about it:
-//   * one thread per ray, a 1-D grid, the ragged tail masked;
+//   * K1: one thread per ray, a 1-D grid, the ragged tail masked; its
+//     closest hit and shadow rays run behind the per-warp cull of
+//     bundle.cuh;
+//   * K2: a block per tile of 128 rays, or of 512 where a live ray runs
+//     more than 256 Moller-Trumbore tests; where a tile's live rays hold
+//     more warps than ceil(live / 32), they are packed in ray order into
+//     that many warps, so a warp runs the bounce on up to 32 live rays
+//     instead of the few a warp of consecutive rays holds at the later
+//     bounces (PERF.md: 0.24 of its lanes at bounce 8). One block per
+//     tile lets the card refill a slot as soon as a tile is done. Designs
+//     that pack across the whole launch (a persistent grid with a queue
+//     per block or per warp, a queue kernel and a bounce kernel) ran
+//     1.25-1.4x slower over bounces 1-8 in design runs whose sources were
+//     not kept (PERF.md): that comparison cannot be rerun from this file;
 //   * the triangles (v0, e1, e2: 36 bytes each) and the lights are staged
 //     in shared memory once per block, so the intersection loops read
 //     broadcast shared memory, never device memory;
@@ -36,7 +53,7 @@
 //   * rays that are dead skip the bounce, only the picked lobe is
 //     evaluated, and shadow rays exit at the first occluder;
 //   * the RNG counters are premixed on the host and passed as scalars.
-// Tensor cores, TMA, ray sorting and persistent blocks are left for later.
+// Tensor cores, TMA and ray sorting are left for later.
 //
 // Built without fast-math and with -fmad=false (ops/cuda/build.py), and
 // every expression is written in the plain version's operation order, so
@@ -432,7 +449,21 @@ bounce0_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __r
   if (stats) stats[i] = tests;
 }
 
-__global__ void __launch_bounds__(kBlock)
+// A block takes its tile: each thread reads its ray's alive flag and
+// state, a ballot per warp counts the live rays, and the barrier that
+// stages the triangles and lights also publishes the counts. A ray that
+// is not alive writes its pass-through (bounce_body's result for it: o, d,
+// beta unchanged, no radiance, winner -1, no occlusion bits). Where
+// packing the live rays would run the bounce on fewer warps than hold
+// them, the block queues them in ray order in shared memory and its first
+// ceil(live / 32) warps run the bounce on the queue, full but the last;
+// elsewhere each live ray runs in its own lane. A ray's state is read at
+// its index and its results stored there, so its arithmetic, and its
+// bits, are the same in whichever lane runs it. A block has kTile threads
+// for a tile of kTile rays (mrt_bounce_fwd picks 128 or 512), at most 64
+// registers a thread.
+template <int kTile>
+__global__ void __launch_bounds__(kTile, 1024 / kTile)
 bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __restrict__ tris,
                   const float* __restrict__ lights, const float* __restrict__ o_in,
                   const float* __restrict__ d_in, const float* __restrict__ beta_in,
@@ -440,19 +471,57 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
                   float* o_out, float* d_out, float* beta_out, float* alive_out,
                   float* rad_out, int* idx_out, int* occ_out) {
   extern __shared__ float smem[];
+  __shared__ int s_queue[kTile];
+  __shared__ int s_cnt[kTile / 32];
   float* s_tris = smem;
   float* s_lights = smem + p.num_tris * kTriCols;
-  stage(p, tris, lights, s_tris, s_lights);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.num_rays) return;
-  const int R = p.num_rays;
-  const V3 o = mk(o_in[i], o_in[R + i], o_in[2 * R + i]);
-  const V3 d = mk(d_in[i], d_in[R + i], d_in[2 * R + i]);
-  const V3 beta = mk(beta_in[i], beta_in[R + i], beta_in[2 * R + i]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, R = p.num_rays;
+  const int i = blockIdx.x * kTile + tid;
+  const bool in = i < R;
+  // Every ray's flag and state at once: a ray that stays in its lane needs
+  // no second trip to memory, and one that is packed finds its lines in L2.
+  const int k = in ? i : 0;
+  const bool live = in && alive_in[k] > 0.0f;
+  V3 o = mk(o_in[k], o_in[R + k], o_in[2 * R + k]);
+  V3 d = mk(d_in[k], d_in[R + k], d_in[2 * R + k]);
+  V3 beta = mk(beta_in[k], beta_in[R + k], beta_in[2 * R + k]);
+  const unsigned took = __ballot_sync(kFull, live);
+  if (lane == 0) s_cnt[warp] = __popc(took);
+  stage(p, tris, lights, s_tris, s_lights);  // its barrier also publishes s_cnt
+  int at = 0, n = 0, holding = 0;  // warps with a live ray
+  for (int w = 0; w < kTile / 32; ++w) {
+    const int c = s_cnt[w];
+    at = w == warp ? n : at;
+    n += c;
+    holding += c > 0;
+  }
+  if (in && !live) {
+    RayOut r;
+    r.o = o;
+    r.d = d;
+    r.beta = beta;
+    r.rad = mk(0.0f, 0.0f, 0.0f);
+    r.alive = false;
+    r.winner = -1;
+    r.occ = 0;
+    store(r, i, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+  }
+  int j = live ? i : -1;
+  if ((n + 31) / 32 < holding) {  // pack: the same in every thread
+    if (live) s_queue[at + __popc(took & ((1u << lane) - 1u))] = i;
+    __syncthreads();
+    j = tid < n ? s_queue[tid] : -1;
+    if (j >= 0 && j != i) {
+      o = mk(o_in[j], o_in[R + j], o_in[2 * R + j]);
+      d = mk(d_in[j], d_in[R + j], d_in[2 * R + j]);
+      beta = mk(beta_in[j], beta_in[R + j], beta_in[2 * R + j]);
+    }
+  }
+  if (j < 0) return;
   int tests = 0;
-  const RayOut r = bounce_body<false>(p, s_tris, s_lights, tab, o, d, beta, alive_in[i] > 0.0f,
-                                      (uint32_t)seeds[i], tests);
-  store(r, i, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+  const RayOut r = bounce_body<false>(p, s_tris, s_lights, tab, o, d, beta, true,
+                                      (uint32_t)seeds[j], tests);
+  store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
 }
 
 size_t smem_bytes(const MegaParams& p) {
@@ -464,6 +533,16 @@ template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int kTile, typename... Args>
+int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
+  const size_t smem = smem_bytes(p);
+  cudaError_t e = prepare(bounce_fwd_kernel<kTile>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (p.num_rays + kTile - 1) / kTile;
+  bounce_fwd_kernel<kTile><<<grid, kTile, smem, stream>>>(p, args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -491,14 +570,20 @@ extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float
                               float* o, float* d, float* beta, float* alive, float* rad,
                               int* idx, int* occ, void* stream) {
   if (p->num_rays <= 0) return 0;
-  const size_t smem = smem_bytes(*p);
-  cudaError_t e = prepare(bounce_fwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (p->num_rays + kBlock - 1) / kBlock;
-  bounce_fwd_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      *p, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o, d, beta, alive, rad, idx,
-      occ);
-  return (int)cudaGetLastError();
+  // K2's tile: 128 rays while a live ray runs at most 256 Moller-Trumbore
+  // tests (the triangles, and as many again per light with shadow rays),
+  // else 512. A larger tile packs its live rays into fuller warps: on
+  // bounces 1-8 at 1080p it was 5-6% slower at 36 and 256 tests, even at
+  // 108, and 2-10% faster from 324 tests on (PERF.md, section 6). With
+  // ~2048 triangles staged (75.6 KB) an SM holds two blocks, and tiles of
+  // 128 would leave it 256 threads (2.25x slower there).
+  const long tests = (long)p->num_tris * (1 + ((p->flags & F_SHADOW) ? p->num_lights : 0));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tests > 256)
+    return launch_bounce_fwd<512>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
+                                  o, d, beta, alive, rad, idx, occ);
+  return launch_bounce_fwd<128>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o,
+                                d, beta, alive, rad, idx, occ);
 }
 
 extern "C" const char* mrt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -8,7 +8,11 @@ Four kernels, written by hand in ``csrc/``:
   in-kernel and runs the first bounce (replaces the JAX package's
   ``ops/pallas/megakernel.py:_bounce0_fwd_kernel``);
 * ``bounce_fwd`` runs one bounce from the carried ray state, for bounces
-  1..B-1 (replaces ``_bounce_fwd_kernel``);
+  1..B-1 (replaces ``_bounce_fwd_kernel``): a block per tile of 128
+  rays (512 where a live ray runs more than 256 Möller–Trumbore tests)
+  writes the pass-through of the rays that are not alive and, where that
+  takes fewer warps than hold them, packs the live rays into full warps
+  in ray order before it runs the bounce on them;
 * ``bounce0_bwd`` and ``bounce_bwd`` are their vector-Jacobian products
   with the winner indices and occlusion bits of the forward held fixed
   (replace ``_bounce0_bwd_kernel`` and ``_bounce_bwd_kernel``).

@@ -65,6 +65,22 @@ def check_bounce(label: str, k_out, p_out) -> dict:
     return stats
 
 
+def check_bitwise(label: str, k_out, p_out) -> float:
+    """A kernel that must equal its plain version: every output (floats,
+    winners, occlusion bits) equal entry by entry (``torch.equal``: max
+    |diff| 0). Raises naming each output that differs and on how many
+    entries; returns max |diff| over the float outputs (0.0)."""
+    bad, err = [], 0.0
+    for n, k, p in zip(BOUNCE_FLOATS + ("winner", "occ_bits", "seeds"), k_out, p_out):
+        if k.is_floating_point():
+            err = max(err, (k - p).abs().max().item() if k.numel() else 0.0)
+        if not torch.equal(k, p):
+            bad.append(f"{n} on {int((k != p).sum().item())}")
+    if bad:
+        raise AssertionError(f"{label}: not bitwise the plain version's: {', '.join(bad)}")
+    return err
+
+
 def check_hits(label: str, k_out, p_out) -> dict:
     """Gate a closest-hit kernel's (t, winner[, rows]) against its plain
     version's: winners equal on >= 99.99% of rays, t and rows under the
@@ -332,6 +348,75 @@ def k1_cull_cases(device):
             ("grazing camera", cornell, graze, RenderConfig()),
             ("grazing camera, backface_cull + shadow rays", cornell, graze,
              RenderConfig(backface_cull=True, shadow_rays=True)))
+
+
+# The bounce kernel K2's edge cases beside the main path (chip_smoke.py
+# phase 3, tests/test_torch_cuda.py): which rays are alive, how many, in
+# which order, and the options that change its loops.
+K2_CASES = ("every ray dead", "every ray alive", "10% alive", "R=1", "R=255", "R=257",
+            "shuffled ids", "30 lights + shadow rays", "backface_cull + soft_edge")
+
+
+def k2_case(name: str, device, width: int = 128, height: int = 72, seed: int = 9):
+    """(scene, cfg, state, bounce) of one of K2_CASES: ``state`` = (o, d,
+    beta, alive, seeds) [3, R] / [R], bounce 0's output by the plain first
+    bounce at ``width`` x ``height`` (frame 1, the default camera), with
+    its alive mask replaced where the case says. "R=n" takes the first n
+    rays of the shuffled-id state with ray 0 alive; "10% alive" a seeded
+    10% of the rays."""
+    from ...config import RenderConfig
+    from . import megakernel as mk
+    cfg = RenderConfig(width=width, height=height)
+    scene = cornell_scene(device=device)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=device)
+    if name == "30 lights + shadow rays":
+        scene, cfg = many_light_scene(device), RenderConfig(width=width, height=height,
+                                                            shadow_rays=True)
+    elif name == "backface_cull + soft_edge":
+        cfg = RenderConfig(width=width, height=height, backface_cull=True,
+                           soft_edge_sigma=0.05)
+    elif name == "shuffled ids" or name.startswith("R="):
+        pid = shuffled_ids(cfg.num_pixels, seed, device)
+    table, tris, lv = mk._tables(scene, cfg, None)
+    camv = mk.camera_vector(Camera.default(device=device))
+    f0 = mk.bounce0_fwd_plain(table, tris, lv, camv, pid, 1, cfg)
+    o, d, beta, alive, seeds = f0[0], f0[1], f0[2], f0[3], f0[7]
+    if name == "every ray dead":
+        alive = torch.zeros_like(alive)
+    elif name == "every ray alive":
+        alive = torch.ones_like(alive)
+    elif name == "10% alive":
+        gen = torch.Generator().manual_seed(seed)
+        alive = (torch.rand(alive.shape, generator=gen) < 0.1).to(alive)
+    elif name.startswith("R="):
+        n = int(name[2:])
+        o, d, beta = (x[:, :n].contiguous() for x in (o, d, beta))
+        alive, seeds = alive[:n].clone(), seeds[:n].contiguous()
+        alive[0] = 1.0
+    return scene, cfg, (o, d, beta, alive, seeds), 1
+
+
+def k2_ray_set_cases(device, t_max: float = 3.0e38):
+    """K2 on the adversarial rays of cull_ray_sets (vertices and edges,
+    coplanar ties, grazing incidence, signed zeros, open limits, padding, a
+    2048-triangle soup): (label, scene, cfg, state, bounce) with every ray
+    alive, unit throughput and seeds 0 .. R - 1, the scene's materials and
+    light Cornell's, the limit ``t_max`` (3e38: the kernels' largest), with
+    and without backface culling."""
+    from ...config import RenderConfig
+    base = cornell_scene(device=device)
+    cases = []
+    for name, (geo, o, d, _) in cull_ray_sets(device).items():
+        R = o.shape[0]
+        scene = Scene(geometry=geo.to(device), materials=base.materials, lights=base.lights)
+        state = (o.T.contiguous(), d.T.contiguous(),
+                 torch.ones((3, R), dtype=torch.float32, device=device),
+                 torch.ones((R,), dtype=torch.float32, device=device),
+                 torch.arange(R, dtype=torch.int32, device=device))
+        for cull in (False, True):
+            cfg = RenderConfig(t_max=t_max, backface_cull=cull)
+            cases.append((f"{name}{', backface_cull' if cull else ''}", scene, cfg, state, 1))
+    return cases
 
 
 def grazing_surface(seed: int = 3, n: int = 24):

@@ -10,10 +10,18 @@ the median of 7 ``render(frames=4)`` calls under ``torch.no_grad()``
 (ms/frame, CUDA events) and of 7 ``grad.loss_and_grads`` steps (ms/step);
 then the forward kernels alone on the main path's state, ``bounce0_fwd``
 (K1) and ``bounce_fwd`` (K2) at bounce 1, by CUDA events over 20
-launches (``chip_smoke.time_ms``), and the backward wrappers with seeded
+launches (``chip_smoke.time_ms``); K2 at each bounce 1-8 from the carried
+state (the kernels' own outputs) and their sum, K2 at bounce 1 with every
+ray dead and with every ray alive, and the backward wrappers with seeded
 cotangents, ``bounce0_bwd`` at bounce 0 and ``bounce_bwd`` at bounces 1, 4
 and 8: device time per call (``chip_smoke.device_ms``: CUDA events around
-20 calls queued behind a sleep kernel, after a warm-up).
+20 calls queued behind a sleep kernel, after a warm-up). Then K2 at each
+bounce 1-8 and their sum at 1080p x 9 on scenes whose live rays run more
+Moller-Trumbore tests than Cornell's 36: seeded soups of 256, 512 and
+2048 triangles (``parity.soup_scene``; 2048 is the mega path's limit),
+and Cornell under 2, 8 and 30 lights with shadow rays
+(``parity.two_light_scene``, ``parity.many_light_scene``; 36 tests a
+light more).
 Scene and camera are built with ``device="cuda"`` so that checkouts with
 either default device run the same thing. Needs a CUDA device.
 """
@@ -62,7 +70,7 @@ def child(root: str) -> None:
 
 
 def kernel_times(torch, mrt, cfg, scene, cam) -> str:
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk, parity
     from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
 
     # The timer of chip_smoke.py, from this script's checkout (a parent
@@ -82,18 +90,46 @@ def kernel_times(torch, mrt, cfg, scene, cam) -> str:
     s1 = (f[0], f[1], f[2], f[3], f[7])
     out = {"bounce0_fwd": smoke.time_ms(
                lambda: mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg), 20),
-           "bounce_fwd b1": smoke.time_ms(lambda: mk.bounce_fwd(table, tris, lv, *s1, 1, cfg), 20)}
+           "bounce_fwd b1 events": smoke.time_ms(
+               lambda: mk.bounce_fwd(table, tris, lv, *s1, 1, cfg), 20)}
+    dead = s1[:3] + (torch.zeros_like(s1[3]), s1[4])
+    full = s1[:3] + (torch.ones_like(s1[3]), s1[4])
+    out["bounce_fwd b1 every ray dead"] = kernel_ms(
+        lambda: mk.bounce_fwd(table, tris, lv, *dead, 1, cfg))
+    out["bounce_fwd b1 every ray alive"] = kernel_ms(
+        lambda: mk.bounce_fwd(table, tris, lv, *full, 1, cfg))
     c = cot(f[2])
     out["bounce0_bwd b0"] = (kernel_ms(
         lambda: mk.bounce0_bwd(table, lv, camv, ids, 0, f[5], f[6], c, cfg)))
     state = (f[0], f[1], f[2], f[3], f[7])
+    k2 = []
     for b in range(1, 9):
+        k2.append(kernel_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, b, cfg)))
+        out[f"bounce_fwd b{b}"] = k2[-1]
         f = mk.bounce_fwd(table, tris, lv, *state, b, cfg)
         if b in (1, 4, 8):
             c = cot(f[2])
             out[f"bounce_bwd b{b}"] = kernel_ms(
                 lambda: mk.bounce_bwd(table, lv, *state, f[5], f[6], c, b, cfg))
         state = (f[0], f[1], f[2], f[3], state[4])
+    out["bounce_fwd b1-8"] = sum(k2)
+    shadow = mrt.RenderConfig(width=cfg.width, height=cfg.height, bounces=cfg.bounces,
+                              shadow_rays=True)
+    scenes = [(f"soup of {n} triangles", parity.soup_scene(camv.device, n), cfg)
+              for n in (256, 512, 2048)]
+    scenes.append(("2 lights + shadow rays", parity.two_light_scene(camv.device), shadow))
+    scenes += [(f"{n} lights + shadow rays", parity.many_light_scene(camv.device, n), shadow)
+               for n in (8, 30)]
+    for name, scene2, cfg2 in scenes:
+        table, tris, lv = mk._tables(scene2, cfg2, None)
+        f = mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg2)
+        state, k2 = (f[0], f[1], f[2], f[3], f[7]), []
+        for b in range(1, 9):
+            k2.append(kernel_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, b, cfg2)))
+            out[f"{name} bounce_fwd b{b}"] = k2[-1]
+            f = mk.bounce_fwd(table, tris, lv, *state, b, cfg2)
+            state = (f[0], f[1], f[2], f[3], state[4])
+        out[f"{name} bounce_fwd b1-8"] = sum(k2)
     return ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
 
 

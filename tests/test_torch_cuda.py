@@ -154,6 +154,74 @@ def test_bwd_plan(T_pad, R):
     assert pmk.bwd_plan(R, 8, 1, 132, False).grid == plan.grid
 
 
+@pytest.mark.parametrize("R", [1, 255, 257, 2_073_600])
+def test_k2_lane_model(R):
+    """chip_smoke.lane_use, the model of how K2 fills its warps (tiles of
+    128 rays; a tile packs its live rays into ceil(live / 32) warps where
+    that is fewer than the warps holding them), on every ray dead, every
+    ray alive and a seeded 10% alive: at R <= 257 its counts equal a count
+    ray by ray; at any R packing runs no more warps than one thread a ray,
+    at least ceil(live / 32), and fills them at least as well."""
+    import chip_smoke
+    tile, warps = chip_smoke.K2_TILE, -(-R // 32)
+    gen = torch.Generator().manual_seed(R)
+    for alive in (torch.zeros(R), torch.ones(R), (torch.rand(R, generator=gen) < 0.1).float()):
+        u = chip_smoke.lane_use(torch, alive, tile)
+        n = int(alive.sum().item())
+        if R <= 257:
+            before = now = 0
+            for t0 in range(0, R, tile):
+                tl = alive[t0:t0 + tile].tolist()
+                hold = sum(any(tl[w:w + 32]) for w in range(0, len(tl), 32))
+                before, now = before + hold, now + min(hold, -(-int(sum(tl)) // 32))
+            assert (u["warps_before"], u["warps_now"]) == (before / warps, now / warps)
+        assert u["live"] == n / R
+        assert -(-n // 32) <= round(u["warps_now"] * warps) <= round(u["warps_before"] * warps)
+        assert u["use_now"] >= u["use_before"]
+        if n == R:
+            assert u["warps_now"] == u["warps_before"] == 1.0
+
+
+@pytest.mark.parametrize("name", parity.K2_CASES)
+def test_k2_cases_are_what_they_say(name):
+    """The edge cases that the card holds K2 to (below, and chip_smoke.py
+    phase 3), built on the CPU at 64x36: which rays are alive, how many,
+    the options, and a state the bounce can run."""
+    scene, cfg, state, b = parity.k2_case(name, "cpu", 64, 36)
+    o, d, beta, alive, seeds = state
+    R = alive.numel()
+    assert b == 1 and o.shape == d.shape == beta.shape == (3, R) and seeds.shape == (R,)
+    assert all(x.is_contiguous() for x in state)
+    frac = alive.mean().item()
+    want = {"every ray dead": (0.0, 0.0), "every ray alive": (1.0, 1.0),
+            "10% alive": (0.05, 0.15), "R=1": (1.0, 1.0)}.get(name, (0.1, 0.6))
+    assert want[0] <= frac <= want[1], frac
+    if name.startswith("R="):
+        assert R == int(name[2:]) and alive[0] == 1.0
+    else:
+        assert R == 64 * 36
+    assert cfg.shadow_rays == (name == "30 lights + shadow rays")
+    assert scene.lights.count == (30 if cfg.shadow_rays else 1)
+    assert cfg.backface_cull == (cfg.soft_edge_sigma > 0) == (name == "backface_cull + soft_edge")
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
+    assert ((out[5] >= 0) <= (alive > 0)).all() and torch.isfinite(out[4]).all()
+
+
+def test_k2_ray_set_cases_are_live():
+    """K2 on the adversarial rays of parity.cull_ray_sets (below, and
+    chip_smoke.py phase 3), on the CPU: each set with and without backface
+    culling, every ray alive at the limit 3e38, and most rays hitting."""
+    cases = parity.k2_ray_set_cases("cpu")
+    assert len(cases) == 2 * len(parity.cull_ray_sets("cpu"))
+    for label, scene, cfg, state, b in cases:
+        assert cfg.t_max == 3.0e38 and cfg.backface_cull == label.endswith("backface_cull")
+        assert bool((state[3] == 1.0).all()) and b == 1
+        table, tris, lv = pmk._tables(scene, cfg, None)
+        out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
+        assert (out[5] >= 0).float().mean() > 0.75, label
+
+
 def test_shuffled_ids_scatter_winners():
     """The shuffled case is incoherent: at bounce 1 every 32-ray group has
     at least 2 distinct live winners and 6.71 on average (measured on the
@@ -542,6 +610,36 @@ def test_bounce0_cull_on_card(case):
         model = bc.cull_hits(tris, o.contiguous(), d.contiguous(), limit, cfg.backface_cull)[2]
         assert torch.equal(model, st), label
     assert 0 < st.float().mean() < tris.shape[0] + (2 * tris.shape[0] if cfg.shadow_rays else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", parity.K2_CASES + ("R=2073600", "ray sets"))
+def test_bounce_fwd_edge_cases_on_card(name):
+    """K2 on its edge cases (parity.K2_CASES at 128x72; the main path's
+    1920x1080 bounce-1 state with render_sample's tile-ordered ids; the
+    adversarial rays of parity.k2_ray_set_cases): every output bitwise
+    equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    if name == "ray sets":
+        cases = parity.k2_ray_set_cases(dev)
+    elif name == "R=2073600":
+        scene, cfg = P.cornell_scene(device=dev), P.RenderConfig(width=1920, height=1080)
+        table, tris, lv = pmk._tables(scene, cfg, None)
+        camv = pmk.camera_vector(P.Camera.default(device=dev))
+        f0 = pmk.bounce0_fwd_plain(table, tris, lv, camv, _swizzled_ids(cfg, dev), 0, cfg)
+        cases = [(name, scene, cfg, (f0[0], f0[1], f0[2], f0[3], f0[7]), 1)]
+    else:
+        cases = [(name,) + parity.k2_case(name, dev)]
+    for label, scene, cfg, state, b in cases:
+        table, tris, lv = pmk._tables(scene, cfg, None)
+        n0 = pmk.LAUNCHES["bounce_fwd"]
+        k = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
+        p = pmk.bounce_fwd_plain(table, tris, lv, *state, b, cfg)
+        torch.cuda.synchronize()
+        assert pmk.LAUNCHES["bounce_fwd"] == n0 + 1
+        assert parity.check_bitwise(f"bounce_fwd, {label}", k, p) == 0.0
 
 
 @pytest.mark.cuda
