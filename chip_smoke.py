@@ -135,7 +135,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    x 9, default capacity and capacity 4, K5), each against the
    single-device render. Each rank checks and logs its launches of K1-K6,
    ms per call and the bytes it hands to each collective; the times of
-   15b are gloo staging through host memory on one shared card.
+   15b are gloo staging through host memory on one shared card;
+16. the compiled programs (jit.py: CUDA graphs, the JAX package's
+   ``jax.jit``): the eager main step and config 3 frame under
+   ``torch.cuda.set_sync_debug_mode("error")``; ``render`` on mega (Cornell 1920x1080 x 9, 4 frames),
+   the training step (``jit`` of ``loss_and_grads``: loss and every float
+   leaf's gradient), a config 3 frame (K6), a path B frame (K5) and
+   ``scan_frames`` of 8 frames, each bitwise equal to the eager call on
+   the same inputs at several tensor frames and after a material update,
+   with the launches of 3 replays equal to 3 eager calls'; ms/frame or
+   ms/step compiled against eager in five pairs in turns (CUDA events),
+   and the device busy time of one call of each under torch.profiler.
+   Since ``render`` is compiled, phases 5, 10, 11 and 14 call it once at
+   the measured key (eager run and capture) before they time a replay.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -439,7 +451,7 @@ def wavefront_rays(mrt, torch, scene, cam, cfg, closest, any_hit):
     from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
     from mini_opencl_raytracer_tpu_torch.ops.shading import (build_shading_table,
                                                               hit_attributes)
-    from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
+    from mini_opencl_raytracer_tpu_torch.render import _render_compiled, _swizzled_ids
     dev = cam.position.device
     pid = _swizzled_ids(cfg, dev)
     seeds = rng.pixel_seeds(pid, 0)
@@ -928,6 +940,7 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
             n = 2
             ms_b = events_ms(lambda: mrt.render(scene, cam, cfg_bvh, frames=n, accel=acc), n)
             acc_m = mrt.build_accel(scene, cfg_r)
+            mrt.render(scene, cam, cfg_r, frames=n, accel=acc_m)  # warm-up and capture
             ms_m = events_ms(lambda: mrt.render(scene, cam, cfg_r, frames=n, accel=acc_m), n)
         log(f"[14 shell] Cornell 512x512x4: bvh (plain PyTorch walk, host-bound) {ms_b:.3f} "
             f"ms/frame, mega {ms_m:.3f} ms/frame ({n} frames each; {card})")
@@ -1195,6 +1208,158 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
     log(f"[15 parallel] phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 16: the compiled programs (jit.py) against eager.
+
+def same_tree(torch, a, b) -> bool:
+    """Bitwise equal trees of tensors (same structure, every leaf equal)."""
+    from mini_opencl_raytracer_tpu_torch.jit import flatten
+    la, da = flatten(a)
+    lb, db = flatten(b)
+    return da == db and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def busy_ms(torch, fn):
+    """Device busy time of one call of ``fn`` (the sum of its kernels'
+    device time under torch.profiler) and the call's ms by CUDA events
+    around it; busy is None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms = events_ms(fn)
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return (busy or None), ms
+
+
+def phase16(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, main_cfg,
+            cfg3) -> None:
+    """16. Compiled programs. First the eager main step and config 3
+    frame under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    synchronisation, the condition of their capture). Then ``render``
+    (mega, Cornell 1080p x 9, 4 frames), the training step (``jit`` of ``grad.loss_and_grads``: the
+    loss and every float leaf's gradient), a config 3 frame (K6), a path B
+    frame (Cornell 1080p x 9 ``pallas``, K5) and ``scan_frames`` of 8
+    mega frames, each bitwise against eager on the same inputs, at two
+    frames (tensor frames, read from memory at each replay) and after a
+    material update; launches of 3 replays equal to 3 eager calls'; then
+    five pairs in turns (eager, compiled; compiled, eager; ...) by CUDA
+    events, and one call of each under torch.profiler for the device busy
+    time."""
+    from mini_opencl_raytracer_tpu_torch.jit import jit
+    from mini_opencl_raytracer_tpu_torch.utils.metrics import scan_frames
+    t_phase = time.perf_counter()
+    loss_fn = lambda im: im.mean()
+    cfg_b = dataclasses.replace(main_cfg, backend="pallas")
+    frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+
+    def sample(cfg):
+        return lambda s, a, f: mrt.render_sample(s, cam, cfg, frame=f, accel=a)
+
+    def render_eager(s, a, f):
+        return mrt.to_image(mrt.render_radiance(s, cam, main_cfg, frames=4, accel=a),
+                            main_cfg.gamma)
+
+    def step_eager(s, a, f):
+        return grad.loss_and_grads(s, cam, main_cfg, loss_fn, accel=a)
+
+    def scan_eager(s, a, f):
+        tot = None
+        for k in range(8):
+            v = mrt.render_sample(s, cam, main_cfg, frame=(f + k) & 0xFFFFFFFF,
+                                  accel=a).mean()
+            tot = v if tot is None else tot + v
+        return tot
+
+    # What a capture needs: the eager main step and config 3 frame make no
+    # host synchronisation (after one call, which reads the light types).
+    for label, fn in (("main step", lambda: step_eager(cornell, None, None)),
+                      ("config 3 frame", lambda: mrt.render_sample(bunny, cam, cfg3,
+                                                                   frame=frame(5),
+                                                                   accel=acc3))):
+        with torch.no_grad() if label == "config 3 frame" else torch.enable_grad():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        log(f"[16 sync] eager {label} under torch.cuda.set_sync_debug_mode('error'): "
+            "no host synchronisation")
+
+    scan8 = scan_frames(lambda fr, data: mrt.render_sample(data[0], cam, main_cfg, frame=fr,
+                                                           accel=data[1]).mean(), 8)
+    # (label, scene, accel, compiled call, eager call, units a call, unit)
+    paths = [
+        ("render (mega, Cornell 1080p x 9, 4 frames)", cornell, None,
+         lambda s, a, f: mrt.render(s, cam, main_cfg, frames=4, accel=a), render_eager, 4,
+         "frame"),
+        ("step (loss_and_grads, Cornell 1080p x 9)", cornell, None, jit(step_eager),
+         step_eager, 1, "step"),
+        ("config 3 frame (bunny 512x512 x 2, K6)", bunny, acc3, jit(sample(cfg3)),
+         sample(cfg3), 1, "frame"),
+        ("path B frame (Cornell 1080p x 9 pallas, K5)", cornell, None, jit(sample(cfg_b)),
+         sample(cfg_b), 1, "frame"),
+        ("scan_frames of 8 (mega, Cornell 1080p x 9)", cornell, None,
+         lambda s, a, f: scan8(f, (s, a)), scan_eager, 8, "frame"),
+    ]
+    for label, scene, acc, compiled, eager, units, unit in paths:
+        grad_mode = torch.enable_grad() if unit == "step" else torch.no_grad()
+        with grad_mode:
+            checks = []
+            updated = dataclasses.replace(scene, materials=dataclasses.replace(
+                scene.materials, diffuse=scene.materials.diffuse * 0.7 + 0.1))
+            for what, sc, f in (("frame 11", scene, 11), ("frame 12", scene, 12),
+                                ("frame 2**32 - 1", scene, 2**32 - 1),
+                                ("after a material update", updated, 13)):
+                got = compiled(sc, acc, frame(f))
+                ref = eager(sc, acc, frame(f))
+                torch.cuda.synchronize()
+                if not same_tree(torch, got, ref):
+                    raise AssertionError(f"[16 compiled] {label}, {what}: compiled differs "
+                                         "from eager")
+                checks.append(what)
+            reset_all()
+            eager(scene, acc, frame(1))
+            one = kernel_counts()
+            reset_all()
+            for f in range(3):
+                compiled(scene, acc, frame(f))
+            if kernel_counts() != {k: 3 * v for k, v in one.items()}:
+                raise AssertionError(f"[16 compiled] {label}: launches of 3 replays "
+                                     f"{kernel_counts()}, one eager call {one}")
+            pairs = []
+            for i in range(5):
+                order = ("eager", "compiled") if i % 2 == 0 else ("compiled", "eager")
+                t = {}
+                for side in order:
+                    fn = eager if side == "eager" else compiled
+                    t[side] = events_ms(lambda: fn(scene, acc, frame(100 + i)), units)
+                pairs.append(t)
+            busy_e, ms_be = busy_ms(torch, lambda: eager(scene, acc, frame(7)))
+            busy_c, ms_bc = busy_ms(torch, lambda: compiled(scene, acc, frame(7)))
+        med = lambda side: sorted(p[side] for p in pairs)[2]
+        wins = sum(p["compiled"] < p["eager"] for p in pairs)
+        fmt = lambda side: ", ".join(f"{p[side]:.4f}" for p in pairs)
+        busy = lambda b, ms: ("not measured" if b is None else
+                              f"{b / units:.4f} ms/{unit} busy of {ms / units:.4f}, idle "
+                              f"{max(0.0, 1.0 - b / ms):.3f}")
+        log(f"[16 compiled] {label}: bitwise equal to eager ({'; '.join(checks)}); "
+            f"launches of 3 replays = 3 x {one}")
+        log(f"[16 compiled] {label}: ms/{unit} eager {med('eager'):.4f} (median; {fmt('eager')}), "
+            f"compiled {med('compiled'):.4f} ({fmt('compiled')}); compiled faster in "
+            f"{wins}/5 pairs; profiled: eager {busy(busy_e, ms_be)}, compiled "
+            f"{busy(busy_c, ms_bc)} ({card})")
+        if hasattr(compiled, "clear"):
+            compiled.clear()
+    from mini_opencl_raytracer_tpu_torch.render import _render_compiled
+    _render_compiled.clear()
+    log(f"[16 compiled] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1217,7 +1382,7 @@ def main() -> int:
     from mini_opencl_raytracer_tpu_torch.ops.integrator import trace_paths
     from mini_opencl_raytracer_tpu_torch.ops.intersect import (intersect_brute,
                                                                occluded_brute)
-    from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
+    from mini_opencl_raytracer_tpu_torch.render import _render_compiled, _swizzled_ids
 
     # 1. Device.
     dev = torch.device("cuda:0")
@@ -1417,7 +1582,9 @@ def main() -> int:
     scene, cfg = cases[0][1], main_cfg
     frames = 4
     with torch.no_grad():
-        mrt.render(scene, cam, cfg, frames=1)  # warm-up
+        # The first call runs eagerly and captures (jit.py); the measured
+        # call replays.
+        mrt.render(scene, cam, cfg, frames=frames)
         torch.cuda.synchronize()
         for key in mk.LAUNCHES:
             mk.LAUNCHES[key] = 0
@@ -1455,12 +1622,14 @@ def main() -> int:
     table, tris, lv = mk._tables(scene, cfg, None)
     b0 = mk.bounce0_fwd(table, tris, lv, camv, main_ids, 0, cfg)
     state = (b0[0], b0[1], b0[2], b0[3], b0[7])
+    # By device time, as the backward kernels below: on a loaded host a
+    # wrapper's Python outlasts its kernel, and events would time the host.
     times = {
         "bounce0_fwd": (
-            time_ms(lambda: mk.bounce0_fwd(table, tris, lv, camv, main_ids, 0, cfg), 20),
+            device_ms(lambda: mk.bounce0_fwd(table, tris, lv, camv, main_ids, 0, cfg)),
             time_ms(lambda: mk.bounce0_fwd_plain(table, tris, lv, camv, main_ids, 0, cfg), 3)),
         "bounce_fwd": (
-            time_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, 1, cfg), 20),
+            device_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, 1, cfg)),
             time_ms(lambda: mk.bounce_fwd_plain(table, tris, lv, *state, 1, cfg), 3)),
     }
 
@@ -1546,7 +1715,7 @@ def main() -> int:
     for name in KERNELS[:4]:
         k_ms, p_ms = times[name]
         log(f"[5/6 time] {name} at 1080p: kernel {k_ms:.4f} ms "
-            f"({'device time' if 'bwd' in name else 'events'}), plain {p_ms:.3f} ms "
+            f"(device time), plain {p_ms:.3f} ms "
             f"({kind}; {card})")
     for name, args in (("bounce0_bwd", bwd0), ("bounce_bwd", bwd1)):
         fn = getattr(mk, name)
@@ -1781,7 +1950,8 @@ def main() -> int:
         cfg_b = dataclasses.replace(main_cfg, **kw)
         cfg_p = dataclasses.replace(cfg_b, backend="pallas")
         with torch.no_grad():
-            mrt.render(cornell, cam, cfg_p, frames=1)  # warm-up
+            mrt.render(cornell, cam, cfg_p, frames=frames)  # warm-up and capture
+            mrt.render(cornell, cam, cfg_b, frames=frames)
             torch.cuda.synchronize()
             reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
             ms_p = events_ms(lambda: mrt.render(cornell, cam, cfg_p, frames=frames), frames)
@@ -1809,7 +1979,9 @@ def main() -> int:
             raise AssertionError(f"{name}: accel layout {cg.layout}, expected sah")
     acc3 = accels["bunny"]
     with torch.no_grad():
-        mrt.render(bunny, cam, cfg3, frames=1, accel=acc3)  # warm-up
+        mrt.render(bunny, cam, cfg3, frames=frames, accel=acc3)  # warm-up and capture
+        mrt.render(bunny, cam, dataclasses.replace(cfg3, sort_rays=False), frames=frames,
+                   accel=acc3)
         torch.cuda.synchronize()
         reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
         img3 = None
@@ -1861,11 +2033,12 @@ def main() -> int:
                                 mrt.RenderConfig(width=3840, height=2160, bounces=1), 2)):
         acc = accels[name.split()[0]]
         with torch.no_grad():
-            mrt.render(sc, cam, cfg_a, frames=1, accel=acc)  # warm-up
+            mrt.render(sc, cam, cfg_a, frames=n, accel=acc)  # warm-up and capture
             torch.cuda.synchronize()
             ms = events_ms(lambda: mrt.render(sc, cam, cfg_a, frames=n, accel=acc), n)
         log(f"[11 path A] {name}: {ms:.3f} ms/frame, "
             f"{cfg_a.num_pixels * cfg_a.bounces / ms / 1e3:.2f} Mrays/s ({n} frames; {card})")
+    _render_compiled.clear()   # the 1080p and 4K graphs' memory
 
     # 12. Path C: gradients through the wavefront on K6 at config 3.
     grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3)  # warm-up
@@ -1990,6 +2163,9 @@ def main() -> int:
 
     # 15. The parallel paths on the card.
     phase15(mrt, torch, parity, grad, dev, card, cam, cornell, bunny, sponza, accels, ms_step)
+
+    # 16. The compiled programs against eager.
+    phase16(mrt, torch, grad, dev, card, cam, cornell, bunny, acc3, main_cfg, cfg3)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -14,8 +14,9 @@ the procedural Cornell, bunny- and sponza-scale scenes); and the shell:
 ``utils/`` (images, checkpoints, metrics, error decoding); and the
 multi-device paths of ``parallel/`` on ``torch.distributed`` (one process
 per rank: pixel-sharded render and training step, geometry-sharded ring
-and all-to-all traversal, the bounce pipeline, expert material routing).
-Every kernel
+and all-to-all traversal, the bounce pipeline, expert material routing);
+and the JAX package's compiled programs (``jit.py``: ``render``, the
+frame scan and the CLI's loops as captured CUDA graphs). Every kernel
 has a plain PyTorch version that runs on the CPU. Importing the package
 needs neither CUDA nor nvcc; the kernels build at first use on a CUDA
 device.

@@ -17,6 +17,12 @@ differentiable material optimisation of BASELINE.json config 4.
 ``--device`` defaults to ``cuda``: without a CUDA device the command
 fails (NoAcceleratorError); ``--device cpu`` runs the kernels' plain
 versions on the CPU.
+
+As in the JAX package's CLI, ``render`` runs its per-frame sample and
+``optimize`` its value-and-grad step as compiled programs (jit.py: CUDA
+graphs, replayed from the second call on; the frame goes in as a device
+tensor), and ``benchmark`` times ``utils/metrics.scan_frames``' compiled
+program. The ``bvh`` backend runs eagerly (``render.compiles``).
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ import torch
 from . import (Camera, Lights, RenderConfig, RenderState, accumulate, build_accel,
                cornell_scene, load_scene, render_sample, resolve_backend, to_image)
 from .config import default_device
+from .jit import jit
+from .render import compiles
 from .utils import checkpoint as ckpt
 from .utils.image import write_npy, write_pfm, write_png
-from .utils.metrics import bounce_occupancy, render_metrics, time_scan_fn
+from .utils.metrics import bounce_occupancy, render_metrics, time_fn, time_scan_fn
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
@@ -87,6 +95,12 @@ def cmd_render(args) -> int:
     # The acceleration structure is built once, outside the frame loop
     # (the reference's load-time build, CLBVHnode.cpp:185-207).
     accel = build_accel(scene, cfg)
+
+    def sample(s, c, a, f):
+        return render_sample(s, c, cfg, frame=f, accel=a)
+
+    if compiles(scene, cfg):
+        sample = jit(sample)
     state = RenderState.create(cfg, scene.device)
     start = 0
     if args.resume:
@@ -101,8 +115,8 @@ def cmd_render(args) -> int:
     f = start
     try:
         while f < end:
-            state = accumulate(state, render_sample(scene, camera, cfg, frame=f,
-                                                    accel=accel))
+            frame = torch.full((), f, dtype=torch.int64, device=scene.device)
+            state = accumulate(state, sample(scene, camera, accel, frame))
             f += 1
             if endless and args.checkpoint and f % args.checkpoint_every == 0:
                 ckpt.save_render_state(args.checkpoint, state)
@@ -127,13 +141,18 @@ def cmd_benchmark(args) -> int:
     scene, camera, cfg = _build(args)
     accel = build_accel(scene, cfg)
 
-    # Per-frame time of 8 distinct frames launched back to back, timed by
-    # CUDA events on the card (utils/metrics.time_scan_fn).
+    # Per-frame time of one call of 8 distinct frames (a compiled program),
+    # timed by CUDA events on the card (utils/metrics.time_scan_fn); the
+    # eager bvh backend frame by frame.
     def frame(fr, data):
         s, c, a = data
         return render_sample(s, c, cfg, frame=fr, accel=a).mean()
 
-    sec = time_scan_fn(frame, inner=8, iters=args.iters, data=(scene, camera, accel))
+    data = (scene, camera, accel)
+    if compiles(scene, cfg):
+        sec = time_scan_fn(frame, inner=8, iters=args.iters, data=data)
+    else:
+        sec = time_fn(lambda i: frame(i, data), iters=args.iters)
     m = render_metrics(sec, cfg.width, cfg.height, cfg.bounces, cfg.spp)
     m.update(backend=resolve_backend(scene, cfg), width=cfg.width,
              height=cfg.height, bounces=cfg.bounces, triangles=scene.num_triangles,
@@ -148,7 +167,9 @@ def cmd_benchmark(args) -> int:
 def cmd_optimize(args) -> int:
     """Differentiable material optimisation (BASELINE.json config 4):
     recover the Cornell wall albedos from a target render, by gradient
-    descent through torch autograd of ``render_sample``."""
+    descent through torch autograd of ``render_sample``; the value and
+    gradient are one compiled program (the JAX CLI's
+    ``jit(value_and_grad)``)."""
     scene, camera, cfg = _build(args)
     with torch.no_grad():
         target = render_sample(scene, camera, cfg, frame=0)
@@ -162,6 +183,8 @@ def cmd_optimize(args) -> int:
         (g,) = torch.autograd.grad(loss, diffuse)
         return loss.detach(), g
 
+    if compiles(scene, cfg):
+        value_and_grad = jit(value_and_grad)
     kd = torch.clamp(truth * 0.2 + 0.4, 0.0, 1.0)
     for step in range(args.steps):
         loss, g = value_and_grad(kd)

@@ -414,7 +414,8 @@ __device__ __forceinline__ void store(const RayOut& r, int i, int R, float* o, f
 }
 
 __global__ void __launch_bounds__(kBlock)
-bounce0_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __restrict__ tris,
+bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
+                   const float* __restrict__ tab, const float* __restrict__ tris,
                    const float* __restrict__ lights, const float* __restrict__ cam,
                    const int* __restrict__ pixel_ids, float* o_out, float* d_out,
                    float* beta_out, float* alive_out, float* rad_out, int* idx_out,
@@ -427,9 +428,10 @@ bounce0_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __r
   // Lanes past the last ray stay for the warp's cull, without a ray.
   const bool in = i < p.num_rays;
 
-  // Raygen (ops/camera.rays_from_basis + ops/rng.pixel_seeds).
+  // Raygen (ops/camera.rays_from_basis + ops/rng.pixel_seeds); the
+  // frame's premix comes from device memory.
   const int pid = in ? pixel_ids[i] : 0;
-  const uint32_t seed = mix_u32((uint32_t)pid ^ p.rg_frame);
+  const uint32_t seed = mix_u32((uint32_t)pid ^ *frame_cm);
   const float px = (float)(pid % p.width);
   const float py = (float)(pid / p.width);
   const float jx = uniform_cm(seed, p.rg_jx);
@@ -524,21 +526,34 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
   store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
 }
 
+// The mega path's scene limit (ops/cuda/megakernel.py _MAX_TRIS,
+// _MAX_LIGHTS): the most a block stages.
+constexpr int kMaxTris = 2048, kMaxLights = 30;
+
 size_t smem_bytes(const MegaParams& p) {
   return sizeof(float) * ((size_t)p.num_tris * kTriCols + (size_t)p.num_lights * kLightCols);
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in.
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
+// Above 48 KB of dynamic shared memory a kernel must opt in. Once per
+// kernel, at its first such launch, for the most any launch stages, so
+// that later launches (a captured one among them) make no such call.
+template <auto kKernel>
+cudaError_t prepare(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static const cudaError_t e = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * (kMaxTris * kTriCols + kMaxLights * kLightCols)));
+  return e;
+}
+
+int check_scene(const MegaParams& p) {
+  return p.num_tris > kMaxTris || p.num_lights > kMaxLights ? (int)cudaErrorInvalidValue : 0;
 }
 
 template <int kTile, typename... Args>
 int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
   const size_t smem = smem_bytes(p);
-  cudaError_t e = prepare(bounce_fwd_kernel<kTile>, smem);
+  cudaError_t e = prepare<bounce_fwd_kernel<kTile>>(smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p.num_rays + kTile - 1) / kTile;
   bounce_fwd_kernel<kTile><<<grid, kTile, smem, stream>>>(p, args...);
@@ -550,17 +565,22 @@ int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
 // C entry points (bound with ctypes by ops/cuda/build.py). Each launches
 // on the given stream, does not synchronise, and returns the launch's
 // cudaError_t.
-extern "C" int mrt_bounce0_fwd(const MegaParams* p, const float* tab, const float* tris,
-                               const float* lights, const float* cam, const int* pixel_ids,
-                               float* o, float* d, float* beta, float* alive, float* rad,
-                               int* idx, int* occ, int* seeds, int* stats, void* stream) {
+// mrt_bounce0_fwd's frame_cm points at one u32 on the device: premix of
+// the frame (ops/rng.premix).
+extern "C" int mrt_bounce0_fwd(const MegaParams* p, const uint32_t* frame_cm, const float* tab,
+                               const float* tris, const float* lights, const float* cam,
+                               const int* pixel_ids, float* o, float* d, float* beta,
+                               float* alive, float* rad, int* idx, int* occ, int* seeds,
+                               int* stats, void* stream) {
   if (p->num_rays <= 0) return 0;
+  if (check_scene(*p)) return check_scene(*p);
   const size_t smem = smem_bytes(*p);
-  cudaError_t e = prepare(bounce0_fwd_kernel, smem);
+  cudaError_t e = prepare<bounce0_fwd_kernel>(smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p->num_rays + kBlock - 1) / kBlock;
   bounce0_fwd_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      *p, tab, tris, lights, cam, pixel_ids, o, d, beta, alive, rad, idx, occ, seeds, stats);
+      *p, frame_cm, tab, tris, lights, cam, pixel_ids, o, d, beta, alive, rad, idx, occ, seeds,
+      stats);
   return (int)cudaGetLastError();
 }
 
@@ -570,6 +590,7 @@ extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float
                               float* o, float* d, float* beta, float* alive, float* rad,
                               int* idx, int* occ, void* stream) {
   if (p->num_rays <= 0) return 0;
+  if (check_scene(*p)) return check_scene(*p);
   // K2's tile: 128 rays while a live ray runs at most 256 Moller-Trumbore
   // tests (the triangles, and as many again per light with shadow rays),
   // else 512. A larger tile packs its live rays into fuller warps: on

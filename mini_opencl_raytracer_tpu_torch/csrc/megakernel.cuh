@@ -6,7 +6,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Must match ops/cuda/megakernel.py:_Params field for field.
+// Must match ops/cuda/megakernel.py:_Params field for field. The frame's
+// premix is not here: K1 and K3 read it from a device word (the JAX
+// kernels' rgcms operand), so a captured launch reads each replay's frame.
 struct MegaParams {
   int num_rays, num_tris, num_lights, flags;
   int width, height;
@@ -14,7 +16,7 @@ struct MegaParams {
   float sky[3];
   float tan_half_fov, inv_w, inv_h, aspect;
   uint32_t cms[5];
-  uint32_t rg_jx, rg_jy, rg_frame;
+  uint32_t rg_jx, rg_jy;
 };
 
 namespace {

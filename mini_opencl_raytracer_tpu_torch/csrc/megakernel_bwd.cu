@@ -118,6 +118,7 @@ struct Cot {
 // The pointers of a backward launch (unused ones null).
 struct BwdIO {
   const float *tab, *lights, *cam;
+  const uint32_t* frame_cm;  // K3: premix of the frame, one word on the device
   const int* pixel_ids;
   const float *o, *d, *beta, *alive;
   const int *seeds, *winner, *occ;
@@ -765,9 +766,10 @@ struct Raygen {
   uint32_t seed;
 };
 
-__device__ __forceinline__ Raygen raygen(const MegaParams& p, const float* cam, int pid) {
+__device__ __forceinline__ Raygen raygen(const MegaParams& p, const float* cam, int pid,
+                                         uint32_t frame_cm) {
   Raygen r;
-  r.seed = mix_u32((uint32_t)pid ^ p.rg_frame);
+  r.seed = mix_u32((uint32_t)pid ^ frame_cm);
   const float px = (float)(pid % p.width);
   const float py = (float)(pid / p.width);
   const float jx = uniform_cm(r.seed, p.rg_jx);
@@ -880,7 +882,7 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
     V3 g_o, g_d, g_beta;
     if (kFirst) {
       Raygen r = {};
-      if (in) r = raygen(p, io.cam, io.pixel_ids[j]);
+      if (in) r = raygen(p, io.cam, io.pixel_ids[j], *io.frame_cm);
       ray_adjoint(p, s.lights, io.tab, r.o, r.d, mk(1.0f, 1.0f, 1.0f), in, r.seed, win, occ, c,
                   g_o, g_d, g_beta, row, lg);
       if (in) raygen_adj(r, g_o, g_d, cg);
@@ -960,7 +962,7 @@ __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
         if (in && !live_i) {
           const Cot c = load_cot(io, i, R);
           if (kFirst) {
-            raygen_adj(raygen(p, io.cam, io.pixel_ids[i]), c.o, c.d, cg);
+            raygen_adj(raygen(p, io.cam, io.pixel_ids[i], *io.frame_cm), c.o, c.d, cg);
           } else {
             st_col(io.d_o, i, R, c.o);
             st_col(io.d_d, i, R, c.d);
@@ -1103,8 +1105,9 @@ int check_args(const MegaParams* p, int grid, int smem_tab) {
 // launches two kernels on the given stream, does not synchronise, and
 // returns the first cudaError_t that is not cudaSuccess.
 extern "C" int mrt_bounce0_bwd(const MegaParams* p, int grid, int smem_table,
-                               const float* tab, const float* lights, const float* cam,
-                               const int* pixel_ids, const int* winner, const int* occ,
+                               const uint32_t* frame_cm, const float* tab, const float* lights,
+                               const float* cam, const int* pixel_ids, const int* winner,
+                               const int* occ,
                                const float* co, const float* cd, const float* cb, const float* cr,
                                float* part, float* d_tab, float* d_lights, float* d_cam,
                                void* stream) {
@@ -1116,6 +1119,7 @@ extern "C" int mrt_bounce0_bwd(const MegaParams* p, int grid, int smem_table,
   io.tab = tab;
   io.lights = lights;
   io.cam = cam;
+  io.frame_cm = frame_cm;
   io.pixel_ids = pixel_ids;
   io.winner = winner;
   io.occ = occ;

@@ -1,0 +1,223 @@
+"""Compiled programs: the port's counterpart of ``jax.jit``, on CUDA graphs.
+
+``jit(fn, static_argnames=...)`` returns a callable that, on a CUDA
+device, runs ``fn`` as a captured CUDA graph (``torch.cuda.CUDAGraph``)
+and replays it on later calls, as ``jax.jit`` runs one executable per
+key. The hand-written kernels and PyTorch's operations are captured as
+they are, so a replay computes bitwise what an eager call computes on the
+same inputs: the same kernels in the same order. ``torch.autograd.grad``
+inside ``fn`` is captured too, so ``jit`` of a value-and-grad function
+is one program of forward and backward.
+
+The key (one graph each): the static arguments (hashable values such as
+``cfg`` and ``frames``); the structure of the other arguments
+(dataclasses, tuples, lists, dicts; their non-tensor leaves, such as None
+or an accel's layout name, are part of it); the shape, dtype and device
+of every tensor leaf; the light types of every ``Lights`` among them
+(``ops/lights.light_types``, read on the host once per tensor, since the
+integrator unrolls its light loop by type); and whether grad mode is on.
+
+The first call with a key runs ``fn`` eagerly on the caller's arguments
+and returns that result: the warm-up a capture needs (the kernels'
+build, lazy caches, CUDA module loading, the autograd engine). Then
+``fn`` is captured on copies of the tensor leaves, the graph's static
+inputs, in a memory pool of its own. A later call copies its leaves'
+values into the static inputs, replays, and returns clones of the
+outputs, which the next replay cannot overwrite. A replay adds the
+kernel launches that the capture recorded to the wrappers' ``LAUNCHES``.
+
+What a graph freezes: every Python value ``fn`` computes with (an int
+frame becomes a constant) and the addresses of tensors it closes over,
+whose values it reads at each replay. A value that changes between calls
+goes in as a tensor argument, as the frame of ``scan_frames`` does.
+
+On the CPU there is no graph and ``fn`` runs eagerly: the caller asked
+for the CPU. On CUDA a capture that fails raises; nothing runs eagerly in
+place of a graph.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import inspect
+from typing import Any, Callable, Iterator, List, Tuple
+
+import torch
+
+from .models.scene import Lights
+from .ops import lights as lights_mod
+from .ops.cuda import clustered, megakernel, panel
+
+_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES)
+_LEAF = "tensor"
+_CONST = "const"
+
+
+def flatten(tree) -> Tuple[List[torch.Tensor], Any]:
+    """(tensor leaves in order, hashable structure). Dataclasses, tuples
+    (named ones too), lists and dicts are nodes; any other value is a
+    constant of the structure and must be hashable."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return _LEAF
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return (type(x), names, tuple(walk(getattr(x, n)) for n in names))
+        if isinstance(x, (tuple, list)):
+            return (type(x), None, tuple(walk(v) for v in x))
+        if isinstance(x, dict):
+            names = tuple(x)
+            return (dict, names, tuple(walk(x[n]) for n in names))
+        hash(x)   # a static value must be hashable to key a graph
+        return (_CONST, type(x), x)
+
+    return leaves, walk(tree)
+
+
+def unflatten(treedef, leaves) -> Any:
+    """Inverse of ``flatten``: the structure with ``leaves`` in order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d == _LEAF:
+            return next(it)
+        if d[0] == _CONST:
+            return d[2]
+        cls, names, kids = d
+        vals = [build(k) for k in kids]
+        if cls is dict:
+            return dict(zip(names, vals))
+        if dataclasses.is_dataclass(cls):
+            return cls(**dict(zip(names, vals)))
+        if hasattr(cls, "_fields"):
+            return cls(*vals)
+        return cls(vals)
+
+    return build(treedef)
+
+
+def _lights_in(tree) -> Iterator[Lights]:
+    """Every ``Lights`` of a tree, in ``flatten``'s order."""
+    if isinstance(tree, Lights):
+        yield tree
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _lights_in(getattr(tree, f.name))
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _lights_in(v)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _lights_in(v)
+
+
+def _snapshot():
+    return [dict(c) for c in _COUNTS]
+
+
+class _Program:
+    """One captured graph: its static inputs, outputs and launch counts."""
+
+    def __init__(self, compiled: "Compiled", static: dict, treedef, leaves, types,
+                 device: torch.device):
+        self.inputs = [t.detach().clone() for t in leaves]
+        dynamic = unflatten(treedef, self.inputs)
+        for lights, ty in zip(_lights_in(dynamic), types):
+            lights_mod.remember_light_types(lights.light_type, ty)
+        args = compiled._bind({**dynamic, **static})
+        before = _snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+                out = compiled.fn(*args.args, **args.kwargs)
+        except Exception as e:
+            raise RuntimeError(f"jit: capturing {compiled.__qualname__} on {device} "
+                               f"failed: {e}") from e
+        finally:
+            after = _snapshot()
+            for counts, b in zip(_COUNTS, before):
+                counts.update(b)
+        self.launches = [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+                         for a, b in zip(after, before)]
+        self.out_leaves, self.out_def = flatten(out)
+
+    def replay(self, leaves):
+        for static, x in zip(self.inputs, leaves):
+            static.copy_(x)
+        self.graph.replay()
+        for counts, added in zip(_COUNTS, self.launches):
+            for k, v in added.items():
+                counts[k] += v
+        return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
+
+
+class Compiled:
+    """``fn`` as compiled programs, one per key (see the module note)."""
+
+    def __init__(self, fn: Callable, static_argnames=()):
+        self.fn = fn
+        self._sig = inspect.signature(fn)
+        self.static_argnames = tuple(static_argnames)
+        unknown = set(self.static_argnames) - set(self._sig.parameters)
+        if unknown:
+            raise ValueError(f"static_argnames {sorted(unknown)} are not parameters of {fn}")
+        self._programs = {}
+        functools.update_wrapper(self, fn)
+
+    def _bind(self, arguments: dict) -> inspect.BoundArguments:
+        ordered = collections.OrderedDict(
+            (n, arguments[n]) for n in self._sig.parameters if n in arguments)
+        return inspect.BoundArguments(self._sig, ordered)
+
+    def key(self, *args, **kwargs):
+        """(key, tensor leaves, light types, device) of a call."""
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        static = tuple((n, bound.arguments[n]) for n in self.static_argnames)
+        dynamic = {n: v for n, v in bound.arguments.items()
+                   if n not in self.static_argnames}
+        leaves, treedef = flatten(dynamic)
+        devices = {t.device for t in leaves}
+        if len(devices) != 1:
+            raise ValueError(f"{self.__qualname__}: a compiled call takes tensor arguments "
+                             f"on one device, got {sorted(map(str, devices))}")
+        types = tuple(lights_mod.light_types(x) for x in _lights_in(dynamic))
+        specs = tuple((tuple(t.shape), t.dtype) for t in leaves)
+        hash(static)
+        key = (static, treedef, specs, types, devices.pop(), torch.is_grad_enabled())
+        return key, leaves, types, key[4]
+
+    def __call__(self, *args, **kwargs):
+        key, leaves, types, device = self.key(*args, **kwargs)
+        if device.type != "cuda":
+            return self.fn(*args, **kwargs)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            raise ValueError(f"{self.__qualname__}: an argument requires grad, and a "
+                             "compiled call is not differentiable from outside; take the "
+                             "gradient inside the function (jit of a value-and-grad "
+                             "function)")
+        program = self._programs.get(key)
+        if program is not None:
+            return program.replay(leaves)
+        out = self.fn(*args, **kwargs)    # the warm-up, returned
+        static = dict(key[0])
+        self._programs[key] = _Program(self, static, key[1], leaves, types, device)
+        return out
+
+    def clear(self) -> None:
+        """Drop every captured graph (and its memory pool)."""
+        self._programs.clear()
+
+
+def jit(fn: Callable = None, *, static_argnames=()):
+    """``fn`` as a compiled program on CUDA (``Compiled``); the arguments
+    named in ``static_argnames`` are part of the key. Usable as a
+    decorator, with or without arguments."""
+    if fn is None:
+        return functools.partial(jit, static_argnames=static_argnames)
+    return Compiled(fn, static_argnames)

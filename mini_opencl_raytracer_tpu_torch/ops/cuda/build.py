@@ -34,15 +34,16 @@ _I = ctypes.c_int
 # Entry points of csrc/*.cu: (argtypes, restype). Every pointer, the
 # params struct and the stream are c_void_p.
 _SIGNATURES = {
-    # (params, table, tris, lights, cam, pixel_ids,
+    # (params, frame_cm, table, tris, lights, cam, pixel_ids,
     #  o, d, beta, alive, rad, idx, occ, seeds, stats, stream)
-    "mrt_bounce0_fwd": ([_P] * 16, _I),
+    "mrt_bounce0_fwd": ([_P] * 17, _I),
     # (params, table, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
     #  o, d, beta, alive, rad, idx, occ, stream)
     "mrt_bounce_fwd": ([_P] * 17, _I),
-    # (params, grid, smem_table, table, lights, cam, pixel_ids, winner,
-    #  occ, co, cd, cbeta, crad, part, d_table, d_lights, d_cam, stream)
-    "mrt_bounce0_bwd": ([_P] + [_I] * 2 + [_P] * 15, _I),
+    # (params, grid, smem_table, frame_cm, table, lights, cam, pixel_ids,
+    #  winner, occ, co, cd, cbeta, crad, part, d_table, d_lights, d_cam,
+    #  stream)
+    "mrt_bounce0_bwd": ([_P] + [_I] * 2 + [_P] * 16, _I),
     # (params, grid, smem_table, table, lights, o, d, beta, alive, seeds,
     #  winner, occ, co, cd, cbeta, crad, part, d_o, d_d, d_beta, d_table,
     #  d_lights, stream)

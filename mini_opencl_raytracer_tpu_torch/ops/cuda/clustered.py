@@ -409,7 +409,13 @@ def _resident_blocks(index: int, any_hit: bool) -> int:
 
 def _counter(index: int, stream: int) -> torch.Tensor:
     """The stream's work counter: two int32, zero between launches (the
-    kernel's last warp resets them), so launches on one stream share it."""
+    kernel's last warp resets them), so launches on one stream share it.
+    A launch captured into a CUDA graph gets a counter of its own instead,
+    zeroed by the graph before each replay: the capture stream's counter
+    would be shared with every graph captured on it and read at replay
+    time on whatever stream replays it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((2,), dtype=torch.int32, device=torch.device("cuda", index))
     c = _COUNTERS.get((index, stream))
     if c is None:
         c = _COUNTERS[(index, stream)] = torch.zeros((2,), dtype=torch.int32,
@@ -462,13 +468,14 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
         ptr = lambda t: None if t is None else t.data_ptr()
         with torch.cuda.device(index):
             stream = torch.cuda.current_stream(index).cuda_stream
+            counter = _counter(index, stream)
             err = build.library().mrt_clustered(
                 R, cg.tree.shape[0], cg.cl_count.shape[0], grid, int(backface_cull),
                 int(any_hit), cg.tree.data_ptr(), cg.cl_aabb.data_ptr(), cg.tris.data_ptr(),
                 cg.slot_to_tri.data_ptr(), cg.cl_count.data_ptr(),
                 ptr(cg.attrs if with_rows else None),
                 o.data_ptr(), d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(),
-                slot.data_ptr(), ptr(rows), ptr(stats), _counter(index, stream).data_ptr(),
+                slot.data_ptr(), ptr(rows), ptr(stats), counter.data_ptr(),
                 stream)
         build.check(err, name)
         LAUNCHES[name] += 1

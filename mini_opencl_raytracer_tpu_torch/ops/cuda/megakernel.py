@@ -116,7 +116,6 @@ class _Params(ctypes.Structure):
         ("inv_h", ctypes.c_float), ("aspect", ctypes.c_float),
         ("cms", ctypes.c_uint32 * _NUM_SITES),
         ("rg_jx", ctypes.c_uint32), ("rg_jy", ctypes.c_uint32),
-        ("rg_frame", ctypes.c_uint32),
     ]
 
 
@@ -235,7 +234,7 @@ def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
             winner.to(torch.int32), occ.to(torch.int32))
 
 
-def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame: int,
+def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame,
                       cfg: RenderConfig):
     """Plain version of the raygen-fused first bounce: seeds and jittered
     camera rays (ops/rng, ops/camera), then bounce 0."""
@@ -280,7 +279,7 @@ def _vjp(outs, inputs, cot):
                  for x, g in zip(inputs, grads))
 
 
-def bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame: int,
+def bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame,
                       winner, occ, cot, cfg: RenderConfig):
     """Plain version of the first bounce's VJP: autograd of raygen and the
     replayed bounce. ``cot`` = cotangents of (o', d', beta', radiance),
@@ -373,8 +372,7 @@ def _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot, tensors):
     return T_pad
 
 
-def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
-            frame: int = 0) -> _Params:
+def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int) -> _Params:
     p = _Params()
     p.num_rays, p.num_tris, p.num_lights = R, T, L
     p.flags = ((_F_SHADOW if cfg.shadow_rays else 0)
@@ -400,8 +398,22 @@ def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
         p.cms[s] = rng.premix(rng.bounce_site(bounce, s))
     p.rg_jx = rng.premix(rng.SITE_JITTER_X)
     p.rg_jy = rng.premix(rng.SITE_JITTER_Y)
-    p.rg_frame = rng.premix(frame)
     return p
+
+
+def frame_word(frame, device) -> torch.Tensor:
+    """[1] int32 on ``device`` holding the u32 bits of premix(frame), the
+    word K1 and K3 read (the JAX kernels' ``rgcms`` operand). A tensor
+    frame (0-d, integer, on ``device``) is premixed on the device; an int
+    frame is filled in there, with no copy from host memory."""
+    if isinstance(frame, torch.Tensor):
+        if frame.dim() != 0 or frame.is_floating_point() or frame.device != device:
+            raise ValueError(f"a tensor frame is a 0-d integer tensor on {device}, got "
+                             f"{frame.dtype} {tuple(frame.shape)} on {frame.device}")
+        return rng.to_i32_bits(rng.premix_t(frame.to(torch.int64))).reshape(1)
+    bits = rng.premix(frame)
+    return torch.full((1,), bits - (1 << 32) if bits >= 1 << 31 else bits,
+                      dtype=torch.int32, device=device)
 
 
 def _launch(name: str, fn, device, params, tensors, *ints, ptrs=()):
@@ -423,9 +435,10 @@ def _empty_state(R: int, device):
             torch.empty((R,), dtype=torch.int32, device=device))
 
 
-def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame: int,
+def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame,
                 cfg: RenderConfig, stats=None):
-    """Raygen-fused first bounce over ``pixel_ids`` [R] int32.
+    """Raygen-fused first bounce over ``pixel_ids`` [R] int32 at ``frame``
+    (an int or a 0-d integer tensor on the device).
 
     Returns (o, d, beta, alive, radiance, winner, occ_bits, seeds).
     ``stats`` (int32 [R], CUDA only) receives each ray's count of exact
@@ -451,9 +464,10 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame: int,
     out = _empty_state(R, device) + (
         torch.empty((R,), dtype=torch.int32, device=device),)
     if R:
-        params = _params(cfg, R, tris.shape[0], lights.shape[0], 0, frame)
-        _launch("bounce0_fwd", build.library().mrt_bounce0_fwd, device,
-                params, (table_rows, tris, lights, camv, pixel_ids) + out,
+        params = _params(cfg, R, tris.shape[0], lights.shape[0], 0)
+        _launch("bounce0_fwd", build.library().mrt_bounce0_fwd, device, params,
+                (frame_word(frame, device), table_rows, tris, lights, camv, pixel_ids)
+                + out,
                 ptrs=(None if stats is None else stats.data_ptr(),))
     return out
 
@@ -521,7 +535,7 @@ def _device_index(device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame: int, winner, occ,
+def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame, winner, occ,
                 cot, cfg: RenderConfig):
     """VJP of ``bounce0_fwd`` with its winners and occlusion bits frozen.
     ``cot`` = cotangents of (o', d', beta', radiance), each [3, R].
@@ -546,8 +560,9 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame: int, winner, occ,
     if R:
         plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), True)
         _bwd_launch("bounce0_bwd", build.library().mrt_bounce0_bwd, device,
-                    _params(cfg, R, T_pad, L, 0, frame), plan,
-                    (table_rows, lights, camv, pixel_ids, winner, occ)
+                    _params(cfg, R, T_pad, L, 0), plan,
+                    (frame_word(frame, device), table_rows, lights, camv, pixel_ids,
+                     winner, occ)
                     + tuple(cot) + (out,))
     return out
 
@@ -595,24 +610,29 @@ def _cot(grads):
 
 class _Bounce0(torch.autograd.Function):
     """(table, lights, camera vector) -> bounce0_fwd's outputs; the
-    backward is bounce0_bwd."""
+    backward is bounce0_bwd. A tensor frame is saved as a tensor, so the
+    backward reads the same device word as the forward."""
 
     @staticmethod
     def forward(ctx, table_rows, lights, camv, tris, pixel_ids, frame, cfg):
         out = bounce0_fwd(table_rows.detach(), tris.detach(), lights.detach(),
                           camv.detach(), pixel_ids, frame, cfg)
         _, _, _, alive, _, winner, occ, seeds = out
-        ctx.save_for_backward(table_rows, lights, camv, pixel_ids, winner, occ)
-        ctx.frame, ctx.cfg = frame, cfg
+        tensor_frame = isinstance(frame, torch.Tensor)
+        ctx.save_for_backward(table_rows, lights, camv, pixel_ids, winner, occ,
+                              frame if tensor_frame else None)
+        ctx.frame = None if tensor_frame else frame
+        ctx.cfg = cfg
         ctx.mark_non_differentiable(alive, winner, occ, seeds)
         return out
 
     @staticmethod
     def backward(ctx, g_o, g_d, g_beta, _g_alive, g_rad, _g_w, _g_occ, _g_s):
-        table_rows, lights, camv, pixel_ids, winner, occ = ctx.saved_tensors
+        table_rows, lights, camv, pixel_ids, winner, occ, frame = ctx.saved_tensors
         d_tab, d_lv, d_cam = bounce0_bwd(
             table_rows.detach(), lights.detach(), camv.detach(), pixel_ids,
-            ctx.frame, winner, occ, _cot((g_o, g_d, g_beta, g_rad)), ctx.cfg)
+            ctx.frame if frame is None else frame, winner, occ,
+            _cot((g_o, g_d, g_beta, g_rad)), ctx.cfg)
         return d_tab, d_lv, d_cam, None, None, None, None
 
 
@@ -683,11 +703,13 @@ def _bounce(grad: bool, table_rows, tris, lv, o, d, beta, alive, seeds,
 
 
 def trace_paths_mega_cam(scene: Scene, cfg: RenderConfig, camera: Camera,
-                         pixel_ids: torch.Tensor, frame: int,
+                         pixel_ids: torch.Tensor, frame,
                          accel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(camera, pixel ids, frame) -> radiance [R, 3]: the raygen-fused
     first bounce, then ``bounce_fwd`` for bounces 1..B-1. Zero bounces
-    render black. Differentiable w.r.t. the scene and the camera."""
+    render black. Differentiable w.r.t. the scene and the camera.
+    ``frame`` is an int or a 0-d integer tensor; a tensor's premix is
+    computed on the device."""
     table_rows, tris, lv = _tables(scene, cfg, accel)
     R = pixel_ids.shape[0]
     if cfg.bounces == 0:

@@ -82,8 +82,10 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     recorded visibility instead of calling ``occluder_fn`` (the backward
     bounce's frozen occlusion).
     """
-    sky = (torch.tensor(cfg.sky_color, dtype=cfg.torch_dtype(), device=o.device)
-           * cfg.skybox_intensity)
+    # Filled in on the device (no copy from host memory), rounded as
+    # float32(c) * intensity like the kernels' sky.
+    sky = torch.stack([o.new_full((), c, dtype=cfg.torch_dtype())
+                       for c in cfg.sky_color]) * cfg.skybox_intensity
     cov = at.coverage[:, None]
     zero3 = torch.zeros_like(beta)
 

@@ -5,12 +5,40 @@ optional shadow rays and a Blinn-Phong direct specular term
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import weakref
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.scene import LIGHT_DIRECTIONAL, LIGHT_SPOT, Lights
 from .linalg import dot, normalize, vclip, vmax
+
+
+# Host copies of light-type tensors: id -> (weak reference, version, types).
+_TYPES = {}
+
+
+def light_types(lights: Lights) -> Tuple[int, ...]:
+    """The light types as Python ints. Read from the device once per
+    tensor (and again after an in-place change): a later call with the
+    same tensor makes no host read, so a bounce, and a captured program
+    (jit.py, which keys its graphs by these types), reads none."""
+    t = lights.light_type
+    hit = _TYPES.get(id(t))
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    types = tuple(int(x) for x in t.tolist())
+    remember_light_types(t, types)
+    return types
+
+
+def remember_light_types(t: torch.Tensor, types: Tuple[int, ...]) -> None:
+    """Record ``types`` as the values of the light-type tensor ``t`` (a
+    copy whose values the caller knows, such as a captured program's
+    input)."""
+    key = id(t)
+    _TYPES[key] = (weakref.ref(t, lambda _, k=key: _TYPES.pop(k, None)), t._version,
+                   tuple(types))
 
 
 class DirectLight(NamedTuple):
@@ -41,10 +69,10 @@ def direct_light(
     occ_out = torch.zeros((R,), dtype=torch.int32, device=position.device)
     shadowed = occluder_fn is not None or occ_bits is not None
 
-    # Lights are few and their types are read on the host once.
-    types = lights.light_type.tolist()
+    # Lights are few and their types are read on the host once a scene.
+    types = light_types(lights)
     for li in range(lights.count):
-        ltype = int(types[li])
+        ltype = types[li]
         lpos = lights.position[li]
         ldir = normalize(lights.direction[li])
         intensity = lights.intensity[li]

@@ -62,11 +62,8 @@ def build_onb(n: torch.Tensor):
     (kernel_bvh.cl:85-87): axis = |n.x|>0.001 ? +Y : +X;
     t = normalize(cross(axis, n)); s = cross(n, t)."""
     use_y = (torch.abs(n[..., 0]) > 1e-3)[..., None]
-    axis = torch.where(
-        use_y,
-        torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device),
-        torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device),
-    )
+    e = torch.eye(3, dtype=n.dtype, device=n.device)   # made on the device
+    axis = torch.where(use_y, e[1], e[0])
     t = normalize(cross(axis, n))
     s = cross(n, t)
     return s, t

@@ -11,6 +11,12 @@ of two values below 2**32 may wrap in two's complement, which leaves the
 low 32 bits right, so ``& 0xFFFFFFFF`` after each multiply gives the u32
 product. Seeds cross into the CUDA kernels as ``int32`` tensors holding
 the u32 bits (``to_i32_bits`` / ``from_i32_bits``).
+
+A frame is a Python int or a 0-d integer tensor (the JAX package's traced
+``uint32``): ``sample_frame`` and ``pixel_seeds`` take either, and
+``premix_t`` is ``premix`` on the device. A tensor frame stays on its
+device, so a captured program (jit.py) reads it from memory instead of
+freezing its value.
 """
 
 from __future__ import annotations
@@ -46,20 +52,37 @@ def premix(counter: int) -> int:
     return (c + _GOLDEN) & _MASK
 
 
+def premix_t(counter: torch.Tensor) -> torch.Tensor:
+    """``premix`` on the device: a 0-d (or any) int64 tensor holding
+    mix(counter) + GOLDEN, bitwise ``premix(int)`` for every u32."""
+    return (mix_u32(counter) + _GOLDEN) & _MASK
+
+
 def hash_combine(a: torch.Tensor, b) -> torch.Tensor:
     """Order-sensitive combine of two u32 streams; ``b`` is a Python int
     or a tensor."""
     if isinstance(b, torch.Tensor):
-        mb = (mix_u32(b) + _GOLDEN) & _MASK
+        mb = premix_t(b)
     else:
         mb = premix(b)
     return mix_u32((a.to(torch.int64) & _MASK) ^ mb)
 
 
-def pixel_seeds(pixel_ids: torch.Tensor, frame: int) -> torch.Tensor:
+def sample_frame(frame, spp: int, s: int):
+    """The RNG frame of sample ``s`` of ``frame``: (frame * spp + s) mod
+    2**32, a Python int for an int frame and a 0-d int64 tensor, computed
+    on its device, for a tensor frame."""
+    if isinstance(frame, torch.Tensor):
+        return (frame.to(torch.int64) * spp + s) & _MASK
+    return (int(frame) * spp + s) & _MASK
+
+
+def pixel_seeds(pixel_ids: torch.Tensor, frame) -> torch.Tensor:
     """Per-pixel base seed for one frame/sample index (kernel_bvh.cl:445,
-    with the frame fully mixed first)."""
-    return hash_combine(pixel_ids, int(frame))
+    with the frame fully mixed first); ``frame`` is an int or a 0-d
+    integer tensor."""
+    return hash_combine(pixel_ids,
+                        frame if isinstance(frame, torch.Tensor) else int(frame))
 
 
 def uniform(seed: torch.Tensor, counter) -> torch.Tensor:

@@ -5,6 +5,13 @@
   render(scene, camera, cfg, frames)         -> accumulated gamma image
   RenderState / accumulate / to_image        -> progressive refinement
 
+``render`` is the JAX package's jitted ``render``: on a CUDA device it
+runs as one captured program of ``frames`` samples, the accumulation and
+the gamma (jit.py), replayed on later calls with the same static
+arguments and shapes. ``render_sample`` and ``render_radiance`` run
+eagerly, as their JAX counterparts are not jitted themselves. A frame is
+an int or a 0-d integer tensor (ops/rng.py).
+
 Progressive accumulation keeps the linear radiance sum and a sample count
 and applies gamma at readout (kernel_bvh.cl:449-455 re-derives the same
 average from a gamma-encoded buffer every frame).
@@ -25,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from . import jit
 from .config import BVHConfig, RenderConfig
 from .models.scene import Camera, Scene
 from .ops import bvh as bvh_mod
@@ -155,11 +163,12 @@ def render_ids(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_ids: torch
     pixels ``pixel_ids`` (flat ids, in any order) at ``frame``, on the
     resolved ``backend``. ``intersectors`` are the (closest, any_hit) of a
     wavefront backend (``make_intersectors``), None on ``mega``. The body
-    of ``render_sample`` and of the sharded paths of parallel/."""
+    of ``render_sample`` and of the sharded paths of parallel/. ``frame``
+    is an int or a 0-d integer tensor on the pixels' device."""
     total = torch.zeros((pixel_ids.shape[0], 3), dtype=cfg.torch_dtype(),
                         device=pixel_ids.device)
     for s in range(cfg.spp):
-        fr = (int(frame) * cfg.spp + s) & 0xFFFFFFFF
+        fr = rng.sample_frame(frame, cfg.spp, s)
         if backend == "mega" and cfg.fused_raygen:
             radiance = mega_mod.trace_paths_mega_cam(scene, cfg, camera,
                                                      pixel_ids, fr, accel=accel)
@@ -176,12 +185,13 @@ def render_ids(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_ids: torch
 
 
 def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig,
-                  frame: int = 0, accel=None, device=None) -> torch.Tensor:
+                  frame=0, accel=None, device=None) -> torch.Tensor:
     """Render one progressive sample -> linear radiance [H, W, 3].
 
-    ``frame`` seeds the per-pixel RNG (the reference's frameCount,
-    kernel_bvh.cl:445). ``device`` defaults to the scene's device; scene
-    and camera are moved there."""
+    ``frame`` (an int, or a 0-d integer tensor on the device) seeds the
+    per-pixel RNG (the reference's frameCount, kernel_bvh.cl:445).
+    ``device`` defaults to the scene's device; scene and camera are moved
+    there."""
     scene, camera, device = _on(scene, camera, device)
     backend = resolve_backend(scene, cfg)
     pixel_ids = _swizzled_ids(cfg, device)
@@ -222,11 +232,34 @@ def _accumulate_frames(scene, camera, cfg, frames, accel, device) -> RenderState
     return state
 
 
+def compiles(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether the entry points run ``scene`` under ``cfg`` as compiled
+    programs on a CUDA device: every backend but ``bvh``, whose LBVH walk
+    is a host loop over the live rays (the JAX walk's ``while_loop`` has
+    no counterpart in a CUDA graph)."""
+    return resolve_backend(scene, cfg) != "bvh"
+
+
+def _render(scene, camera, accel, cfg, frames):
+    return to_image(_accumulate_frames(scene, camera, cfg, frames, accel, None),
+                    cfg.gamma)
+
+
+_render_compiled = jit.jit(_render, static_argnames=("cfg", "frames"))
+
+
 def render(scene: Scene, camera: Camera, cfg: RenderConfig, frames: int = 1,
            accel=None, device=None) -> torch.Tensor:
-    """Render ``frames`` progressive samples -> gamma-encoded [H, W, 3]."""
-    state = _accumulate_frames(scene, camera, cfg, frames, accel, device)
-    return to_image(state, cfg.gamma)
+    """Render ``frames`` progressive samples -> gamma-encoded [H, W, 3].
+
+    On a CUDA device a compiled program (jit.py), keyed by ``cfg``,
+    ``frames`` and the shapes of the scene, camera and accel: the first
+    call runs eagerly and captures, later ones replay; the ``bvh``
+    backend runs eagerly (``compiles``)."""
+    scene, camera, device = _on(scene, camera, device)
+    if not compiles(scene, cfg):
+        return _render(scene, camera, accel, cfg, frames)
+    return _render_compiled(scene, camera, accel, cfg=cfg, frames=frames)
 
 
 def render_radiance(scene: Scene, camera: Camera, cfg: RenderConfig,

@@ -8,10 +8,14 @@ would time the enqueue) and with ``time.perf_counter`` on the CPU.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from ..config import default_device
+from ..jit import flatten, jit
 
 
 def _first_tensor(out) -> Optional[torch.Tensor]:
@@ -70,19 +74,39 @@ def time_fn(f: Callable[..., Any], iters: int = 5, warmup: int = 1) -> float:
     return _median(_seconds(lambda: call(i), cuda) for i in range(iters))
 
 
+def _frames(f: Callable[..., Any], inner: int, base: torch.Tensor, data: Any):
+    tot = None
+    for k in range(inner):
+        fr = (base + k) & 0xFFFFFFFF
+        v = f(fr) if data is None else f(fr, data)
+        tot = v if tot is None else tot + v
+    return tot
+
+
+def _base_device(base, data) -> torch.device:
+    if isinstance(base, torch.Tensor):
+        return base.device
+    leaves, _ = flatten(data)
+    return leaves[0].device if leaves else default_device()
+
+
 def scan_frames(f: Callable[..., Any], inner: int) -> Callable[..., Any]:
     """``inner`` distinct frames of a scalar-returning ``f(frame)`` (or
     ``f(frame, data)``) as one call ``batched(base, data=None)`` that
-    launches frames base, base+1, ... back to back and returns the sum of
-    their scalars (the JAX package folds them into one ``lax.scan``; here
-    they are a Python loop of launches)."""
+    returns the sum of their scalars: the JAX package's ``lax.scan``, here
+    one compiled program (jit.py) of the ``inner`` frames. Frame k is
+    ``base + k`` (mod 2**32), a 0-d int64 tensor computed on the device
+    from one device ``base``, so every call's frames are distinct without
+    a new capture. ``base`` is an int or a 0-d integer tensor; an int goes
+    to the device of ``data``'s tensors (the default device without
+    any)."""
+    program = jit(functools.partial(_frames, f, inner))
+
     def batched(base, data=None):
-        tot = None
-        for k in range(inner):
-            fr = (int(base) + k) & 0xFFFFFFFF
-            v = f(fr) if data is None else f(fr, data)
-            tot = v if tot is None else tot + v
-        return tot
+        if not isinstance(base, torch.Tensor):
+            base = torch.full((), int(base) & 0xFFFFFFFF, dtype=torch.int64,
+                              device=_base_device(base, data))
+        return program(base.to(torch.int64), data)
 
     return batched
 
@@ -90,8 +114,9 @@ def scan_frames(f: Callable[..., Any], inner: int) -> Callable[..., Any]:
 def time_scan_fn(f: Callable[..., Any], inner: int = 8, iters: int = 5,
                  warmup: int = 1, data: Any = None) -> float:
     """Median seconds per FRAME of ``f`` (see ``scan_frames``): each sample
-    times ``inner`` distinct frames launched back to back and divides by
-    ``inner``; distinct bases keep every frame's arguments unique."""
+    times one call of ``inner`` distinct frames (on CUDA a replay of the
+    compiled program) and divides by ``inner``; distinct bases keep every
+    frame's arguments unique."""
     batched = scan_frames(f, inner)
     sec = time_fn(lambda i: batched((7919 * (i + 1)) & 0xFFFFFFFF, data),
                   iters=iters, warmup=warmup)
@@ -101,9 +126,10 @@ def time_scan_fn(f: Callable[..., Any], inner: int = 8, iters: int = 5,
 def time_scan_slope(f: Callable[..., Any], inner_lo: int = 8, inner_hi: int = 40,
                     iters: int = 5, data: Any = None) -> float:
     """Marginal seconds per frame of ``f``: the slope between ``inner_lo``
-    and ``inner_hi`` frames launched back to back, median over ``iters``
-    interleaved (lo, hi) pairs. The constant cost of a call (the first
-    launch's latency, the final synchronisation) cancels."""
+    and ``inner_hi`` frames a call (two compiled programs, replayed),
+    median over ``iters`` interleaved (lo, hi) pairs. The constant cost of
+    a call (the first launch's latency, the final synchronisation)
+    cancels."""
     b_lo, b_hi = scan_frames(f, inner_lo), scan_frames(f, inner_hi)
     cuda = _on_cuda(b_lo(7, data))
     b_hi(11, data)

@@ -5,12 +5,13 @@ parent), each in a fresh process.
 
     python3 scripts/ab_mega.py OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
 
-Per checkout: Cornell 1920x1080 x 9 bounces, defaults; after a warm-up,
-the median of 7 ``render(frames=4)`` calls under ``torch.no_grad()``
+Per checkout: Cornell 1920x1080 x 9 bounces, defaults; after a warm-up
+call of the same key (where ``render`` is compiled, its capture), the
+median of 7 ``render(frames=4)`` calls under ``torch.no_grad()``
 (ms/frame, CUDA events) and of 7 ``grad.loss_and_grads`` steps (ms/step);
 then the forward kernels alone on the main path's state, ``bounce0_fwd``
 (K1) and ``bounce_fwd`` (K2) at bounce 1, by CUDA events over 20
-launches (``chip_smoke.time_ms``); K2 at each bounce 1-8 from the carried
+launches (``chip_smoke.time_ms``), and K1 by device time; K2 at each bounce 1-8 from the carried
 state (the kernels' own outputs) and their sum, K2 at bounce 1 with every
 ray dead and with every ray alive, and the backward wrappers with seeded
 cotangents, ``bounce0_bwd`` at bounce 0 and ``bounce_bwd`` at bounces 1, 4
@@ -58,7 +59,7 @@ def child(root: str) -> None:
         return start.elapsed_time(end) / count
 
     with torch.no_grad():
-        mrt.render(scene, cam, cfg, frames=1)
+        mrt.render(scene, cam, cfg, frames=4)
         fwd = [events(lambda: mrt.render(scene, cam, cfg, frames=4), 4) for _ in range(7)]
     grad.loss_and_grads(scene, cam, cfg, loss_fn)
     step = [events(lambda: grad.loss_and_grads(scene, cam, cfg, loss_fn), 1)
@@ -92,6 +93,8 @@ def kernel_times(torch, mrt, cfg, scene, cam) -> str:
                lambda: mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg), 20),
            "bounce_fwd b1 events": smoke.time_ms(
                lambda: mk.bounce_fwd(table, tris, lv, *s1, 1, cfg), 20)}
+    out["bounce0_fwd device"] = kernel_ms(
+        lambda: mk.bounce0_fwd(table, tris, lv, camv, ids, 0, cfg))
     dead = s1[:3] + (torch.zeros_like(s1[3]), s1[4])
     full = s1[:3] + (torch.ones_like(s1[3]), s1[4])
     out["bounce_fwd b1 every ray dead"] = kernel_ms(

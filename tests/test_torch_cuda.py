@@ -740,3 +740,114 @@ def test_intersect_bvh_on_card():
         limit = torch.full((oo.shape[0],), 8.0, device=dev)
         assert torch.equal(P.occluded_bvh(oo, dd, limit, bvh),
                            P.occluded_brute(oo, dd, limit, scene.geometry))
+
+
+# Compiled programs (jit.py) on the card.
+
+def _update(scene, what: str):
+    """``scene`` with new values of one kind: the diffuse albedos, or one
+    vertex of triangle 5 moved (its accel must be rebuilt)."""
+    if what == "diffuse":
+        m = scene.materials
+        return dataclasses.replace(scene, materials=dataclasses.replace(
+            m, diffuse=m.diffuse * 0.7 + 0.1))
+    g = scene.geometry
+    v0 = g.v0.clone()
+    v0[5] += 0.05
+    return dataclasses.replace(scene, geometry=dataclasses.replace(g, v0=v0))
+
+
+def _compiled_case(name: str, dev):
+    """(scene, accel builder, compiled call, eager call) of a path: each
+    call takes (scene, camera, accel, frame)."""
+    from mini_opencl_raytracer_tpu_torch import grad, jit
+    loss = lambda img: img.mean()
+    if name == "render":
+        cfg = P.RenderConfig(width=256, height=256, bounces=9)
+        return (P.cornell_scene(device=dev), lambda s: P.build_accel(s, cfg),
+                lambda s, c, a, f: P.render(s, c, cfg, frames=2, accel=a),
+                lambda s, c, a, f: P.to_image(P.render_radiance(s, c, cfg, frames=2, accel=a),
+                                              cfg.gamma))
+    if name == "step":
+        cfg = P.RenderConfig(width=256, height=256, bounces=9)
+        step = lambda s, c, a, f: grad.loss_and_grads(s, c, cfg, loss, accel=a)
+        return (P.cornell_scene(device=dev), lambda s: P.build_accel(s, cfg), jit.jit(step),
+                step)
+    cfg = (P.RenderConfig(width=128, height=128, bounces=2) if name == "large scene frame"
+           else P.RenderConfig(width=128, height=128, bounces=9, backend="pallas"))
+    scene = (P.bunny_scene(target_tris=4000, device=dev) if name == "large scene frame"
+             else P.cornell_scene(device=dev))
+    sample = lambda s, c, a, f: P.render_sample(s, c, cfg, frame=f, accel=a)
+    return scene, lambda s: P.build_accel(s, cfg), jit.jit(sample), sample
+
+
+def _counts():
+    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES}
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["render", "step", "large scene frame", "path B frame"])
+def test_compiled_equals_eager_on_card(name):
+    """A compiled call is bitwise the eager call on the same inputs: its
+    first call, replays at other frames, a replay after the diffuse
+    albedos change and one after a vertex moves with the accel rebuilt;
+    N replays launch N times the kernels of one eager call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    dev = torch.device("cuda")
+    scene, accel_of, compiled, eager = _compiled_case(name, dev)
+    cam = P.Camera.default(device=dev)
+    frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+
+    def same(a, b):
+        la, da = jit.flatten(a)
+        lb, db = jit.flatten(b)
+        return da == db and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    accel = accel_of(scene)
+    with torch.no_grad() if name != "step" else torch.enable_grad():
+        for f in (3, 4, 2**32 - 1):
+            got = compiled(scene, cam, accel, frame(f))
+            assert same(got, eager(scene, cam, accel, frame(f))), f"frame {f}"
+        before = _counts()
+        eager(scene, cam, accel, frame(1))
+        one = _since(before)
+        before = _counts()
+        for f in range(3):
+            compiled(scene, cam, accel, frame(f))
+        assert one and _since(before) == {k: 3 * v for k, v in one.items()}
+        for what in ("diffuse", "vertex"):
+            scene = _update(scene, what)
+            accel = accel_of(scene)
+            for f in (5, 6):
+                assert same(compiled(scene, cam, accel, frame(f)),
+                            eager(scene, cam, accel, frame(f))), f"{what}, frame {f}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["step", "large scene frame"])
+def test_eager_path_makes_no_host_sync_on_card(name):
+    """The eager mega step and a large-scene (K6) frame, after one warm-up
+    call, run under torch.cuda.set_sync_debug_mode("error"): no host read
+    and no blocking copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    scene, accel_of, _, eager = _compiled_case(name, dev)
+    cam = P.Camera.default(device=dev)
+    accel = accel_of(scene)
+    f = torch.full((), 9, dtype=torch.int64, device=dev)
+    eager(scene, cam, accel, f)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eager(scene, cam, accel, f)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out is not None

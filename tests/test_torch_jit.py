@@ -1,0 +1,295 @@
+"""The port's compiled programs (jit.py) and tensor frames on the CPU,
+against the JAX package.
+
+On the CPU a compiled call runs its function eagerly, so these tests hold
+what the graphs are built from: a frame given as a 0-d tensor renders
+bitwise what the same int frame renders (seeds and images, on ``mega``,
+``pallas`` through the panel and the cluster traversal, and
+``bruteforce``; spp = 2 across the 2**32 wrap), and the same images as
+JAX's ``jax.jit(render_sample)`` with the frame traced, and JAX's jitted
+``render``, within atol 2e-5 / rtol 1e-4 (as tests/test_torch_render.py:
+the same float32 math in another operation order); ``direct_light`` on
+point, directional and spot lights against JAX's; the key of a compiled
+call; and the tree flattening that copies a call's tensors into a
+graph's inputs. 32x32 with at most 4 bounces. The graphs themselves
+run on the card: tests/test_torch_cuda.py (marked ``cuda``) and
+chip_smoke.py phase 16.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mini_opencl_raytracer_tpu as J
+import mini_opencl_raytracer_tpu_torch as P
+from mini_opencl_raytracer_tpu.models.procedural import bunny_scene as jbunny
+from mini_opencl_raytracer_tpu.ops import lights as jlights
+from mini_opencl_raytracer_tpu.ops import rng as jrng
+from mini_opencl_raytracer_tpu_torch import jit as pjit
+from mini_opencl_raytracer_tpu_torch.ops import lights as plights
+from mini_opencl_raytracer_tpu_torch.ops import rng as prng
+from mini_opencl_raytracer_tpu_torch.utils import metrics
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 2e-5, 1e-4
+CPU = "cpu"
+U32_MAX = 2**32 - 1
+# (frame, spp): 0, 7 and the largest u32 at one sample; spp = 2 from
+# frame 2**31 (samples 2**32 and 2**32 + 1 wrap to 0 and 1) and from the
+# largest u32.
+FRAMES = [(0, 1), (7, 1), (U32_MAX, 1), (2**31, 2), (U32_MAX, 2)]
+# Backends and their scenes: Cornell on the mega kernels' plain versions,
+# on the panel's (pallas, 36 triangles) and on the oracle; the bunny (3880
+# triangles) on the cluster traversal's.
+BACKENDS = [("mega", "cornell", 3), ("pallas", "cornell", 3), ("bruteforce", "cornell", 2),
+            ("pallas", "bunny", 2)]
+
+
+def _arrays(jscene):
+    out = {}
+    for group in ("geometry", "materials", "lights"):
+        obj = getattr(jscene, group)
+        for f in dataclasses.fields(obj):
+            out[f"{group}.{f.name}"] = np.asarray(getattr(obj, f.name))
+    return out
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    out = {}
+    for name, js in (("cornell", J.cornell_scene()), ("bunny", jbunny(target_tris=4000))):
+        out[name] = (js, P.scene_from_numpy(_arrays(js), device=CPU))
+    return out
+
+
+def _cfgs(backend, bounces, spp=1, size=32):
+    kw = dict(width=size, height=size, bounces=bounces, backend=backend, spp=spp)
+    return J.RenderConfig(**kw), P.RenderConfig(**kw)
+
+
+def _frame(f):
+    return torch.tensor(f, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("frame,spp", FRAMES)
+def test_tensor_frame_seeds_bitwise(frame, spp):
+    """Seeds of a tensor frame equal the int frame's and JAX's uint32
+    arithmetic, sample by sample; premix_t equals premix."""
+    pix = np.arange(512, dtype=np.uint32)
+    tpix = torch.from_numpy(pix.astype(np.int64))
+    for s in range(spp):
+        fr_int = prng.sample_frame(frame, spp, s)
+        fr_t = prng.sample_frame(_frame(frame), spp, s)
+        assert fr_t.dim() == 0 and int(fr_t) == fr_int
+        jfr = jnp.uint32(frame) * jnp.uint32(spp) + jnp.uint32(s)
+        assert int(jfr) == fr_int
+        assert int(prng.premix_t(fr_t)) == prng.premix(fr_int)
+        got = prng.pixel_seeds(tpix, fr_t)
+        assert torch.equal(got, prng.pixel_seeds(tpix, fr_int))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jrng.pixel_seeds(jnp.asarray(pix), jfr))
+                                      .astype(np.int64))
+
+
+@pytest.mark.parametrize("backend,scene,bounces", BACKENDS)
+@pytest.mark.parametrize("frame,spp", FRAMES)
+def test_tensor_frame_image_bitwise(scenes, backend, scene, bounces, frame, spp):
+    """render_sample at a tensor frame is bitwise the int frame's image."""
+    _, ps = scenes[scene]
+    _, pc = _cfgs(backend, bounces, spp)
+    cam = P.Camera.default(device=CPU)
+    ref = P.render_sample(ps, cam, pc, frame=frame)
+    got = P.render_sample(ps, cam, pc, frame=_frame(frame))
+    assert torch.equal(got, ref)
+
+
+@pytest.fixture(scope="module")
+def jax_samples(scenes):
+    """jax.jit(render_sample) with the frame as a traced argument, one
+    executable per (backend, scene, spp)."""
+    cache = {}
+
+    def get(backend, scene, bounces, spp):
+        key = (backend, scene, spp)
+        if key not in cache:
+            js = scenes[scene][0]
+            jc, _ = _cfgs(backend, bounces, spp)
+            cache[key] = jax.jit(lambda f: J.render_sample(js, J.Camera.default(), jc,
+                                                           frame=f))
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("backend,scene,bounces", BACKENDS)
+@pytest.mark.parametrize("frame,spp", [(7, 1), (U32_MAX, 1), (2**31, 2)])
+def test_tensor_frame_matches_jax_jit(scenes, jax_samples, backend, scene, bounces, frame,
+                                      spp):
+    _, ps = scenes[scene]
+    _, pc = _cfgs(backend, bounces, spp)
+    ref = np.asarray(jax_samples(backend, scene, bounces, spp)(jnp.uint32(frame)))
+    got = P.render_sample(ps, P.Camera.default(device=CPU), pc, frame=_frame(frame))
+    assert got.shape == (32, 32, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("backend,bounces", [("mega", 4), ("pallas", 3)])
+def test_render_frames_matches_jax_render(scenes, backend, bounces):
+    """render(frames=3), the compiled entry point (eager on the CPU),
+    against JAX's jitted render."""
+    js, ps = scenes["cornell"]
+    jc, pc = _cfgs(backend, bounces)
+    ref = np.asarray(J.render(js, J.Camera.default(), jc, frames=3))
+    got = P.render(ps, P.Camera.default(device=CPU), pc, frames=3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def _mixed_lights(lib, rs):
+    """A point, a directional and a spot light, then a second point: numpy
+    values from ``rs``, built with ``lib`` (J or P)."""
+    kinds = np.array([P.LIGHT_POINT, P.LIGHT_DIRECTIONAL, P.LIGHT_SPOT, P.LIGHT_POINT],
+                     np.int32)
+    n = len(kinds)
+    vals = dict(position=rs.uniform(-8.0, 16.0, (n, 3)), direction=rs.normal(size=(n, 3)),
+                light_type=kinds, intensity=rs.uniform(2.0, 16.0, n),
+                attenuation=rs.uniform(0.05, 0.8, n), cos_cutoff=rs.uniform(0.5, 0.95, n))
+    vals = {k: v if k == "light_type" else v.astype(np.float32) for k, v in vals.items()}
+    if lib is J:
+        return J.Lights(**{k: jnp.asarray(v) for k, v in vals.items()})
+    return P.Lights(**{k: torch.from_numpy(v) for k, v in vals.items()})
+
+
+@pytest.mark.parametrize("direct_specular", [False, True])
+def test_direct_light_mixed_types_matches_jax(direct_specular):
+    rs = np.random.default_rng(21)
+    R = 2048
+    pos = rs.uniform(-8.0, 8.0, (R, 3)).astype(np.float32)
+    nrm = rs.normal(size=(R, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    wo = rs.normal(size=(R, 3)).astype(np.float32)
+    wo /= np.linalg.norm(wo, axis=1, keepdims=True)
+    ns = rs.uniform(1.0, 200.0, R).astype(np.float32)
+    jl = _mixed_lights(J, np.random.default_rng(5))
+    pl = _mixed_lights(P, np.random.default_rng(5))
+    ref = jlights.direct_light(jl, *(jnp.asarray(a) for a in (pos, nrm, wo, ns)),
+                               direct_specular=direct_specular)
+    got = plights.direct_light(pl, *(torch.from_numpy(a) for a in (pos, nrm, wo, ns)),
+                               direct_specular=direct_specular)
+    for name in ("diffuse_weight", "specular_weight"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                   atol=ATOL, rtol=RTOL)
+    assert got.diffuse_weight.abs().max() > 0
+    assert (got.specular_weight.abs().max() > 0) == direct_specular
+
+
+def test_light_types_read_once_and_after_a_change(monkeypatch):
+    """light_types reads a tensor once, and again after an in-place change."""
+    lights = _mixed_lights(P, np.random.default_rng(1))
+    assert plights.light_types(lights) == (1, 0, 2, 1)
+    reads = []
+    real = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist", lambda t: reads.append(1) or real(t))
+    assert plights.light_types(lights) == (1, 0, 2, 1) and not reads
+    lights.light_type[1] = P.LIGHT_SPOT
+    assert plights.light_types(lights) == (1, 2, 2, 1) and len(reads) == 1
+
+
+def _program(scene, camera, accel, cfg):
+    return P.render_sample(scene, camera, cfg, accel=accel)
+
+
+def test_jit_key_follows_static_args_shapes_and_light_types(scenes):
+    """The key changes with cfg, the triangle count and the light types,
+    and not with the leaves' values."""
+    prog = pjit.jit(_program, static_argnames=("cfg",))
+    cornell, bunny = scenes["cornell"][1], scenes["bunny"][1]
+    cam = P.Camera.default(device=CPU)
+    cfg = P.RenderConfig(width=32, height=32, bounces=2)
+    key = prog.key(cornell, cam, None, cfg)[0]
+    assert prog.key(cornell, cam, None, cfg)[0] == key
+    moved = dataclasses.replace(cornell, geometry=dataclasses.replace(
+        cornell.geometry, v0=cornell.geometry.v0 + 1.0))
+    brighter = dataclasses.replace(cornell, materials=dataclasses.replace(
+        cornell.materials, diffuse=cornell.materials.diffuse * 0.5))
+    assert prog.key(moved, cam, None, cfg)[0] == key
+    assert prog.key(brighter, P.Camera.default(device=CPU), None, cfg)[0] == key
+    assert prog.key(cornell, cam, None, dataclasses.replace(cfg, bounces=3))[0] != key
+    assert prog.key(bunny, cam, None, cfg)[0] != key
+    spot = dataclasses.replace(cornell, lights=dataclasses.replace(
+        cornell.lights, light_type=torch.full_like(cornell.lights.light_type, P.LIGHT_SPOT)))
+    assert prog.key(spot, cam, None, cfg)[0] != key
+    # An accel tensor's shape is part of the key; its values are not.
+    tris = P.build_accel(cornell, P.RenderConfig(backend="mega"))
+    with_accel = prog.key(cornell, cam, tris, cfg)[0]
+    assert with_accel != key and prog.key(cornell, cam, tris * 2.0, cfg)[0] == with_accel
+
+
+def _same_tree(a, b):
+    if isinstance(a, torch.Tensor):
+        return a is b
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same_tree(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_same_tree(a[k], b[k]) for k in a)
+    return a == b
+
+
+@pytest.mark.parametrize("accel", ["none", "mega", "clustered", "bvh"])
+def test_flatten_roundtrip_is_identity(scenes, accel):
+    """A (scene, camera, accel, frame) tree flattened into leaves and back
+    is the same tree, every tensor in its place."""
+    cornell, bunny = scenes["cornell"][1], scenes["bunny"][1]
+    scene = bunny if accel == "clustered" else cornell
+    acc = {"none": None,
+           "mega": P.build_accel(cornell, P.RenderConfig(backend="mega")),
+           "clustered": P.build_accel(bunny, P.RenderConfig()),
+           "bvh": P.build_bvh(cornell.geometry)}[accel]
+    tree = {"scene": scene, "camera": P.Camera.default(device=CPU), "accel": acc,
+            "frame": _frame(3), "pair": (1, "x")}
+    leaves, treedef = pjit.flatten(tree)
+    assert all(isinstance(t, torch.Tensor) for t in leaves)
+    assert _same_tree(pjit.unflatten(treedef, leaves), tree)
+    assert pjit.flatten(pjit.unflatten(treedef, leaves))[1] == treedef
+    hash(treedef)
+
+
+def test_compiled_call_on_the_cpu_runs_eagerly():
+    """On the CPU a compiled call runs its function every time; arguments
+    on two devices, or none, raise."""
+    calls = []
+
+    def fn(x, k):
+        calls.append(k)
+        return x * k
+
+    prog = pjit.jit(fn, static_argnames=("k",))
+    x = torch.arange(4.0)
+    assert torch.equal(prog(x, 2), x * 2) and torch.equal(prog(x, k=3), x * 3)
+    assert calls == [2, 3]
+    with pytest.raises(ValueError, match="one device"):
+        pjit.jit(lambda a: a)(1)
+    with pytest.raises(ValueError, match="not parameters"):
+        pjit.jit(fn, static_argnames=("y",))
+
+
+def test_scan_frames_frames_are_base_plus_k():
+    """scan_frames' frames are base, base + 1, ... (mod 2**32), as 0-d
+    int64 tensors, and the call returns the sum of f's scalars."""
+    seen = []
+
+    def f(fr, data):
+        seen.append(fr)
+        return data * fr
+
+    out = metrics.scan_frames(f, 3)(U32_MAX, torch.ones(()))
+    assert [int(x) for x in seen] == [U32_MAX, 0, 1]
+    assert all(x.dtype == torch.int64 and x.dim() == 0 for x in seen)
+    assert float(out) == float(U32_MAX + 1)
