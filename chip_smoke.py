@@ -105,13 +105,17 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    512x512 x 9 (K1-K4; the loss falls, every step finite); ``cli render
    --backend pallas`` at 512x512 x 9 (K5) against mega (PFM); the bunny
    written as an OBJ (``load_scene`` timed), ``cli render`` at config 3
-   (K6) against the in-process render of ``bunny_scene()``; the LBVH
-   (``backend="bvh"``, plain PyTorch): ``build_bvh`` on both scenes,
-   ``intersect_bvh`` / ``occluded_bvh`` on primary, bounce-1 and shadow
-   rays against the brute-force oracle (Cornell, 512x512) and K6 (bunny,
-   256x256),
-   and ``render(backend="bvh")`` of Cornell at 512x512 x 4 against mega,
-   with ms/frame beside mega's;
+   (K6) against the in-process render of ``bunny_scene()`` (optimize,
+   pallas and the bunny run beside render and resume, benchmark alone);
+   the LBVH
+   (``backend="bvh"``): ``build_bvh`` on both scenes, the walk kernel
+   (csrc/bvh.cu) bitwise against its plain version (``walk_plain``) on
+   primary, bounce-1, shadow and shared-edge rays, with both times, its
+   M-T tests per ray and its bound; ``intersect_bvh`` / ``occluded_bvh``
+   against the brute-force oracle (Cornell, 512x512) and K6 (bunny,
+   256x256); and ``render(backend="bvh")`` of Cornell at 512x512 x 4
+   against mega, its image on the plain walk bitwise the kernel's, with
+   ms/frame compiled, on the plain walk, and mega's;
 15. the parallel paths (``parallel/``). 15a, an NCCL group of one rank in
    this process (a file store under ``build/``): ``render_sample_dp`` of
    Cornell 1920x1080 x 9 against ``render_sample`` (bitwise, or within the
@@ -135,13 +139,25 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    x 9, default capacity and capacity 4, K5), each against the
    single-device render. Each rank checks and logs its launches of K1-K6,
    ms per call and the bytes it hands to each collective; the times of
-   15b are gloo staging through host memory on one shared card;
+   15b are gloo staging through host memory on one shared card, and each
+   entry point runs eagerly there by jit's rule (gloo on CUDA), as the
+   ranks say on stderr. 15a also runs each of the six entry points
+   compiled (a CUDA graph over the NCCL group) against the same call under
+   ``jit.disable_jit()`` (``compiled_against_eager``): dp and
+   ``train_step_dp`` (buckets 1 and 4) at Cornell 1080p x 9, ring and
+   all-to-all at tp=1 on the bunny at config 3, pp at pp=1 (Cornell
+   512x512 x 8, 2 microbatches) and ep at ep=1 (Cornell 512x512 x 9), bitwise at an int
+   frame, a tensor frame and after a material update, the launches and
+   collective bytes of 3 replays equal to 3 eager calls', five pairs in
+   turns by CUDA events and one profiled call each; pp and ep against the
+   single-device render; and a capture that fails under NCCL raises;
 16. the compiled programs (jit.py: CUDA graphs, the JAX package's
    ``jax.jit``): the eager main step and config 3 frame under
    ``torch.cuda.set_sync_debug_mode("error")``; ``render`` on mega (Cornell 1920x1080 x 9, 4 frames),
    the training step (``jit`` of ``loss_and_grads``: loss and every float
    leaf's gradient), a config 3 frame (K6), a path B frame (K5) and
-   ``scan_frames`` of 8 frames, each bitwise equal to the eager call on
+   ``scan_frames`` of 8 frames and ``render(backend="bvh")`` (Cornell
+   512x512 x 4, the walk kernel), each bitwise equal to the eager call on
    the same inputs at several tensor frames and after a material update,
    with the launches of 3 replays equal to 3 eager calls'; ms/frame or
    ms/step compiled against eager in five pairs in turns (CUDA events),
@@ -164,20 +180,26 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
 
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
-KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered")
+KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
+           "bvh_walk")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
-           "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu"}
+           "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
+           "bvh_walk": _CSRC + "bvh.cu"}
+# The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
+# a jnp while_loop.
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
             "bounce0_bwd": _TPU + "megakernel.py:1173", "bounce_bwd": _TPU + "megakernel.py:1329",
-            "panel": _TPU + "panel.py:83", "clustered": _TPU + "clustered.py:350"}
+            "panel": _TPU + "panel.py:83", "clustered": _TPU + "clustered.py:350",
+            "bvh_walk": "mini_opencl_raytracer_tpu/ops/bvh.py:173 _intersect_one"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -442,43 +464,9 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def wavefront_rays(mrt, torch, scene, cam, cfg, closest, any_hit):
-    """The rays the wavefront integrator hands its intersector in a
-    render_sample of ``cfg`` (frame 0): primary rays in tile order; the
-    bounce-1 rays of the live paths in that order and coherence-sorted as
-    ops/integrator sorts them; the shadow rays of the primary hits toward
-    light 0 (origin, direction, t_limit)."""
-    from mini_opencl_raytracer_tpu_torch.ops import integrator, rng
-    from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
-    from mini_opencl_raytracer_tpu_torch.ops.shading import (build_shading_table,
-                                                              hit_attributes)
-    from mini_opencl_raytracer_tpu_torch.render import _render_compiled, _swizzled_ids
-    dev = cam.position.device
-    pid = _swizzled_ids(cfg, dev)
-    seeds = rng.pixel_seeds(pid, 0)
-    o, d = generate_rays(cam, cfg, pid, seeds)
-    o = o.contiguous()
-    R = o.shape[0]
-    with torch.no_grad():
-        step = integrator.make_bounce_core(scene, cfg, closest, any_hit)
-        o1, d1, _, _, alive, _ = step((o, d, torch.ones_like(o), torch.zeros_like(o),
-                                       torch.ones((R,), dtype=torch.bool, device=dev),
-                                       seeds), 0)
-        o1, d1 = o1[alive].contiguous(), d1[alive].contiguous()
-        g = scene.geometry
-        pts = torch.cat([g.v0, g.v1, g.v2])
-        keys = integrator._ray_sort_keys(o1, d1, pts.amin(0), pts.amax(0))
-        perm = torch.sort(keys, stable=True).indices
-        h = closest(o, d)
-        at = hit_attributes(o, d, h, build_shading_table(g, scene.materials))
-        pos = at.pos[h.hit]
-        to_l = scene.lights.position[0] - pos
-        dist = torch.linalg.norm(to_l, dim=1)
-        l_unit = (to_l / dist[:, None]).contiguous()
-        shadow = ((pos + l_unit * cfg.ray_epsilon).contiguous(), l_unit,
-                  (dist - 2.0 * cfg.ray_epsilon).contiguous())
-    return {"primary": (o, d.contiguous()), "bounce1": (o1, d1),
-            "bounce1_sorted": (o1[perm].contiguous(), d1[perm].contiguous()),
-            "shadow": shadow}
+    """ops/cuda/parity.wavefront_rays (the signature the scripts call)."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
+    return parity.wavefront_rays(scene, cam, cfg, closest, any_hit)
 
 
 def hit_pairs(torch, tris, o, d, limit, cull: bool, live=None) -> int:
@@ -651,21 +639,37 @@ finally:
 """
 
 
-def cli_run(args, timeout: int = 600):
-    """``python -m mini_opencl_raytracer_tpu_torch.cli ARGS`` from the repo
-    root in a subprocess: (stdout, stderr, launch counts, seconds).
-    Raises unless it exits 0."""
+def cli_start(args):
+    """Start ``python -m mini_opencl_raytracer_tpu_torch.cli ARGS`` from the
+    repo root in a subprocess; ``cli_finish`` waits for it."""
     import os
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", _CLI_RUNNER] + [str(a) for a in args],
-                       capture_output=True, text=True, timeout=timeout,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    return (args, time.perf_counter(),
+            subprocess.Popen([sys.executable, "-c", _CLI_RUNNER] + [str(a) for a in args],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__))))
+
+
+def cli_finish(run, timeout: int = 600):
+    """(stdout, stderr, launch counts, seconds) of a ``cli_start``ed run.
+    Raises unless it exits 0 within ``timeout`` s (killing it if not)."""
+    args, t0, proc = run
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     sec = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise AssertionError(f"cli {' '.join(map(str, args))} exited {r.returncode}:\n"
-                             f"{r.stderr[-3000:]}")
-    line = [ln for ln in r.stderr.splitlines() if ln.startswith("LAUNCHES ")][-1]
-    return r.stdout, r.stderr, json.loads(line[len("LAUNCHES "):]), sec
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(map(str, args))} exited {proc.returncode}:\n"
+                             f"{err[-3000:]}")
+    line = [ln for ln in err.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    return out, err, json.loads(line[len("LAUNCHES "):]), sec
+
+
+def cli_run(args, timeout: int = 600):
+    """``cli_start`` then ``cli_finish``."""
+    return cli_finish(cli_start(args), timeout)
 
 
 def expect_launches(label: str, counts: dict, want: dict) -> None:
@@ -765,11 +769,14 @@ def leaf_diff(torch, a, b) -> float:
     return worst
 
 
-def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
-    """The shell on the card (module docstring, phase 14)."""
+def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> dict:
+    """The shell on the card (module docstring, phase 14). Returns the
+    walk kernel's row: its ms, the plain walk's, its bound, its error."""
     import os
     import tempfile
     from mini_opencl_raytracer_tpu_torch.models import objloader
+    from mini_opencl_raytracer_tpu_torch.ops import bvh as pbvh
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as bvh_k
     from mini_opencl_raytracer_tpu_torch.utils import checkpoint as ckpt
     from mini_opencl_raytracer_tpu_torch.utils.image import to_uint8
     t_phase = time.perf_counter()
@@ -794,40 +801,105 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
         if not (diff <= 1e-5 and native_py == 0.0):
             raise AssertionError("the Cornell OBJ does not load as cornell_scene()")
 
-        # 14.2 cli render 1080p x 9, 4 frames, checkpoint; resume 4 more.
-        cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
-        args = ["render", "--scene", obj, "--width", 1920, "--height", 1080, "--bounces", 9,
-                "--device", "cuda"]
-        _, _, n1, s1 = cli_run(args + ["--frames", 4, "--checkpoint", at("st.npz"),
-                                       "--out", at("four.png")])
-        _, err2, n2, s2 = cli_run(args + ["--frames", 4, "--resume", at("st.npz"),
-                                          "--checkpoint", at("st8.npz"), "--out", at("eight.npy")])
-        for label, n in (("render", n1), ("render --resume", n2)):
-            expect_launches(label, n, {"bounce0_fwd": 4, "bounce_fwd": 32})
-        if "resumed at 4 samples" not in err2:
-            raise AssertionError(f"cli render --resume: {err2[-500:]}")
-        with torch.no_grad():
-            four = mrt.render(scene, cam, cfg, frames=4)
-            eight = mrt.render(scene, cam, cfg, frames=8)
-        import numpy as np
-        got8 = torch.from_numpy(np.load(at("eight.npy"))).to(dev)
-        state = ckpt.load_render_state(at("st8.npz"), mrt.RenderState.create(cfg, dev))
-        png = read_png(torch, at("four.png"))
-        third = cfg.width // 3
-        left, right = got8[:, :third].mean((0, 1)), got8[:, -third:].mean((0, 1))
-        log(f"[14 shell] cli render 1920x1080x9: 4 frames {s1:.1f} s, --resume 4 more "
-            f"{s2:.1f} s (process, CUDA init and library load included); launches {n2}; "
-            f"resumed image bitwise equal to render(frames=8): {torch.equal(got8, eight)}; "
-            f"checkpoint {state.num_samples} samples; PNG {tuple(png.shape)} equal to the "
-            f"4-frame image's bytes: {torch.equal(png, torch.from_numpy(to_uint8(four)))}; "
-            f"left third rgb {left.tolist()}, right third rgb {right.tolist()}")
-        if not (torch.equal(got8, eight) and state.num_samples == 8
-                and torch.equal(png, torch.from_numpy(to_uint8(four)))
-                and tuple(got8.shape) == (1080, 1920, 3) and bool(torch.isfinite(got8).all())
-                and left[0] > left[1] and right[1] > right[0]):
-            raise AssertionError("cli render / resume disagrees with the in-process render")
+        # Three CLI runs that wait for nothing, started together: optimize
+        # (14.4), render --backend pallas (14.5), the bunny as an OBJ (14.6).
+        bunny = mrt.bunny_scene(device=dev)
+        bobj, _ = write_scene_obj(bunny, tmp, "bunny")
+        runs = {"optimize": cli_start(["optimize", "--steps", 10, "--lr", 0.1, "--device",
+                                       "cuda"]),
+                "pallas": cli_start(["render", "--scene", obj, "--width", 512, "--height", 512,
+                                     "--frames", 1, "--backend", "pallas", "--out",
+                                     at("p.pfm"), "--device", "cuda"]),
+                "bunny": cli_start(["render", "--scene", bobj, "--width", 512, "--height", 512,
+                                    "--bounces", 2, "--frames", 4, "--out", at("bunny.npy"),
+                                    "--device", "cuda"])}
 
-        # 14.3 cli benchmark 1080p x 9 with occupancy.
+        try:
+            # 14.2 cli render 1080p x 9, 4 frames, checkpoint; resume 4 more
+            # (the optimize, pallas and bunny runs below go on beside it).
+            cfg = mrt.RenderConfig(width=1920, height=1080, bounces=9)
+            args = ["render", "--scene", obj, "--width", 1920, "--height", 1080, "--bounces", 9,
+                    "--device", "cuda"]
+            _, _, n1, s1 = cli_run(args + ["--frames", 4, "--checkpoint", at("st.npz"),
+                                           "--out", at("four.png")])
+            _, err2, n2, s2 = cli_run(args + ["--frames", 4, "--resume", at("st.npz"),
+                                              "--checkpoint", at("st8.npz"),
+                                              "--out", at("eight.npy")])
+            for label, n in (("render", n1), ("render --resume", n2)):
+                expect_launches(label, n, {"bounce0_fwd": 4, "bounce_fwd": 32})
+            if "resumed at 4 samples" not in err2:
+                raise AssertionError(f"cli render --resume: {err2[-500:]}")
+            with torch.no_grad():
+                four = mrt.render(scene, cam, cfg, frames=4)
+                eight = mrt.render(scene, cam, cfg, frames=8)
+            import numpy as np
+            got8 = torch.from_numpy(np.load(at("eight.npy"))).to(dev)
+            state = ckpt.load_render_state(at("st8.npz"), mrt.RenderState.create(cfg, dev))
+            png = read_png(torch, at("four.png"))
+            third = cfg.width // 3
+            left, right = got8[:, :third].mean((0, 1)), got8[:, -third:].mean((0, 1))
+            log(f"[14 shell] cli render 1920x1080x9: 4 frames {s1:.1f} s, --resume 4 more "
+                f"{s2:.1f} s (process, CUDA init and library load included, beside three other "
+                f"CLI processes); launches {n2}; "
+                f"resumed image bitwise equal to render(frames=8): {torch.equal(got8, eight)}; "
+                f"checkpoint {state.num_samples} samples; PNG {tuple(png.shape)} equal to the "
+                f"4-frame image's bytes: {torch.equal(png, torch.from_numpy(to_uint8(four)))}; "
+                f"left third rgb {left.tolist()}, right third rgb {right.tolist()}")
+            if not (torch.equal(got8, eight) and state.num_samples == 8
+                    and torch.equal(png, torch.from_numpy(to_uint8(four)))
+                    and tuple(got8.shape) == (1080, 1920, 3) and bool(torch.isfinite(got8).all())
+                    and left[0] > left[1] and right[1] > right[0]):
+                raise AssertionError("cli render / resume disagrees with the in-process render")
+
+            # 14.4 cli optimize, 10 steps at 512x512 x 9 through K1-K4.
+            out, err, n4, s4 = cli_finish(runs["optimize"])
+            losses = [float(ln.split()[-1]) for ln in err.splitlines() if ln.startswith("step ")]
+            res = json.loads(out.strip().splitlines()[-1])
+            log(f"[14 shell] cli optimize 512x512x9 --steps 10 --lr 0.1 ({s4:.1f} s): losses "
+                f"{losses}; {res}; launches {n4}")
+            expect_launches("optimize", n4, {"bounce0_fwd": 11, "bounce_fwd": 88,
+                                             "bounce0_bwd": 10, "bounce_bwd": 80})
+            if not (len(losses) == 10 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                    and np.isfinite(res["final_loss"])):
+                raise AssertionError(f"cli optimize: the loss did not fall: {losses}")
+
+            # 14.5 cli render --backend pallas (K5) against mega.
+            cfg5 = mrt.RenderConfig(width=512, height=512, bounces=9)
+            _, _, n5, s5 = cli_finish(runs["pallas"])
+            expect_launches("render --backend pallas", n5, {"panel_closest": 9})
+            lin = read_pfm(torch, at("p.pfm")).to(dev)
+            with torch.no_grad():
+                mega = mrt.render_radiance(scene, cam, cfg5, frames=1)
+            log(f"[14 shell] cli render --backend pallas 512x512x9 ({s5:.1f} s, launches {n5}) "
+                "vs mega in process")
+            log_stats("radiance", {"radiance": parity.check_float("cli pallas vs mega", lin, mega)})
+
+            # 14.6 The bunny as an OBJ through K6.
+            _, _, n6, s6 = cli_finish(runs["bunny"])
+            t0 = time.perf_counter()
+            bscene = mrt.load_scene(bobj, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            bdiff = leaf_diff(torch, bscene, bunny)
+            cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+            expect_launches("render bunny", n6, {"clustered_closest": 8})
+            got = torch.from_numpy(np.load(at("bunny.npy"))).to(dev)
+            with torch.no_grad():
+                ref = mrt.render(bunny, cam, cfg3, frames=4, accel=mrt.build_accel(bunny, cfg3))
+            log(f"[14 shell] bunny OBJ ({os.path.getsize(bobj) / 2**20:.1f} MiB): load_scene "
+                f"{bscene.num_triangles} triangles in {t_load:.3f} s (native parser); max |leaf - "
+                f"bunny_scene()| {bdiff:.1e}; cli render config 3, 4 frames ({s6:.1f} s, launches "
+                f"{n6}) vs render of bunny_scene() in process: bitwise {torch.equal(got, ref)}")
+            log_stats("image", {"image": parity.check_float("cli bunny vs in process", got, ref)})
+            if bscene.num_triangles != bunny.num_triangles or bdiff != 0.0:
+                raise AssertionError("the bunny OBJ does not load as bunny_scene()")
+        finally:
+            for _, _, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+        # 14.3 cli benchmark 1080p x 9 with occupancy, alone on the card.
         out, _, n3, s3 = cli_run(["benchmark", "--scene", obj, "--width", 1920, "--height",
                                   1080, "--bounces", 9, "--occupancy", "--device", "cuda"])
         bench = json.loads(out.strip().splitlines()[-1])
@@ -843,62 +915,13 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
                 and all(b <= a for a, b in zip(occ, occ[1:]))):
             raise AssertionError(f"cli benchmark: {bench}")
 
-        # 14.4 cli optimize, 10 steps at 512x512 x 9 through K1-K4.
-        out, err, n4, s4 = cli_run(["optimize", "--steps", 10, "--lr", 0.1, "--device",
-                                    "cuda"])
-        losses = [float(ln.split()[-1]) for ln in err.splitlines() if ln.startswith("step ")]
-        res = json.loads(out.strip().splitlines()[-1])
-        log(f"[14 shell] cli optimize 512x512x9 --steps 10 --lr 0.1 ({s4:.1f} s): losses "
-            f"{losses}; {res}; launches {n4}")
-        expect_launches("optimize", n4, {"bounce0_fwd": 11, "bounce_fwd": 88,
-                                         "bounce0_bwd": 10, "bounce_bwd": 80})
-        if not (len(losses) == 10 and all(np.isfinite(losses)) and losses[-1] < losses[0]
-                and np.isfinite(res["final_loss"])):
-            raise AssertionError(f"cli optimize: the loss did not fall: {losses}")
-
-        # 14.5 cli render --backend pallas (K5) against mega.
-        cfg5 = mrt.RenderConfig(width=512, height=512, bounces=9)
-        _, _, n5, s5 = cli_run(["render", "--scene", obj, "--width", 512, "--height", 512,
-                                "--frames", 1, "--backend", "pallas", "--out", at("p.pfm"),
-                                "--device", "cuda"])
-        expect_launches("render --backend pallas", n5, {"panel_closest": 9})
-        lin = read_pfm(torch, at("p.pfm")).to(dev)
-        with torch.no_grad():
-            mega = mrt.render_radiance(scene, cam, cfg5, frames=1)
-        log(f"[14 shell] cli render --backend pallas 512x512x9 ({s5:.1f} s, launches {n5}) "
-            "vs mega in process")
-        log_stats("radiance", {"radiance": parity.check_float("cli pallas vs mega", lin, mega)})
-
-        # 14.6 The bunny as an OBJ through K6.
-        bunny = mrt.bunny_scene(device=dev)
-        bobj, _ = write_scene_obj(bunny, tmp, "bunny")
-        t0 = time.perf_counter()
-        bscene = mrt.load_scene(bobj, device=dev)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        bdiff = leaf_diff(torch, bscene, bunny)
-        cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
-        _, _, n6, s6 = cli_run(["render", "--scene", bobj, "--width", 512, "--height", 512,
-                                "--bounces", 2, "--frames", 4, "--out", at("bunny.npy"),
-                                "--device", "cuda"])
-        expect_launches("render bunny", n6, {"clustered_closest": 8})
-        got = torch.from_numpy(np.load(at("bunny.npy"))).to(dev)
-        with torch.no_grad():
-            ref = mrt.render(bunny, cam, cfg3, frames=4, accel=mrt.build_accel(bunny, cfg3))
-        log(f"[14 shell] bunny OBJ ({os.path.getsize(bobj) / 2**20:.1f} MiB): load_scene "
-            f"{bscene.num_triangles} triangles in {t_load:.3f} s (native parser); max |leaf - "
-            f"bunny_scene()| {bdiff:.1e}; cli render config 3, 4 frames ({s6:.1f} s, launches "
-            f"{n6}) vs render of bunny_scene() in process: bitwise {torch.equal(got, ref)}")
-        log_stats("image", {"image": parity.check_float("cli bunny vs in process", got, ref)})
-        if bscene.num_triangles != bunny.num_triangles or bdiff != 0.0:
-            raise AssertionError("the bunny OBJ does not load as bunny_scene()")
-
-        # 14.7 The LBVH (plain PyTorch) against the oracle and K6.
-        # The walk is host-bound (dozens of small launches a step, a step
-        # per node popped: up to ~15 on Cornell, hundreds on the bunny),
-        # so the bunny's rays are 256x256 to keep the phase short.
+        # 14.7 The LBVH walk kernel against its plain version (bitwise),
+        # and through intersect_bvh against the oracle (Cornell) and K6
+        # (the bunny; its rays are 256x256, as the plain walk is a host loop
+        # of a step per node popped, hundreds on the bunny).
         cfg_r = mrt.RenderConfig(width=512, height=512, bounces=4)
         acc_b = mrt.build_accel(bunny, cfg3)
+        row = {"max_abs_err": 0.0}
         for label, sc, cfg_w, ref_fns in (
                 ("Cornell OBJ", scene, cfg_r, mrt.make_intersectors(
                     scene, dataclasses.replace(cfg_r, backend="bruteforce"))),
@@ -910,56 +933,102 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> None:
             torch.cuda.synchronize()
             t_build = time.perf_counter() - t0
             rays = wavefront_rays(mrt, torch, sc, cam, cfg_w, *ref_fns)
+            full = lambda o: torch.full((o.shape[0],), cfg_w.t_max, device=dev)
+            sets = {kind: rays[kind] + (full(rays[kind][0]),) for kind in ("primary", "bounce1")}
+            o_e, d_e = parity.shared_edge_rays(sc.geometry)
+            sets.update({"shared edges": (o_e, d_e, full(o_e)), "shadow": rays["shadow"]})
+            log(f"[14 shell] build_bvh {label}: {sc.num_triangles} triangles, {b.num_leaves} "
+                f"leaves, depth {b.depth}, {t_build:.3f} s")
+            for kind, (o, d, ti) in sets.items():
+                stats = torch.zeros(o.shape[0], dtype=torch.int64, device=dev)
+                out = {}
+                p_ms = events_ms(lambda: out.update(ref=pbvh.walk_plain(o, d, ti, b, False,
+                                                                         stats=stats)))
+                got = bvh_k.walk(o, d, ti, b)
+                torch.cuda.synchronize()
+                ref = out["ref"]
+                if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                    bad = int(((got[0] != ref[0]) | (got[1] != ref[1])).sum().item())
+                    raise AssertionError(f"bvh_walk {label} {kind}: (t, slot) differ from "
+                                         f"the plain walk's on {bad} rays")
+                k_ms = time_ms(lambda: bvh_k.walk(o, d, ti, b), 20)
+                # Bytes: each ray's o, d, t_init in and t, slot out; the tree
+                # once (24-byte node boxes, 36-byte slot corners).
+                # Operations: 45 flops for each M-T test the walk runs.
+                tests = int(stats.sum().item())
+                bd = bound(o.shape[0] * 40 + b.num_nodes * 24 + b.pv0.shape[0] * 36,
+                           tests * MT_FLOPS)
+                log(f"[14 bvh] walk kernel {label} {kind} ({o.shape[0]} rays): (t, slot) "
+                    f"bitwise the plain walk's, hit {(got[0] < ti).float().mean().item():.4f}; "
+                    f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; {tests / o.shape[0]:.1f} "
+                    f"M-T tests a ray; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+                    f"{bd['bound_ms'] / k_ms:.1%} of the kernel ({card})")
+                if label == "bunny" and kind == "primary":
+                    row.update(ms=k_ms, plain_ms=p_ms, bound=bd)
             msg = []
             for kind_r in ("primary", "bounce1"):
                 o, d = rays[kind_r]
-                t0 = time.perf_counter()
-                h = mrt.intersect_bvh(o, d, b, t_max=cfg_w.t_max)
-                torch.cuda.synchronize()
-                t_walk = time.perf_counter() - t0
-                r = ref_fns[0](o, d)
+                h, r = mrt.intersect_bvh(o, d, b, t_max=cfg_w.t_max), ref_fns[0](o, d)
                 as_hits = lambda x: (torch.where(x.hit, x.t, torch.full_like(x.t, cfg_w.t_max)),
                                      torch.where(x.hit, x.tri_idx.long(), -1))
                 st = parity.check_hits(f"bvh {label} {kind_r}", as_hits(h), as_hits(r))
                 msg.append(f"{kind_r} {o.shape[0]} rays: winners {st['winner_agree']:.6f}, "
-                           f"hit {st['hit_frac']:.4f}, {t_walk * 1e3:.1f} ms")
+                           f"hit {st['hit_frac']:.4f}")
             o, d, tl = rays["shadow"]
             parity.check_any(f"bvh {label} shadow", mrt.occluded_bvh(o, d, tl, b),
                              ref_fns[1](o, d, tl))
-            log(f"[14 shell] build_bvh {label}: {sc.num_triangles} triangles, {b.num_leaves} "
-                f"leaves, depth {b.depth}, {t_build:.3f} s; intersect_bvh vs "
+            log(f"[14 shell] intersect_bvh (the walk kernel) {label} vs "
                 f"{'bruteforce' if label.startswith('Cornell') else 'K6'}: " + "; ".join(msg)
                 + f"; occluded_bvh on {o.shape[0]} shadow rays equal")
+        # render(backend="bvh"): against mega, and on the walk's plain
+        # version (the host loop the walk kernel replaced) against the kernel,
+        # bitwise.
         cfg_bvh = dataclasses.replace(cfg_r, backend="bvh")
+        n = 2
         with torch.no_grad():
             acc = mrt.build_accel(scene, cfg_bvh)
-            img_b = mrt.render_radiance(scene, cam, cfg_bvh, frames=1, accel=acc)
-            img_m = mrt.render_radiance(scene, cam, cfg_r, frames=1)
+            img_b = mrt.render_radiance(scene, cam, cfg_bvh, frames=n, accel=acc)
+            img_m = mrt.render_radiance(scene, cam, cfg_r, frames=n)
             log("[14 shell] render(backend='bvh') Cornell OBJ 512x512x4 vs mega")
             log_stats("radiance", {"radiance": parity.check_float("bvh vs mega", img_b, img_m)})
-            n = 2
+            out = {}
+            kernel_walk = pbvh._walk
+            pbvh._walk = pbvh.walk_plain
+            try:
+                ms_p = events_ms(lambda: out.update(img=mrt.render_radiance(
+                    scene, cam, cfg_bvh, frames=n, accel=acc)), n)
+            finally:
+                pbvh._walk = kernel_walk
+            if not torch.equal(out["img"], img_b):
+                raise AssertionError("render(backend='bvh') on the plain walk differs from "
+                                     "the kernel's")
+            mrt.render(scene, cam, cfg_bvh, frames=n, accel=acc)  # warm-up and capture
             ms_b = events_ms(lambda: mrt.render(scene, cam, cfg_bvh, frames=n, accel=acc), n)
             acc_m = mrt.build_accel(scene, cfg_r)
             mrt.render(scene, cam, cfg_r, frames=n, accel=acc_m)  # warm-up and capture
             ms_m = events_ms(lambda: mrt.render(scene, cam, cfg_r, frames=n, accel=acc_m), n)
-        log(f"[14 shell] Cornell 512x512x4: bvh (plain PyTorch walk, host-bound) {ms_b:.3f} "
-            f"ms/frame, mega {ms_m:.3f} ms/frame ({n} frames each; {card})")
+        log(f"[14 shell] Cornell 512x512x4: bvh compiled (walk kernel) {ms_b:.3f} ms/frame, "
+            f"eager on the plain walk {ms_p:.3f} ms/frame (bitwise the kernel's image), mega "
+            f"{ms_m:.3f} ms/frame ({n} frames each; {card})")
     log(f"[14 shell] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 # Phase 15: the parallel paths.
 
 def kernel_counts() -> dict:
-    """Launches of K1-K6 since the last reset_all, nonzero entries only."""
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
-    counts = {**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES}
+    """Launches of K1-K6 and the walk kernel since the last reset_all,
+    nonzero entries only."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh, clustered, megakernel, panel
+    counts = {**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES, **bvh.LAUNCHES}
     return {k: v for k, v in counts.items() if v}
 
 
 def reset_all() -> None:
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh, clustered, megakernel, panel
     from mini_opencl_raytracer_tpu_torch.parallel import comm
-    reset_counts(megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, comm.BYTES)
+    reset_counts(megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, bvh.LAUNCHES,
+                 comm.BYTES)
 
 
 def timed_call(torch, label: str, fn, want: dict, reps: int = 1):
@@ -1084,8 +1153,10 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
     import os
     import tempfile
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     from mini_opencl_raytracer_tpu_torch.config import MeshConfig
-    from mini_opencl_raytracer_tpu_torch.parallel import multihost, shard
+    from mini_opencl_raytracer_tpu_torch.jit import disable_jit, jit
+    from mini_opencl_raytracer_tpu_torch.parallel import comm, expert, multihost, pipeline, shard
     from mini_opencl_raytracer_tpu_torch.parallel.mesh import make_mesh
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1101,6 +1172,7 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
         multihost.initialize(coordinator_address=f"file://{tmp}/store", num_processes=1,
                              process_id=0, device=dev)
         mesh = make_mesh(MeshConfig(dp=1, tp=1), device_type="cuda")
+        mpp = init_device_mesh("cuda", (1,), mesh_dim_names=("pp",))
         log(f"[15a nccl] backend {dist.get_backend()}, world {dist.get_world_size()}, "
             f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
         with torch.no_grad():
@@ -1158,6 +1230,72 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
                     f"phase 11's render_sample: {how}; {ms:.3f} ms a call (the slice's "
                     f"accel built in the call); launches {n}; bytes {nb} ({card})")
             del got
+
+        # Each entry point compiled (a graph replayed over the NCCL group)
+        # against the same call under jit.disable_jit(), at an int frame, a
+        # tensor frame and after a material update, with their launches and
+        # collective bytes; pp at pp=1 and ep at ep=1.
+        def eager_of(fn):
+            def run(s, a, f):
+                with disable_jit():
+                    return fn(s, a, f)
+            return run
+
+        frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+        entries = [
+            ("render_sample_dp Cornell 1080p x 9", cornell, "call",
+             lambda s, a, f: shard.render_sample_dp(s, cam, main_cfg, mesh, f))]
+        entries += [(f"train_step_dp(grad_buckets={k}) Cornell 1080p x 9", cornell, "step",
+                     lambda s, a, f, k=k: shard.train_step_dp(s, cam, main_cfg, mesh, f,
+                                                              grad_buckets=k))
+                    for k in (1, 4)]
+        entries += [
+            ("render_sample_ring tp=1 bunny 512x512 x 2 (config 3)", bunny, "call",
+             lambda s, a, f: shard.render_sample_ring(s, cam, cfg3, mesh, f)),
+            ("render_sample_a2a tp=1 bunny 512x512 x 2 (config 3)", bunny, "call",
+             lambda s, a, f: shard.render_sample_a2a(s, cam, cfg3, mesh, f)),
+            ("render_sample_pp pp=1 Cornell 512x512 x 8, n_micro 2", cornell, "call",
+             lambda s, a, f: pipeline.render_sample_pp(s, cam, cfg512(8), mpp, f)),
+            ("render_sample_ep ep=1 Cornell 512x512 x 9", cornell, "call",
+             lambda s, a, f: expert.render_sample_ep(s, cam, cfg512(9), mesh, f,
+                                                     ep_axis="dp"))]
+        compiled_fns = (shard.render_sample_dp, shard._train_step_dp, shard._ring, shard._a2a,
+                        pipeline.render_sample_pp, expert.render_sample_ep)
+        for label, sc, unit, call in entries:
+            updated = dataclasses.replace(sc, materials=dataclasses.replace(
+                sc.materials, diffuse=sc.materials.diffuse * 0.7 + 0.1))
+            checks = [("int frame 11", sc, 11), ("tensor frame 12", sc, frame(12)),
+                      ("after a material update", updated, frame(13))]
+            compiled_against_eager(torch, f"[15a nccl] {label}", sc, None, call, eager_of(call),
+                                   checks, 1, unit, card, grad=unit == "step")
+            for fn in compiled_fns:
+                fn.clear()
+        with torch.no_grad():
+            for label, got, ref in (
+                    ("render_sample_pp pp=1", pipeline.render_sample_pp(
+                        cornell, cam, cfg512(8), mpp),
+                     mrt.render_sample(cornell, cam, cfg512(8))),
+                    ("render_sample_ep ep=1", expert.render_sample_ep(
+                        cornell, cam, cfg512(9), mesh, ep_axis="dp"),
+                     mrt.render_sample(cornell, cam, cfg512(9)))):
+                log(f"[15a nccl] {label} Cornell 512x512 vs the single-device render_sample: "
+                    f"{check_image(parity, '15a ' + label, got, ref)}")
+        for fn in compiled_fns:
+            fn.clear()
+
+        # Under NCCL a capture that fails raises (here: a host read).
+        @jit(static_argnames=("mesh",))
+        def syncs(x, mesh):
+            return comm.psum(x, comm.Axis(mesh, "dp")) * x.sum().item()
+
+        try:
+            syncs(torch.ones(4, device=dev), mesh)
+        except RuntimeError as e:
+            if "capturing" not in str(e):
+                raise
+            log(f"[15a nccl] a capture that fails raises: {str(e).splitlines()[0][:160]}")
+        else:
+            raise AssertionError("15a: a capture with a host read did not raise")
         dist.destroy_process_group()
 
         # 15b. Four ranks on the one card over gloo, by PyTorch's launcher.
@@ -1176,6 +1314,17 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
         if r.returncode != 0:
             raise AssertionError(f"phase 15b: the ranks exited {r.returncode}:\n"
                                  f"{r.stdout[-3000:]}\n{r.stderr[-5000:]}")
+        # Each entry point ran eagerly by jit's rule (gloo on CUDA), said once
+        # per rank on stderr.
+        said = sorted(set(re.findall(r"\[jit\] \S+ runs eagerly on \S+: the groups of axes "
+                                     r".*? which no CUDA graph can hold", r.stderr)))
+        for ln in said:
+            log(f"[15b gloo] {ln}")
+        missing = [name for name in ("render_sample_dp", "_train_step_dp", "_ring", "_a2a",
+                                     "render_sample_pp", "render_sample_ep")
+                   if not any(ln.startswith(f"[jit] {name} runs eagerly") for ln in said)]
+        if missing:
+            raise AssertionError(f"15b: no eager-by-rule line for {missing}")
         log(f"[15b gloo] {_RANKS} ranks on one card in {time.perf_counter() - t0:.1f} s "
             f"(start-up included); their times are gloo staging through host memory on one "
             f"shared card and say nothing about scaling over several GPUs ({card})")
@@ -1233,20 +1382,81 @@ def busy_ms(torch, fn):
     return (busy or None), ms
 
 
+def run_counts() -> dict:
+    """kernel_counts() and the bytes handed to each collective since the
+    last reset_all."""
+    from mini_opencl_raytracer_tpu_torch.parallel import comm
+    return dict(kernel_counts(), **{f"bytes {k}": v for k, v in comm.BYTES.items() if v})
+
+
+def compiled_against_eager(torch, label: str, scene, acc, compiled, eager, checks,
+                           units: int, unit: str, card: str, grad: bool = False) -> dict:
+    """A compiled call against the eager call, each called as
+    fn(scene, accel, frame): bitwise equal at each of ``checks`` ((what,
+    scene, frame)); the launches and collective bytes of 3 replays equal
+    to 3 eager calls'; then ms per ``unit`` in five pairs in turns (eager,
+    compiled; compiled, eager; ...) by CUDA events, and the device busy
+    time of one profiled call of each. Returns the counts of the 3
+    replays."""
+    dev = scene.geometry.v0.device
+    frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+    with torch.enable_grad() if grad else torch.no_grad():
+        for what, sc, f in checks:
+            got = compiled(sc, acc, f)
+            ref = eager(sc, acc, f)
+            torch.cuda.synchronize()
+            if not same_tree(torch, got, ref):
+                raise AssertionError(f"{label}, {what}: compiled differs from eager")
+        reset_all()
+        eager(scene, acc, frame(1))
+        one = run_counts()
+        reset_all()
+        for f in range(3):
+            compiled(scene, acc, frame(f))
+        three = run_counts()
+        if not one or three != {k: 3 * v for k, v in one.items()}:
+            raise AssertionError(f"{label}: launches and bytes of 3 replays {three}, one "
+                                 f"eager call {one}")
+        pairs = []
+        for i in range(5):
+            order = ("eager", "compiled") if i % 2 == 0 else ("compiled", "eager")
+            t = {}
+            for side in order:
+                fn = eager if side == "eager" else compiled
+                t[side] = events_ms(lambda: fn(scene, acc, frame(100 + i)), units)
+            pairs.append(t)
+        busy_e, ms_be = busy_ms(torch, lambda: eager(scene, acc, frame(7)))
+        busy_c, ms_bc = busy_ms(torch, lambda: compiled(scene, acc, frame(7)))
+    med = lambda side: sorted(p[side] for p in pairs)[2]
+    wins = sum(p["compiled"] < p["eager"] for p in pairs)
+    fmt = lambda side: ", ".join(f"{p[side]:.4f}" for p in pairs)
+    busy = lambda b, ms: ("not measured" if b is None else
+                          f"{b / units:.4f} ms/{unit} busy of {ms / units:.4f}, idle "
+                          f"{max(0.0, 1.0 - b / ms):.3f}")
+    log(f"{label}: bitwise equal to eager ({'; '.join(w for w, _, _ in checks)}); "
+        f"launches and bytes of 3 replays = 3 x {one}")
+    log(f"{label}: ms/{unit} eager {med('eager'):.4f} (median; {fmt('eager')}), "
+        f"compiled {med('compiled'):.4f} ({fmt('compiled')}); compiled faster in "
+        f"{wins}/5 pairs; profiled: eager {busy(busy_e, ms_be)}, compiled "
+        f"{busy(busy_c, ms_bc)} ({card})")
+    return three
+
+
 def phase16(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, main_cfg,
-            cfg3) -> None:
+            cfg3) -> dict:
     """16. Compiled programs. First the eager main step and config 3
     frame under ``torch.cuda.set_sync_debug_mode("error")`` (no host
     synchronisation, the condition of their capture). Then ``render``
     (mega, Cornell 1080p x 9, 4 frames), the training step (``jit`` of ``grad.loss_and_grads``: the
     loss and every float leaf's gradient), a config 3 frame (K6), a path B
-    frame (Cornell 1080p x 9 ``pallas``, K5) and ``scan_frames`` of 8
-    mega frames, each bitwise against eager on the same inputs, at two
-    frames (tensor frames, read from memory at each replay) and after a
-    material update; launches of 3 replays equal to 3 eager calls'; then
-    five pairs in turns (eager, compiled; compiled, eager; ...) by CUDA
-    events, and one call of each under torch.profiler for the device busy
-    time."""
+    frame (Cornell 1080p x 9 ``pallas``, K5), ``scan_frames`` of 8
+    mega frames and ``render(backend="bvh")`` (Cornell 512x512 x 4, 4
+    frames, the LBVH walk kernel), each bitwise against eager on the same
+    inputs, at three frames (tensor frames, read from memory at each
+    replay) and after a material update; launches of 3 replays equal to 3
+    eager calls' (``compiled_against_eager``); then five pairs in turns by
+    CUDA events, and one call of each under torch.profiler for the device
+    busy time. Returns the launches of the bvh render's 3 replays."""
     from mini_opencl_raytracer_tpu_torch.jit import jit
     from mini_opencl_raytracer_tpu_torch.utils.metrics import scan_frames
     t_phase = time.perf_counter()
@@ -1263,6 +1473,12 @@ def phase16(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, main_cf
 
     def step_eager(s, a, f):
         return grad.loss_and_grads(s, cam, main_cfg, loss_fn, accel=a)
+
+    cfg_bvh = mrt.RenderConfig(width=512, height=512, bounces=4, backend="bvh")
+
+    def bvh_eager(s, a, f):
+        return mrt.to_image(mrt.render_radiance(s, cam, cfg_bvh, frames=4, accel=a),
+                            cfg_bvh.gamma)
 
     def scan_eager(s, a, f):
         tot = None
@@ -1305,59 +1521,27 @@ def phase16(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, main_cf
          sample(cfg_b), 1, "frame"),
         ("scan_frames of 8 (mega, Cornell 1080p x 9)", cornell, None,
          lambda s, a, f: scan8(f, (s, a)), scan_eager, 8, "frame"),
+        ("render (bvh, Cornell 512x512 x 4, 4 frames)", cornell,
+         mrt.build_accel(cornell, cfg_bvh),
+         lambda s, a, f: mrt.render(s, cam, cfg_bvh, frames=4, accel=a), bvh_eager, 4,
+         "frame"),
     ]
     for label, scene, acc, compiled, eager, units, unit in paths:
-        grad_mode = torch.enable_grad() if unit == "step" else torch.no_grad()
-        with grad_mode:
-            checks = []
-            updated = dataclasses.replace(scene, materials=dataclasses.replace(
-                scene.materials, diffuse=scene.materials.diffuse * 0.7 + 0.1))
-            for what, sc, f in (("frame 11", scene, 11), ("frame 12", scene, 12),
-                                ("frame 2**32 - 1", scene, 2**32 - 1),
-                                ("after a material update", updated, 13)):
-                got = compiled(sc, acc, frame(f))
-                ref = eager(sc, acc, frame(f))
-                torch.cuda.synchronize()
-                if not same_tree(torch, got, ref):
-                    raise AssertionError(f"[16 compiled] {label}, {what}: compiled differs "
-                                         "from eager")
-                checks.append(what)
-            reset_all()
-            eager(scene, acc, frame(1))
-            one = kernel_counts()
-            reset_all()
-            for f in range(3):
-                compiled(scene, acc, frame(f))
-            if kernel_counts() != {k: 3 * v for k, v in one.items()}:
-                raise AssertionError(f"[16 compiled] {label}: launches of 3 replays "
-                                     f"{kernel_counts()}, one eager call {one}")
-            pairs = []
-            for i in range(5):
-                order = ("eager", "compiled") if i % 2 == 0 else ("compiled", "eager")
-                t = {}
-                for side in order:
-                    fn = eager if side == "eager" else compiled
-                    t[side] = events_ms(lambda: fn(scene, acc, frame(100 + i)), units)
-                pairs.append(t)
-            busy_e, ms_be = busy_ms(torch, lambda: eager(scene, acc, frame(7)))
-            busy_c, ms_bc = busy_ms(torch, lambda: compiled(scene, acc, frame(7)))
-        med = lambda side: sorted(p[side] for p in pairs)[2]
-        wins = sum(p["compiled"] < p["eager"] for p in pairs)
-        fmt = lambda side: ", ".join(f"{p[side]:.4f}" for p in pairs)
-        busy = lambda b, ms: ("not measured" if b is None else
-                              f"{b / units:.4f} ms/{unit} busy of {ms / units:.4f}, idle "
-                              f"{max(0.0, 1.0 - b / ms):.3f}")
-        log(f"[16 compiled] {label}: bitwise equal to eager ({'; '.join(checks)}); "
-            f"launches of 3 replays = 3 x {one}")
-        log(f"[16 compiled] {label}: ms/{unit} eager {med('eager'):.4f} (median; {fmt('eager')}), "
-            f"compiled {med('compiled'):.4f} ({fmt('compiled')}); compiled faster in "
-            f"{wins}/5 pairs; profiled: eager {busy(busy_e, ms_be)}, compiled "
-            f"{busy(busy_c, ms_bc)} ({card})")
+        updated = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, diffuse=scene.materials.diffuse * 0.7 + 0.1))
+        checks = [("frame 11", scene, frame(11)), ("frame 12", scene, frame(12)),
+                  ("frame 2**32 - 1", scene, frame(2**32 - 1)),
+                  ("after a material update", updated, frame(13))]
+        three = compiled_against_eager(torch, f"[16 compiled] {label}", scene, acc, compiled,
+                                       eager, checks, units, unit, card, grad=unit == "step")
+        if label.startswith("render (bvh"):
+            bvh_launches = three
         if hasattr(compiled, "clear"):
             compiled.clear()
     from mini_opencl_raytracer_tpu_torch.render import _render_compiled
     _render_compiled.clear()
     log(f"[16 compiled] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return bvh_launches
 
 
 def main() -> int:
@@ -2158,14 +2342,18 @@ def main() -> int:
                 f"{lanes['tests']:.2f}")
         log(msg + f" ({card})")
 
-    # 14. The shell on the card.
-    phase14(mrt, torch, parity, cl, dev, card, ms_frame)
+    # 14. The shell on the card, and the LBVH walk kernel.
+    row = phase14(mrt, torch, parity, cl, dev, card, ms_frame)
+    times["bvh_walk"] = (row["ms"], row["plain_ms"])
+    bounds["bvh_walk"] = row["bound"]
+    max_err["bvh_walk"] = row["max_abs_err"]
 
     # 15. The parallel paths on the card.
     phase15(mrt, torch, parity, grad, dev, card, cam, cornell, bunny, sponza, accels, ms_step)
 
     # 16. The compiled programs against eager.
-    phase16(mrt, torch, grad, dev, card, cam, cornell, bunny, acc3, main_cfg, cfg3)
+    launches["bvh_walk"] = phase16(mrt, torch, grad, dev, card, cam, cornell, bunny, acc3,
+                                   main_cfg, cfg3)["bvh_walk"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -22,7 +22,7 @@ As in the JAX package's CLI, ``render`` runs its per-frame sample and
 ``optimize`` its value-and-grad step as compiled programs (jit.py: CUDA
 graphs, replayed from the second call on; the frame goes in as a device
 tensor), and ``benchmark`` times ``utils/metrics.scan_frames``' compiled
-program. The ``bvh`` backend runs eagerly (``render.compiles``).
+program, on every backend.
 """
 
 from __future__ import annotations
@@ -38,10 +38,9 @@ from . import (Camera, Lights, RenderConfig, RenderState, accumulate, build_acce
                cornell_scene, load_scene, render_sample, resolve_backend, to_image)
 from .config import default_device
 from .jit import jit
-from .render import compiles
 from .utils import checkpoint as ckpt
 from .utils.image import write_npy, write_pfm, write_png
-from .utils.metrics import bounce_occupancy, render_metrics, time_fn, time_scan_fn
+from .utils.metrics import bounce_occupancy, render_metrics, time_scan_fn
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
@@ -96,11 +95,10 @@ def cmd_render(args) -> int:
     # (the reference's load-time build, CLBVHnode.cpp:185-207).
     accel = build_accel(scene, cfg)
 
+    @jit
     def sample(s, c, a, f):
         return render_sample(s, c, cfg, frame=f, accel=a)
 
-    if compiles(scene, cfg):
-        sample = jit(sample)
     state = RenderState.create(cfg, scene.device)
     start = 0
     if args.resume:
@@ -142,17 +140,12 @@ def cmd_benchmark(args) -> int:
     accel = build_accel(scene, cfg)
 
     # Per-frame time of one call of 8 distinct frames (a compiled program),
-    # timed by CUDA events on the card (utils/metrics.time_scan_fn); the
-    # eager bvh backend frame by frame.
+    # timed by CUDA events on the card (utils/metrics.time_scan_fn).
     def frame(fr, data):
         s, c, a = data
         return render_sample(s, c, cfg, frame=fr, accel=a).mean()
 
-    data = (scene, camera, accel)
-    if compiles(scene, cfg):
-        sec = time_scan_fn(frame, inner=8, iters=args.iters, data=data)
-    else:
-        sec = time_fn(lambda i: frame(i, data), iters=args.iters)
+    sec = time_scan_fn(frame, inner=8, iters=args.iters, data=(scene, camera, accel))
     m = render_metrics(sec, cfg.width, cfg.height, cfg.bounces, cfg.spp)
     m.update(backend=resolve_backend(scene, cfg), width=cfg.width,
              height=cfg.height, bounces=cfg.bounces, triangles=scene.num_triangles,
@@ -175,6 +168,7 @@ def cmd_optimize(args) -> int:
         target = render_sample(scene, camera, cfg, frame=0)
     truth = scene.materials.diffuse
 
+    @jit
     def value_and_grad(diffuse):
         diffuse = diffuse.detach().requires_grad_()
         s = dataclasses.replace(scene, materials=dataclasses.replace(
@@ -183,8 +177,6 @@ def cmd_optimize(args) -> int:
         (g,) = torch.autograd.grad(loss, diffuse)
         return loss.detach(), g
 
-    if compiles(scene, cfg):
-        value_and_grad = jit(value_and_grad)
     kd = torch.clamp(truth * 0.2 + 0.4, 0.0, 1.0)
     for step in range(args.steps):
         loss, g = value_and_grad(kd)

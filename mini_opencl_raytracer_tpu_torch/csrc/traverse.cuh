@@ -1,5 +1,5 @@
 // Device helpers of the wavefront intersection kernels (panel.cu,
-// clustered.cu): the Moller-Trumbore test on (v0, e1, e2) records and the
+// clustered.cu, bvh.cu): the Moller-Trumbore test on (v0, e1, e2) records and the
 // AABB slab test, each in its plain version's operation order.
 #pragma once
 
@@ -7,14 +7,14 @@
 
 namespace {
 
-// Moller-Trumbore on a [9] record (v0, e1 = v1 - v0, e2 = v2 - v0), in
+// Moller-Trumbore on (v0, e1 = v1 - v0, e2 = v2 - v0), in
 // ops/intersect.ray_triangle_edges's order: det = e1 . (d x e2), a
 // correctly rounded 1 / det, then u, v and t as products with it. True
 // where |det| > 1e-10 (det > 1e-10 under culling), u >= 0, v >= 0,
 // u + v <= 1 and t > 0; NaN-safe comparisons reject what the plain
 // version's masks reject. Zero records (padding) have det == 0.
-__device__ __forceinline__ bool mt_hit(V3 o, V3 d, const float* tr, bool cull, float& t) {
-  const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
+__device__ __forceinline__ bool mt_hit_edges(V3 o, V3 d, V3 v0, V3 e1, V3 e2, bool cull,
+                                             float& t) {
   const V3 pvec = cross(d, e2);
   const float det = dot(e1, pvec);
   if (!(cull ? det > kDetEps : fabsf(det) > kDetEps)) return false;
@@ -27,6 +27,11 @@ __device__ __forceinline__ bool mt_hit(V3 o, V3 d, const float* tr, bool cull, f
   if (!(v >= 0.0f) || !(u + v <= 1.0f)) return false;
   t = dot(e2, qvec) * inv;
   return t > 0.0f;
+}
+
+// mt_hit_edges on a [9] record (v0, e1, e2).
+__device__ __forceinline__ bool mt_hit(V3 o, V3 d, const float* tr, bool cull, float& t) {
+  return mt_hit_edges(o, d, ld3(tr), ld3(tr + 3), ld3(tr + 6), cull, t);
 }
 
 // Slab test of a 16-byte-aligned AABB row (lo.xyz, hi.xyz, two unused

@@ -31,28 +31,58 @@ frame becomes a constant) and the addresses of tensors it closes over,
 whose values it reads at each replay. A value that changes between calls
 goes in as a tensor argument, as the frame of ``scan_frames`` does.
 
-On the CPU there is no graph and ``fn`` runs eagerly: the caller asked
-for the CPU. On CUDA a capture that fails raises; nothing runs eagerly in
-place of a graph.
+When a call is compiled (``Compiled.captures``): the device-mesh
+static arguments (``DeviceMesh``, as the parallel paths take) add every
+axis's group backend to the key, and ``comm.Axis.capturable`` says
+whether a graph can hold its collectives.
+
+==========  ==================  =================  ==========================
+tensors     groups              what runs          why
+==========  ==================  =================  ==========================
+on CUDA     none, or all NCCL   a captured graph   the normal case
+on the CPU  any                 eager              the caller asked for the CPU
+on CUDA     a gloo group        eager, announced   gloo stages every collective
+                                once on stderr     through host memory, which
+                                                   no CUDA graph can hold
+==========  ==================  =================  ==========================
+
+Inside ``disable_jit()`` (``jax.disable_jit``) every compiled call runs
+eagerly: the reference that a compiled call is held against.
+
+A key with a group is captured with ``capture_error_mode="thread_local"``:
+in the default global mode a CUDA call from another thread during the
+capture, such as the NCCL watchdog's event queries, can abort it. The collectives'
+byte counts (``comm.BYTES``) are counted like the launches: the capture's
+are undone, and each replay adds them. A capture that fails raises;
+nothing runs eagerly in place of a graph.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import inspect
+import sys
 from typing import Any, Callable, Iterator, List, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .models.scene import Lights
 from .ops import lights as lights_mod
-from .ops.cuda import clustered, megakernel, panel
+from .ops.cuda import bvh, clustered, megakernel, panel
+from .parallel import comm
 
-_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES)
+_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, bvh.LAUNCHES,
+           comm.BYTES)
 _LEAF = "tensor"
 _CONST = "const"
+# (function, staged groups) already announced by Compiled._announce.
+_ANNOUNCED = set()
+# Whether disable_jit() is in force.
+_disabled = False
 
 
 def flatten(tree) -> Tuple[List[torch.Tensor], Any]:
@@ -120,11 +150,19 @@ def _snapshot():
     return [dict(c) for c in _COUNTS]
 
 
+@contextlib.contextmanager
+def _capture(graph, device: torch.device, mode: str):
+    """Capture into ``graph`` on ``device`` (``capture_error_mode``)."""
+    with torch.cuda.device(device), torch.cuda.graph(graph, capture_error_mode=mode):
+        yield
+
+
 class _Program:
-    """One captured graph: its static inputs, outputs and launch counts."""
+    """One captured graph: its static inputs, outputs, and the launch and
+    byte counts that a replay adds."""
 
     def __init__(self, compiled: "Compiled", static: dict, treedef, leaves, types,
-                 device: torch.device):
+                 device: torch.device, mode: str):
         self.inputs = [t.detach().clone() for t in leaves]
         dynamic = unflatten(treedef, self.inputs)
         for lights, ty in zip(_lights_in(dynamic), types):
@@ -133,7 +171,7 @@ class _Program:
         before = _snapshot()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+            with _capture(self.graph, device, mode):
                 out = compiled.fn(*args.args, **args.kwargs)
         except Exception as e:
             raise RuntimeError(f"jit: capturing {compiled.__qualname__} on {device} "
@@ -142,15 +180,15 @@ class _Program:
             after = _snapshot()
             for counts, b in zip(_COUNTS, before):
                 counts.update(b)
-        self.launches = [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
-                         for a, b in zip(after, before)]
+        self.counts = [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+                       for a, b in zip(after, before)]
         self.out_leaves, self.out_def = flatten(out)
 
     def replay(self, leaves):
         for static, x in zip(self.inputs, leaves):
             static.copy_(x)
         self.graph.replay()
-        for counts, added in zip(_COUNTS, self.launches):
+        for counts, added in zip(_COUNTS, self.counts):
             for k, v in added.items():
                 counts[k] += v
         return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
@@ -175,7 +213,9 @@ class Compiled:
         return inspect.BoundArguments(self._sig, ordered)
 
     def key(self, *args, **kwargs):
-        """(key, tensor leaves, light types, device) of a call."""
+        """(key, tensor leaves, light types, device) of a call. The key's
+        last entry holds (axis name, backend, capturable) of every
+        dimension of the ``DeviceMesh`` static arguments."""
         bound = self._sig.bind(*args, **kwargs)
         bound.apply_defaults()
         static = tuple((n, bound.arguments[n]) for n in self.static_argnames)
@@ -189,12 +229,36 @@ class Compiled:
         types = tuple(lights_mod.light_types(x) for x in _lights_in(dynamic))
         specs = tuple((tuple(t.shape), t.dtype) for t in leaves)
         hash(static)
-        key = (static, treedef, specs, types, devices.pop(), torch.is_grad_enabled())
+        axes = [comm.Axis(v, name) for _, v in static if isinstance(v, DeviceMesh)
+                for name in v.mesh_dim_names or ()]
+        groups = tuple((a.name, a.backend, a.capturable) for a in axes)
+        key = (static, treedef, specs, types, devices.pop(), torch.is_grad_enabled(), groups)
         return key, leaves, types, key[4]
 
+    @staticmethod
+    def captures(key) -> bool:
+        """The rule of the module note: a graph for tensors on CUDA whose
+        groups (if any) are all capturable; eager otherwise."""
+        return key[4].type == "cuda" and all(c for _, _, c in key[6])
+
+    def _announce(self, key) -> None:
+        """Say once on stderr that a call on CUDA runs eagerly because of
+        its host-transport groups."""
+        staged = tuple((name, backend) for name, backend, c in key[6] if not c)
+        if key[4].type != "cuda" or (self.__qualname__, staged) in _ANNOUNCED:
+            return
+        _ANNOUNCED.add((self.__qualname__, staged))
+        names = ", ".join(f"{name} ({backend})" for name, backend in staged)
+        print(f"[jit] {self.__qualname__} runs eagerly on {key[4]}: the groups of axes "
+              f"{names} stage their collectives through host memory, which no CUDA "
+              "graph can hold", file=sys.stderr, flush=True)
+
     def __call__(self, *args, **kwargs):
+        if _disabled:
+            return self.fn(*args, **kwargs)
         key, leaves, types, device = self.key(*args, **kwargs)
-        if device.type != "cuda":
+        if not self.captures(key):
+            self._announce(key)
             return self.fn(*args, **kwargs)
         if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
             raise ValueError(f"{self.__qualname__}: an argument requires grad, and a "
@@ -206,12 +270,24 @@ class Compiled:
             return program.replay(leaves)
         out = self.fn(*args, **kwargs)    # the warm-up, returned
         static = dict(key[0])
-        self._programs[key] = _Program(self, static, key[1], leaves, types, device)
+        mode = "thread_local" if key[6] else "global"
+        self._programs[key] = _Program(self, static, key[1], leaves, types, device, mode)
         return out
 
     def clear(self) -> None:
         """Drop every captured graph (and its memory pool)."""
         self._programs.clear()
+
+
+@contextlib.contextmanager
+def disable_jit():
+    """Run every compiled call inside eagerly (``jax.disable_jit``)."""
+    global _disabled
+    before, _disabled = _disabled, True
+    try:
+        yield
+    finally:
+        _disabled = before
 
 
 def jit(fn: Callable = None, *, static_argnames=()):

@@ -14,17 +14,20 @@ binary tree of boxes built bottom-up over the leaves, in heap layout
 The build gives the JAX package's ``slot_to_tri`` and boxes bitwise.
 
 Traversal: the reference's per-ray stack walk (Intersect,
-kernel_bvh.cl:171-219; JAX ``_intersect_one``) vectorised over rays:
-every live ray pops one node per step from its own ``[R, depth + 2]``
-stack, tests the node's box against its best t, tests a leaf's triangles
-densely (strict ``t < best``, the first index on ties) and pushes an inner
-node's children near-first by entry distance (``tn0 <= tn1``). Each ray
-makes the JAX walk's decisions in the same order on every node that holds
-a triangle; subtrees of padding only are not entered (``_slab_test``), so
-results, ties included, are the JAX walk's. The JAX traversal is
-jnp code (a vmapped ``lax.while_loop``), not a Pallas kernel, so this port
-of it is plain PyTorch: a reference path, not the fast one (large scenes
-belong to the cluster-traversal kernel).
+kernel_bvh.cl:171-219; JAX ``_intersect_one``): every ray pops one node
+at a time from its own stack of ``depth + 2`` entries, tests the node's
+box against its best t, tests a leaf's triangles (strict ``t < best``,
+the first index on ties) and pushes an inner node's children near-first
+by entry distance (``tn0 <= tn1``). Each ray makes the JAX walk's
+decisions in the same order on every node that holds a triangle; subtrees
+of padding only are not entered (``_slab_test``), so results, ties
+included, are the JAX walk's. On a CUDA device the walk is a kernel
+(``csrc/bvh.cu`` through ``ops/cuda/bvh.walk``, one thread a ray), so
+``render`` captures the backend like the others (jit.py); its plain
+version, ``walk_plain``, runs it vectorised over the live rays, a host
+loop of one node per ray a step. The JAX traversal is jnp code (a vmapped
+``lax.while_loop``), not a Pallas kernel: this is a reference path, not
+the fast one (large scenes belong to the cluster-traversal kernel).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from ..config import BVHConfig
 from ..models.scene import Geometry
+from .cuda import bvh as bvh_kernel
 from .intersect import Hit, ray_triangle
 
 _U32 = 0xFFFFFFFF
@@ -160,9 +164,11 @@ def _slab_test(lo, hi, o, inv_d, t_best):
 
 
 @torch.no_grad()
-def _walk(o, d, t_init, bvh: BVH, backface_cull: bool):
+def walk_plain(o, d, t_init, bvh: BVH, backface_cull: bool, stats=None):
     """Closest hit below ``t_init`` of every ray: (best t [R], best slot
-    [R] int64, 0 where nothing is below t_init)."""
+    [R] int64, 0 where nothing is below t_init). The plain version of the
+    walk kernel (ops/cuda/bvh.py). ``stats`` (int64 [R]) gains each ray's
+    count of Moller-Trumbore tests, leaf_size a leaf entered."""
     R, dev = o.shape[0], o.device
     L, leaf = bvh.num_leaves, bvh.leaf_size
     inv_d = 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
@@ -185,6 +191,8 @@ def _walk(o, d, t_init, bvh: BVH, backface_cull: bool):
         # on ties.
         m = in_box & is_leaf
         rl = r[m]
+        if stats is not None:
+            stats[rl] += leaf
         if rl.numel():
             base = (node[m] - (L - 1)) * leaf
             rows = base[:, None] + lanes
@@ -212,6 +220,14 @@ def _walk(o, d, t_init, bvh: BVH, backface_cull: bool):
             stack[ri, at + 1] = torch.where(near, c0, c1)
             top[m] = at + 2
         sp[r] = top
+
+
+@torch.no_grad()
+def _walk(o, d, t_init, bvh: BVH, backface_cull: bool):
+    """``walk_plain``'s result: the kernel on CUDA, the plain walk on the
+    CPU (ops/cuda/bvh.walk)."""
+    return bvh_kernel.walk(o.contiguous(), d.contiguous(), t_init.contiguous(), bvh,
+                           backface_cull)
 
 
 def intersect_bvh(o: torch.Tensor, d: torch.Tensor, bvh: BVH, t_max: float = 1e5,

@@ -56,6 +56,9 @@ _SIGNATURES = {
     #  slot, rows, stats, counter, stream); (any, out)
     "mrt_clustered": ([_I] * 6 + [_P] * 15, _I),
     "mrt_clustered_blocks_per_sm": ([_I, _P], _I),
+    # csrc/bvh.cu: (R, leaves, leaf_size, cull, node_lo, node_hi, pv0, pv1,
+    #  pv2, o, d, t_init, t_out, slot, stream)
+    "mrt_bvh_walk": ([_I] * 4 + [_P] * 11, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 

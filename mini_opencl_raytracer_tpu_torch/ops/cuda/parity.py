@@ -22,8 +22,12 @@ import numpy as np
 import torch
 
 from ...models.cornell import cornell_scene
+from ...render import _swizzled_ids
 from ...models.scene import (LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT,
                              Camera, Geometry, Lights, Scene)
+from .. import integrator, rng
+from ..camera import generate_rays
+from ..shading import build_shading_table, hit_attributes
 
 MEAN_TOL, ERR_TOL, FRAC_TOL, WINNER_AGREE = 1e-4, 1e-3, 1e-4, 0.9999
 GRAD_TOL, FD_TOL = 2e-3, 5e-2
@@ -213,6 +217,25 @@ def soup_scene(device, n: int = 2048, seed: int = 3) -> Scene:
     rs = np.random.default_rng(seed)
     centers = rs.uniform([-10.0, -5.0, -2.0], [10.0, 10.0, 18.0], (n, 3))
     corners = [centers + rs.normal(0.0, 1.0, (n, 3)) for _ in range(3)]
+    return _soup(corners, rs, device)
+
+
+def quad_soup_scene(device, n: int = 4096, seed: int = 6) -> Scene:
+    """A seeded soup of ``n // 2`` planar quads in front of the camera,
+    each split into two triangles along the diagonal they share (so that
+    rays at that diagonal meet both), with the Cornell materials and
+    light."""
+    rs = np.random.default_rng(seed)
+    q = n // 2
+    p0 = rs.uniform([-10.0, -5.0, -2.0], [10.0, 10.0, 18.0], (q, 3))
+    a, b = rs.normal(0.0, 1.0, (q, 3)), rs.normal(0.0, 1.0, (q, 3))
+    pair = lambda x, y: np.stack([x, y], 1).reshape(2 * q, 3)
+    return _soup([pair(p0, p0), pair(p0 + a, p0 + a + b), pair(p0 + a + b, p0 + b)], rs,
+                 device)
+
+
+def _soup(corners, rs, device) -> Scene:
+    n = corners[0].shape[0]
     normal = np.cross(corners[1] - corners[0], corners[2] - corners[0])
     normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-12
     zeros2 = _t(np.zeros((n, 2)), device)
@@ -223,6 +246,34 @@ def soup_scene(device, n: int = 2048, seed: int = 3) -> Scene:
                    mat_idx=_t(rs.integers(0, 6, n), device, torch.int32))
     base = cornell_scene(device=device)
     return Scene(geometry=geo, materials=base.materials, lights=base.lights)
+
+
+def shared_edge_rays(geometry: Geometry, n: int = 4096, seed: int = 7):
+    """``n`` rays (o, d float32 [n, 3] on the geometry's device) aimed from
+    seeded points in the geometry's bounding box at points 1/3, 1/2 and
+    2/3 along edges that two triangles share (the same two corners),
+    where both triangles meet the ray at nearly or exactly the same t: the
+    cases of a closest hit's tie rule."""
+    rs = np.random.default_rng(seed)
+    V = np.stack([geometry.v0.detach().cpu().numpy(), geometry.v1.detach().cpu().numpy(),
+                  geometry.v2.detach().cpu().numpy()], 1).astype(np.float64)
+    seen, shared = {}, []
+    for t in range(V.shape[0]):
+        for k in range(3):
+            a, b = tuple(V[t, k]), tuple(V[t, (k + 1) % 3])
+            key = (min(a, b), max(a, b))
+            if seen.setdefault(key, t) != t:
+                shared.append(key)
+    if not shared:
+        raise ValueError("the geometry has no shared edge")
+    edge = np.asarray(shared)[rs.integers(0, len(shared), n)]
+    f = rs.choice([1.0 / 3.0, 0.5, 2.0 / 3.0], n)[:, None]
+    targets = edge[:, 0] + f * (edge[:, 1] - edge[:, 0])
+    lo, hi = V.reshape(-1, 3).min(0), V.reshape(-1, 3).max(0)
+    o = rs.uniform(lo, hi, (n, 3))
+    d = _unit(targets - o)
+    dev = geometry.v0.device
+    return _t(o, dev), _t(d, dev)
 
 
 def _unit(a):
@@ -509,3 +560,38 @@ def grazing_decoys(device, cos: float, cases: int = 16, n: int = 20_000, seed: i
         out.append((build_clusters(geo, leaf_info=leaves), o[i:i + 1].to(device),
                     d[i:i + 1].to(device), t[i].item(), t_dec.item(), entry[i].item()))
     return out
+
+
+def wavefront_rays(scene: Scene, cam: Camera, cfg, closest, any_hit) -> dict:
+    """The rays the wavefront integrator hands its intersector in a
+    render_sample of ``cfg`` (frame 0): primary rays in tile order; the
+    bounce-1 rays of the live paths in that order and coherence-sorted as
+    ops/integrator sorts them; the shadow rays of the primary hits toward
+    light 0 (origin, direction, t_limit)."""
+    dev = cam.position.device
+    pid = _swizzled_ids(cfg, dev)
+    seeds = rng.pixel_seeds(pid, 0)
+    o, d = generate_rays(cam, cfg, pid, seeds)
+    o = o.contiguous()
+    R = o.shape[0]
+    with torch.no_grad():
+        step = integrator.make_bounce_core(scene, cfg, closest, any_hit)
+        o1, d1, _, _, alive, _ = step((o, d, torch.ones_like(o), torch.zeros_like(o),
+                                       torch.ones((R,), dtype=torch.bool, device=dev),
+                                       seeds), 0)
+        o1, d1 = o1[alive].contiguous(), d1[alive].contiguous()
+        g = scene.geometry
+        pts = torch.cat([g.v0, g.v1, g.v2])
+        keys = integrator._ray_sort_keys(o1, d1, pts.amin(0), pts.amax(0))
+        perm = torch.sort(keys, stable=True).indices
+        h = closest(o, d)
+        at = hit_attributes(o, d, h, build_shading_table(g, scene.materials))
+        pos = at.pos[h.hit]
+        to_l = scene.lights.position[0] - pos
+        dist = torch.linalg.norm(to_l, dim=1)
+        l_unit = (to_l / dist[:, None]).contiguous()
+        shadow = ((pos + l_unit * cfg.ray_epsilon).contiguous(), l_unit,
+                  (dist - 2.0 * cfg.ray_epsilon).contiguous())
+    return {"primary": (o, d.contiguous()), "bounce1": (o1, d1),
+            "bounce1_sorted": (o1[perm].contiguous(), d1[perm].contiguous()),
+            "shadow": shadow}

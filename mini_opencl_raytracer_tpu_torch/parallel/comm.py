@@ -23,7 +23,9 @@ collectives in the same order, backward included.
 Transport: under an NCCL group the tensors stay on the device; gloo is a
 host transport, so under a gloo group every collective copies its tensors
 to host memory and back. This is decided by the group's backend and
-printed once per group.
+printed once per group. The same backend decides whether a compiled call
+(jit.py) can capture the collectives into a CUDA graph:
+``Axis.capturable``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class Axis:
         self.group = mesh.get_group(name)
         self.index = mesh.get_local_rank(name)
         self.size = mesh.size(mesh.mesh_dim_names.index(name))
-        backend = dist.get_backend(self.group)
+        backend = self.backend = dist.get_backend(self.group)
         self.staged = backend == "gloo"
         ranks = tuple(dist.get_process_group_ranks(self.group))
         if (backend, ranks) not in _ANNOUNCED:
@@ -58,6 +60,15 @@ class Axis:
                    else "tensors stay on their device")
             print(f"[comm] {backend} group of ranks {list(ranks)}: {how}",
                   file=sys.stderr, flush=True)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this axis's collectives: NCCL
+        runs them on the device and keeps its tensors there, so jit.py
+        captures them; a gloo group (host transport, or a CPU mesh) stages
+        them through host memory, so a compiled call over it runs eagerly
+        (jit.py's module note has the whole rule)."""
+        return self.backend == "nccl"
 
     def stage(self, x: torch.Tensor) -> torch.Tensor:
         """A private contiguous copy of ``x`` where the transport reads it."""

@@ -14,6 +14,8 @@ report ``routed=False``, and the callers here shade them locally.
 
 Every rank must call these functions (and the backward) together; the
 routed values are differentiable through both all-to-alls.
+``render_sample_ep`` runs as a compiled program (jit.py; parallel/shard.py
+has the rule): a CUDA graph under NCCL, eager on the CPU and under gloo.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..jit import jit
 from ..models.scene import Camera, Scene
 from ..ops import rng
 from ..ops.brdf import sample_brdf
@@ -118,6 +121,7 @@ def ep_shade_demo(positions: torch.Tensor, normals: torch.Tensor, mat_idx: torch
     return comm.all_gather(out, axis)
 
 
+@jit(static_argnames=("cfg", "mesh", "ep_axis", "capacity"))
 def render_sample_ep(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0,
                      ep_axis: str = "dp", capacity: int = None) -> torch.Tensor:
     """One progressive sample with pixels sharded over ``ep_axis`` and
@@ -131,7 +135,8 @@ def render_sample_ep(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
     The values equal ``render.render_sample``'s: the routed shading uses
     the same counter-based RNG sites (the seeds travel bit-cast in a float
     column), and overflow rays are shaded locally against the replicated
-    table. Differentiable w.r.t. the scene and the camera."""
+    table. Eager calls are differentiable w.r.t. the scene and the
+    camera."""
     axis = comm.Axis(mesh, ep_axis)
     ep, my = axis.size, axis.index
     ids = _pixel_ids(cfg, axis, scene.device)
@@ -143,7 +148,8 @@ def render_sample_ep(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
         backend = "pallas"
     dev = scene.device
     dtype = cfg.torch_dtype()
-    sky = torch.tensor(cfg.sky_color, dtype=dtype, device=dev) * cfg.skybox_intensity
+    sky = torch.stack([torch.full((), c, dtype=dtype, device=dev)
+                       for c in cfg.sky_color]) * cfg.skybox_intensity
 
     scene, camera = replicated(scene, camera, axis)
     mats = scene.materials
@@ -226,7 +232,7 @@ def render_sample_ep(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
 
     total = torch.zeros((ids.shape[0], 3), dtype=dtype, device=dev)
     for s in range(cfg.spp):
-        seeds = rng.pixel_seeds(ids, (int(frame) * cfg.spp + s) & 0xFFFFFFFF)
+        seeds = rng.pixel_seeds(ids, rng.sample_frame(frame, cfg.spp, s))
         o, d = generate_rays(camera, cfg, ids, seeds)
         carry = (o, d, torch.ones_like(o), torch.zeros_like(o),
                  torch.ones((ids.shape[0],), dtype=torch.bool, device=dev), seeds)

@@ -17,6 +17,9 @@ same order, forward and backward: each step's state goes through one
 ``ppermute`` (the last step's, which nobody reads, is skipped on every
 stage), and every stage banks through a select that is false except on
 the last stage, so each step's hop is in every stage's backward.
+
+``render_sample_pp`` runs as a compiled program (jit.py; parallel/shard.py
+has the rule): a CUDA graph under NCCL, eager on the CPU and under gloo.
 """
 
 from __future__ import annotations
@@ -29,18 +32,20 @@ from ..ops import rng
 from ..ops.camera import generate_rays
 from ..ops.integrator import make_bounce_step
 from ..ops.linalg import vmax
+from ..jit import jit
 from ..render import make_intersectors
 from . import comm
 from .shard import replicated
 
 
+@jit(static_argnames=("cfg", "mesh", "pp_axis", "n_micro"))
 def render_sample_pp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0,
                      pp_axis: str = "pp", n_micro: int = None) -> torch.Tensor:
     """One progressive sample with bounces pipelined over the ``pp`` mesh
     dimension -> linear radiance [H, W, 3] on every rank. ``cfg.bounces``
     must divide evenly over the stages; ``n_micro`` microbatches (default
-    2 * stages) must divide the pixel count. Differentiable w.r.t. the
-    scene and the camera."""
+    2 * stages) must divide the pixel count. Eager calls are
+    differentiable w.r.t. the scene and the camera."""
     pp = comm.Axis(mesh, pp_axis)
     P = pp.size
     if cfg.bounces % P:
@@ -58,13 +63,13 @@ def render_sample_pp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
     scene, camera = replicated(scene, camera, pp)
     # All microbatches' primary rays, generated once on every stage.
     pixel_ids = torch.arange(R, dtype=torch.int32, device=dev)
-    seeds = rng.pixel_seeds(pixel_ids, int(frame) & 0xFFFFFFFF)
+    seeds = rng.pixel_seeds(pixel_ids, rng.sample_frame(frame, 1, 0))
     o, d = generate_rays(camera, cfg, pixel_ids, seeds)
     o_mb, d_mb = o.reshape(n_micro, R_mb, 3), d.reshape(n_micro, R_mb, 3)
     s_mb = rng.to_i32_bits(seeds).reshape(n_micro, R_mb)
 
     p = pp.index
-    first = torch.tensor(p == 0, device=dev)
+    first = torch.full((), p == 0, device=dev)
     step = make_bounce_step(scene, cfg, *make_intersectors(scene, cfg))
     perm = [(i, i + 1) for i in range(P - 1)]
     ones3 = torch.ones((R_mb, 3), dtype=dtype, device=dev)
@@ -90,7 +95,7 @@ def render_sample_pp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
             state, _ = step(state, p * bps + k)
         # Only the last stage banks the finished microbatch (clamp,
         # kernel_bvh.cl:383).
-        bank = torch.tensor(0 <= mb < n_micro and p == P - 1, device=dev)
+        bank = torch.full((), 0 <= mb < n_micro and p == P - 1, device=dev)
         outputs[mbc] = torch.where(bank, vmax(state[3], 0.0), outputs[mbc])
         if t < steps - 1:
             o_, d_, beta, rad, alive, seeds_ = state

@@ -20,6 +20,20 @@ geometry over ``tp`` (the JAX package's ``parallel/shard.py``).
   all-reduce placed by hand, in buckets whose all-reduce overlaps the
   next bucket's forward and backward.
 
+Each entry point runs as a compiled program (jit.py, the JAX package's
+``jax.jit`` of each), keyed by ``cfg``, the mesh (and its groups'
+backends), ``mesh_cfg`` and ``grad_buckets``: on CUDA under NCCL the
+first call runs eagerly (creating the NCCL communicators) and captures,
+and later calls replay a CUDA graph; on the CPU, and on CUDA under gloo,
+every call runs eagerly (jit.py's module note has the rule). What runs
+on the host stays outside the graph and goes in as an argument: the
+native SAH build of a slice's accel (ring, all-to-all) and of
+``train_step_dp``'s accel. A frame is an int (a constant of its graph) or
+a 0-d integer tensor (read from memory at each replay). A compiled call
+takes no argument that requires grad (jit.py): the eager calls (CPU,
+gloo) are differentiable, and a compiled one takes its gradient inside,
+as ``train_step_dp`` does.
+
 One process runs per rank, and every rank of the mesh calls these
 functions (and, for gradients, the backward) with the same arguments.
 The scene and camera are replicated: their gradients are summed over
@@ -36,12 +50,17 @@ import dataclasses
 import torch
 
 from .. import grad as grad_mod
-from ..config import MeshConfig, RenderConfig
+from ..config import BVHConfig, MeshConfig, RenderConfig
+from ..jit import jit
 from ..models.scene import Camera, Geometry, Scene
+from ..ops import bvh as bvh_mod
 from ..ops.cuda import intersect as pallas_mod
 from ..ops.intersect import Hit
 from ..render import build_accel, make_intersectors, render_ids, resolve_backend
 from . import comm
+
+# The static arguments of the compiled entry points.
+_STATIC = ("cfg", "mesh", "mesh_cfg")
 
 
 def _pixel_ids(cfg: RenderConfig, axis: comm.Axis, device) -> torch.Tensor:
@@ -66,11 +85,13 @@ def replicated(scene: Scene, camera: Camera, axis: comm.Axis):
     return tree.scene, tree.camera
 
 
+@jit(static_argnames=_STATIC)
 def render_sample_dp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh,
                      frame=0, mesh_cfg: MeshConfig = MeshConfig()) -> torch.Tensor:
     """One progressive sample, pixels sharded over ``dp``, geometry
-    replicated -> linear radiance [H, W, 3] on every rank. Differentiable
-    w.r.t. the scene and the camera."""
+    replicated -> linear radiance [H, W, 3] on every rank, as a compiled
+    program (module note). Eager calls are differentiable w.r.t. the
+    scene and the camera."""
     dp = comm.Axis(mesh, mesh_cfg.dp_axis)
     ids = _pixel_ids(cfg, dp, scene.device)
     backend = resolve_backend(scene, cfg)
@@ -100,18 +121,32 @@ def _shard_geometry(geometry: Geometry, tp: int, index: int):
                        for f in dataclasses.fields(Geometry)}), per
 
 
-def _shard_closest(scene: Scene, cfg: RenderConfig, tp: comm.Axis, backend: str):
+def _slice_accel(geo: Geometry, cfg: RenderConfig, backend: str):
+    """The accel of a triangle slice: for ``pallas`` None up to 2048
+    triangles (the panel kernel) and the cluster kernel's SAH layout above
+    (a host build); the LBVH for ``bvh``; None for ``bruteforce``."""
+    with torch.no_grad():
+        if backend == "pallas":
+            return pallas_mod.build_accel(geo, cfg)
+        if backend == "bvh":
+            return bvh_mod.build_bvh(geo, BVHConfig())
+    return None
+
+
+def _shard_closest(scene: Scene, cfg: RenderConfig, tp: comm.Axis, backend: str,
+                   accel=None):
     """(o, d) -> (t, global triangle index, hit), the index and the hit
     flag int32 as they travel (per * tp < 2**31), on this rank's triangle
-    slice. ``pallas`` builds the slice's own accel (the panel kernel up to
-    2048 triangles, the cluster kernel's SAH layout above)."""
+    slice, through the slice's ``accel`` (``_slice_accel``, built here
+    when None)."""
     geo, per = _shard_geometry(scene.geometry, tp.size, tp.index)
+    if accel is None:
+        accel = _slice_accel(geo, cfg, backend)
     if backend == "pallas":
-        closest, _ = pallas_mod.make_intersectors(
-            geo, cfg, accel=pallas_mod.build_accel(geo, cfg))
+        closest, _ = pallas_mod.make_intersectors(geo, cfg, accel=accel)
     else:
         closest, _ = make_intersectors(dataclasses.replace(scene, geometry=geo), cfg,
-                                       backend=backend)
+                                       accel=accel, backend=backend)
     offset = tp.index * per
 
     def local_hit(o, d):
@@ -122,16 +157,16 @@ def _shard_closest(scene: Scene, cfg: RenderConfig, tp: comm.Axis, backend: str)
 
 
 def make_ring_intersector(scene: Scene, cfg: RenderConfig, tp: comm.Axis,
-                          backend: str = "bruteforce"):
+                          backend: str = "bruteforce", accel=None):
     """closest(o, d) -> Hit with the geometry sharded over ``tp``, by ring
-    traversal; the slice's intersector is built once here and reused for
-    every hop and bounce.
+    traversal; the slice's intersector is built once here (on the slice's
+    ``accel``, built here when None) and reused for every hop and bounce.
 
     Each rank intersects its resident rays against its slice, then the
     ray state rotates one hop (rank i to i + 1) and meets the next slice;
     a later slice's hit wins only if strictly nearer (``hit & t < t_``).
     After tp - 1 hops one more rotation brings every ray home."""
-    local_hit = _shard_closest(scene, cfg, tp, backend)
+    local_hit = _shard_closest(scene, cfg, tp, backend, accel)
     perm = [(i, (i + 1) % tp.size) for i in range(tp.size)]
 
     def closest(o, d):
@@ -159,12 +194,13 @@ def make_ring_intersector(scene: Scene, cfg: RenderConfig, tp: comm.Axis,
 
 
 def make_a2a_intersector(scene: Scene, cfg: RenderConfig, tp: comm.Axis,
-                         backend: str = "bruteforce"):
+                         backend: str = "bruteforce", accel=None):
     """closest(o, d) -> Hit with the geometry sharded over ``tp``, by one
     collective round: the row's rays are gathered, each rank intersects
-    all of them against its slice, and the closest hit is combined with
-    ``pmin`` on t; exact-t ties go to the smallest global index."""
-    local_hit = _shard_closest(scene, cfg, tp, backend)
+    all of them against its slice (through its ``accel``, built here when
+    None), and the closest hit is combined with ``pmin`` on t; exact-t
+    ties go to the smallest global index."""
+    local_hit = _shard_closest(scene, cfg, tp, backend, accel)
 
     def closest(o, d):
         R_l = o.shape[0]
@@ -186,15 +222,20 @@ def make_a2a_intersector(scene: Scene, cfg: RenderConfig, tp: comm.Axis,
     return closest
 
 
-def _render_tp(make, scene, camera, cfg, mesh, frame, mesh_cfg, spp_loop: bool):
+def _tp_backend(scene: Scene, cfg: RenderConfig) -> str:
+    """``auto`` and ``mega`` resolve to ``pallas``: the bounce kernels have
+    no intersector entry point."""
+    backend = resolve_backend(scene, cfg)
+    return "pallas" if backend == "mega" else backend
+
+
+def _render_tp(make, scene, camera, accel, cfg, mesh, frame, mesh_cfg, spp_loop: bool):
     dp = comm.Axis(mesh, mesh_cfg.dp_axis)
     tp = comm.Axis(mesh, mesh_cfg.tp_axis)
     ids = _pixel_ids(cfg, dp, scene.device)
-    backend = resolve_backend(scene, cfg)
-    if backend == "mega":
-        backend = "pallas"
+    backend = _tp_backend(scene, cfg)
     scene, camera = replicated(scene, camera, dp)
-    closest = make(scene, cfg, tp, backend)
+    closest = make(scene, cfg, tp, backend, accel)
 
     def any_hit(o, d, t_limit):
         h = closest(o, d)
@@ -206,6 +247,26 @@ def _render_tp(make, scene, camera, cfg, mesh, frame, mesh_cfg, spp_loop: bool):
     return comm.all_gather(local, dp).reshape(cfg.height, cfg.width, 3)
 
 
+@jit(static_argnames=_STATIC)
+def _ring(scene, camera, accel, cfg, mesh, frame, mesh_cfg):
+    return _render_tp(make_ring_intersector, scene, camera, accel, cfg, mesh, frame,
+                      mesh_cfg, spp_loop=True)
+
+
+@jit(static_argnames=_STATIC)
+def _a2a(scene, camera, accel, cfg, mesh, frame, mesh_cfg):
+    return _render_tp(make_a2a_intersector, scene, camera, accel, cfg, mesh, frame,
+                      mesh_cfg, spp_loop=False)
+
+
+def _rank_slice_accel(scene: Scene, cfg: RenderConfig, mesh, mesh_cfg: MeshConfig):
+    """This rank's slice accel, built eagerly: the compiled bodies take it
+    as an argument (the SAH build runs on the host)."""
+    tp = comm.Axis(mesh, mesh_cfg.tp_axis)
+    geo, _ = _shard_geometry(scene.geometry, tp.size, tp.index)
+    return _slice_accel(geo, cfg, _tp_backend(scene, cfg))
+
+
 def render_sample_ring(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0,
                        mesh_cfg: MeshConfig = MeshConfig()) -> torch.Tensor:
     """One progressive sample with pixels sharded over ``dp`` and the
@@ -214,17 +275,19 @@ def render_sample_ring(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fr
     Shadow rays use the same ring (occluded = a ring hit below the light's
     distance). ``auto`` and ``mega`` resolve to ``pallas`` (the bounce
     kernels have no intersector entry point), so each slice runs the
-    panel kernel up to 2048 triangles and the cluster kernel above."""
-    return _render_tp(make_ring_intersector, scene, camera, cfg, mesh, frame, mesh_cfg,
-                      spp_loop=True)
+    panel kernel up to 2048 triangles and the cluster kernel above. The
+    slice's accel is built eagerly, then the body runs as a compiled
+    program (module note)."""
+    return _ring(scene, camera, _rank_slice_accel(scene, cfg, mesh, mesh_cfg), cfg, mesh,
+                 frame, mesh_cfg)
 
 
 def render_sample_a2a(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0,
                       mesh_cfg: MeshConfig = MeshConfig()) -> torch.Tensor:
     """render_sample_ring's all-to-all sibling. As in the JAX package it
     traces one sample seeded by ``frame`` (``cfg.spp`` is not read)."""
-    return _render_tp(make_a2a_intersector, scene, camera, cfg, mesh, frame, mesh_cfg,
-                      spp_loop=False)
+    return _a2a(scene, camera, _rank_slice_accel(scene, cfg, mesh, mesh_cfg), cfg, mesh,
+                frame, mesh_cfg)
 
 
 def train_step_dp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0,
@@ -239,9 +302,24 @@ def train_step_dp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0
     all-reduce starts (``async_op=True``) as soon as the bucket's backward
     has finished and runs behind the next bucket's forward and backward;
     all are waited on before the rows are summed. With one bucket that is
-    one all-reduce after the whole backward. The accel and the
-    intersectors are built once for all buckets (no gradient flows
-    through them)."""
+    one all-reduce after the whole backward. The accel is built once, here
+    and eagerly (for a large scene the native SAH build on the host), and
+    the step's body, forward, backward and all-reduces, runs as a compiled
+    program keyed by ``grad_buckets`` too (module note)."""
+    with torch.no_grad():
+        accel = build_accel(scene, cfg)
+    return _train_step_dp(_detached(scene), _detached(camera), accel, cfg, mesh, frame,
+                          mesh_cfg, grad_buckets)
+
+
+def _detached(tree):
+    """A copy of a Scene or Camera whose leaves are detached (a compiled
+    call takes no argument that requires grad)."""
+    return grad_mod._rebuild(tree, {k: v.detach() for k, v in grad_mod._leaves(tree)})
+
+
+@jit(static_argnames=_STATIC + ("grad_buckets",))
+def _train_step_dp(scene, camera, accel, cfg, mesh, frame, mesh_cfg, grad_buckets):
     dp = comm.Axis(mesh, mesh_cfg.dp_axis)
     ids = _pixel_ids(cfg, dp, scene.device)
     if ids.shape[0] % grad_buckets:
@@ -249,13 +327,11 @@ def train_step_dp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, frame=0
     backend = resolve_backend(scene, cfg)
     one = dataclasses.replace(cfg, spp=1)
     denom = float(cfg.num_pixels * 3)
-    camera = Camera(**{k: v.detach() for k, v in grad_mod._leaves(camera)})
     leaves = dict(grad_mod._leaves(scene))
     params = {k: v.detach().requires_grad_() for k, v in leaves.items()
               if v.is_floating_point()}
     sc = grad_mod._rebuild(scene, params)
     with torch.no_grad():
-        accel = build_accel(sc, cfg)
         inter = (None if backend == "mega"
                  else make_intersectors(sc, cfg, accel=accel, backend=backend))
     flat = torch.empty((grad_buckets, sum(p.numel() for p in params.values())),

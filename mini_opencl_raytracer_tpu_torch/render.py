@@ -19,9 +19,9 @@ average from a gamma-encoded buffer every frame).
 Backends resolve as in the JAX package (``resolve_backend``): ``mega``
 (the CUDA bounce kernels), ``pallas`` (the wavefront integrator on the
 panel kernel for small scenes and the cluster-traversal kernel for large
-ones), ``bvh`` (the wavefront integrator on the LBVH walk, plain PyTorch
-as the JAX package's is jnp) and the ``bruteforce`` oracle (plain
-PyTorch). On the CPU every kernel runs as its plain PyTorch version.
+ones), ``bvh`` (the wavefront integrator on the LBVH walk kernel) and the
+``bruteforce`` oracle (plain PyTorch). On the CPU every kernel runs as
+its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -234,10 +234,9 @@ def _accumulate_frames(scene, camera, cfg, frames, accel, device) -> RenderState
 
 def compiles(scene: Scene, cfg: RenderConfig) -> bool:
     """Whether the entry points run ``scene`` under ``cfg`` as compiled
-    programs on a CUDA device: every backend but ``bvh``, whose LBVH walk
-    is a host loop over the live rays (the JAX walk's ``while_loop`` has
-    no counterpart in a CUDA graph)."""
-    return resolve_backend(scene, cfg) != "bvh"
+    programs on a CUDA device: every backend, as in the JAX package (the
+    LBVH walk is a kernel, csrc/bvh.cu)."""
+    return True
 
 
 def _render(scene, camera, accel, cfg, frames):
@@ -254,11 +253,8 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig, frames: int = 1,
 
     On a CUDA device a compiled program (jit.py), keyed by ``cfg``,
     ``frames`` and the shapes of the scene, camera and accel: the first
-    call runs eagerly and captures, later ones replay; the ``bvh``
-    backend runs eagerly (``compiles``)."""
+    call runs eagerly and captures, later ones replay."""
     scene, camera, device = _on(scene, camera, device)
-    if not compiles(scene, cfg):
-        return _render(scene, camera, accel, cfg, frames)
     return _render_compiled(scene, camera, accel, cfg=cfg, frames=frames)
 
 

@@ -86,6 +86,16 @@ def shard4(ctx):
     yield "ring_big22", {"img": shard.render_sample_ring(big, cam, cfg, m22, mesh_cfg=c22),
                          "resolved": np.array(P.resolve_backend(big, cfg))}
     yield "comm", comm_checks(m22)
+    # The compiled entry points at a frame given as a 0-d tensor (what a
+    # graph reads from memory at each replay).
+    f5 = torch.tensor(5, dtype=torch.int64)
+    yield "dp4_f5", {"img": shard.render_sample_dp(sc, cam, CFG, m41, frame=f5)}
+    yield "ring22_f5", {"img": shard.render_sample_ring(sc, cam, CFG, m22, frame=f5,
+                                                        mesh_cfg=c22)}
+    yield "a2a22_f5", {"img": shard.render_sample_a2a(sc, cam, CFG, m22, frame=f5,
+                                                      mesh_cfg=c22)}
+    loss, g = shard.train_step_dp(sc, cam, CFG, m41, frame=f5, grad_buckets=4)
+    yield "train4_f5", dict({"loss": loss}, **dict(pgrad._leaves(g)))
 
 
 def comm_checks(m22):
@@ -138,6 +148,8 @@ def stages4(ctx):
                                                       capacity=4)}
     yield "ep_grad4", leaves_grad(
         lambda s: (expert.render_sample_ep(s, cam, CFG, m41, ep_axis="dp") ** 2).mean(), sc)
+    yield "ep4_f5", {"img": expert.render_sample_ep(
+        sc, cam, CFG, m41, frame=torch.tensor(5, dtype=torch.int64), ep_axis="dp")}
 
 
 def stages2(ctx):
@@ -146,6 +158,8 @@ def stages2(ctx):
     yield "pp2", {"img": pipeline.render_sample_pp(sc, cam, CFG, pp, n_micro=4)}
     yield "pp_grad2", leaves_grad(
         lambda s: (pipeline.render_sample_pp(s, cam, CFG, pp, n_micro=4) ** 2).mean(), sc)
+    yield "pp2_f5", {"img": pipeline.render_sample_pp(
+        sc, cam, CFG, pp, frame=torch.tensor(5, dtype=torch.int64), n_micro=4)}
 
 
 GROUPS = {"shard4": shard4, "shard3": shard3, "stages4": stages4, "stages2": stages2}

@@ -9,8 +9,15 @@ Cornell and on a seeded soup of 1000 triangles; ``intersect_bvh`` /
 t within 1e-6 relative (the same float32 Möller–Trumbore, summed in
 another order); and ``render(backend="bvh")`` at 16x16 x 2 against JAX's
 bvh render within atol 2e-5, rtol 1e-4 (tests/test_torch_render.py's
-tolerance: the same shading in another operation order).
+tolerance: the same shading in another operation order), through the
+compiled ``render`` (``render.compiles`` is true for every backend).
+The walk's tie rule on rays at shared edges (Cornell, a soup of quads):
+its t is the dense minimum bitwise, and a tie within one leaf goes to the
+first slot; the kernel's wrapper on the CPU is the plain walk. The
+kernel itself runs on the card: tests/test_torch_cuda.py.
 """
+
+import importlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,6 +29,9 @@ import mini_opencl_raytracer_tpu_torch as P
 from mini_opencl_raytracer_tpu.ops import bvh as jbvh
 from mini_opencl_raytracer_tpu_torch.config import BVHConfig
 from mini_opencl_raytracer_tpu_torch.ops import bvh as pbvh
+from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as bvh_kernel
+from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
+from mini_opencl_raytracer_tpu_torch.ops.intersect import ray_triangle
 
 torch.set_num_threads(1)
 
@@ -207,3 +217,55 @@ def test_render_bvh_matches_jax(cornell_p):
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-4)
     # Without a prebuilt accel the backend builds its own: the same image.
     assert torch.equal(P.render(cornell_p, cam, cfg, frames=1), got)
+
+
+def test_render_compiles_every_backend(cornell_p):
+    """render() is the compiled program on every backend, bvh included,
+    and its bvh image over two frames is JAX's jitted render's."""
+    prender = importlib.import_module("mini_opencl_raytracer_tpu_torch.render")
+    for backend in ("auto", "mega", "pallas", "bvh", "bruteforce"):
+        assert prender.compiles(cornell_p, P.RenderConfig(backend=backend))
+    kw = dict(width=16, height=16, bounces=2, backend="bvh")
+    ref = np.asarray(J.render(J.cornell_scene(), J.Camera.default(), J.RenderConfig(**kw),
+                              frames=2))
+    got = P.render(cornell_p, P.Camera.default(device="cpu"), P.RenderConfig(**kw), frames=2)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "quad soup"])
+def test_walk_ties_go_to_the_first_slot_of_a_leaf(scene):
+    """On rays at shared edges, the walk's t is the dense minimum over all
+    slots bitwise, and where the slots at that minimum lie in one leaf the
+    walk returns the first of them (the kernel must do the same)."""
+    sc = (P.cornell_scene(device="cpu") if scene == "cornell"
+          else parity.quad_soup_scene("cpu"))
+    o, d = parity.shared_edge_rays(sc.geometry, 2048)
+    b = pbvh.build_bvh(sc.geometry)
+    t_walk, slot = pbvh.walk_plain(o, d, torch.full((o.shape[0],), 1e5), b, False)
+    t, _, _, valid = ray_triangle(o[:, None], d[:, None], b.pv0[None], b.pv1[None],
+                                  b.pv2[None])
+    t = torch.where(valid & (t < 1e5), t, torch.full_like(t, float("inf")))
+    t_min = t.min(dim=1).values
+    hit = torch.isfinite(t_min)
+    assert hit.float().mean() > 0.9 and torch.equal(t_walk[hit], t_min[hit])
+    tied = (t == t_min[:, None]) & hit[:, None]
+    leaves = torch.where(tied, torch.arange(t.shape[1]) // b.leaf_size, -1)
+    one_leaf = (tied.sum(1) >= 2) & (leaves.amax(1) == torch.where(
+        tied, leaves, torch.full_like(leaves, 1 << 30)).amin(1))
+    assert one_leaf.sum() >= 3
+    first = tied.to(torch.int8).argmax(dim=1)
+    assert torch.equal(slot[one_leaf], first[one_leaf])
+
+
+def test_walk_on_the_cpu_is_the_plain_walk(cornell_p, cornell_bvh):
+    """The kernel's wrapper runs the plain walk on CPU tensors, launching
+    nothing; the plain walk counts leaf_size M-T tests a leaf entered."""
+    o, d = (torch.from_numpy(a) for a in _random_rays(256))
+    t_init = torch.full((256,), 1e5)
+    n0 = dict(bvh_kernel.LAUNCHES)
+    got = bvh_kernel.walk(o, d, t_init, cornell_bvh)
+    stats = torch.zeros(256, dtype=torch.int64)
+    ref = pbvh.walk_plain(o, d, t_init, cornell_bvh, False, stats=stats)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    assert bvh_kernel.LAUNCHES == n0
+    assert (stats % cornell_bvh.leaf_size == 0).all() and (stats[got[0] < 1e5] > 0).all()

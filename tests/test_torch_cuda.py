@@ -1,6 +1,7 @@
 """The CUDA kernels (the bounce kernels forward and backward, the panel
-and cluster-traversal intersectors) against their plain versions on a
-GPU.
+and cluster-traversal intersectors, the LBVH walk) against their plain
+versions on a GPU, and the compiled programs (jit.py) against eager,
+the parallel entry points included on an NCCL group of one process.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
 mode). The unmarked tests check, on the CPU, that the card cases below
@@ -782,7 +783,8 @@ def _compiled_case(name: str, dev):
 
 
 def _counts():
-    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES}
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as pbk
+    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES, **pbk.LAUNCHES}
 
 
 def _since(before):
@@ -851,3 +853,99 @@ def test_eager_path_makes_no_host_sync_on_card(name):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert out is not None
+
+
+# The LBVH walk kernel (csrc/bvh.cu).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell", "quad soup"])
+def test_bvh_kernel_matches_plain_on_card(scene):
+    """The walk kernel's (t, slot) bit for bit the plain walk's, with and
+    without backface culling, on the primary, bounce-1 and shadow rays of
+    a 128x128 render and on rays at shared edges (the first-slot tie
+    rule), on Cornell and on a seeded soup of 4096 triangles (2048
+    quads); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from mini_opencl_raytracer_tpu_torch.ops import bvh as pbvh
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as pbk
+    dev = torch.device("cuda")
+    sc = P.cornell_scene(device=dev) if scene == "cornell" else parity.quad_soup_scene(dev)
+    cfg = P.RenderConfig(width=128, height=128, bounces=2, backend="bruteforce")
+    b = P.build_bvh(sc.geometry)
+    rays = parity.wavefront_rays(sc, P.Camera.default(device=dev), cfg,
+                                 *P.make_intersectors(sc, cfg))
+    full = lambda o: torch.full((o.shape[0],), cfg.t_max, device=dev)
+    sets = [(o, d, full(o)) for o, d in (rays["primary"], rays["bounce1"],
+                                         parity.shared_edge_rays(sc.geometry))]
+    for o, d, t_init in sets + [rays["shadow"]]:
+        for cull in (False, True):
+            n0 = pbk.LAUNCHES["bvh_walk"]
+            got = pbk.walk(o, d, t_init, b, cull)
+            ref = pbvh.walk_plain(o, d, t_init, b, cull)
+            torch.cuda.synchronize()
+            assert pbk.LAUNCHES["bvh_walk"] == n0 + 1
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            assert (got[0] < t_init).any()
+
+
+# The parallel entry points, compiled, on an NCCL group of one process.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["render_sample_dp", "train_step_dp"])
+def test_compiled_parallel_equals_eager_on_card(entry):
+    """At NCCL world 1 the compiled entry point (a replayed graph) is bit
+    for bit the eager call (jit.disable_jit) at tensor frames, at an int
+    frame and after a material update; 3 replays launch the kernels and
+    hand the collectives the bytes of 3 eager calls; a capture that fails
+    under NCCL raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.parallel import comm, mesh as pmesh, shard
+    dev = torch.device("cuda")
+    mesh = pmesh.single_device_mesh(device_type="cuda")
+    cam = P.Camera.default(device=dev)
+    cfg = P.RenderConfig(width=128, height=128, bounces=9)
+    call = {"render_sample_dp": lambda s, f: shard.render_sample_dp(s, cam, cfg, mesh, f),
+            "train_step_dp": lambda s, f: shard.train_step_dp(s, cam, cfg, mesh, f,
+                                                              grad_buckets=4)}[entry]
+
+    def same(a, b):
+        la, da = jit.flatten(a)
+        lb, db = jit.flatten(b)
+        return da == db and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def eager(s, f):
+        with jit.disable_jit():
+            return call(s, f)
+
+    counts = lambda: dict(_counts(), **{"bytes " + k: v for k, v in comm.BYTES.items()})
+    frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+    scene = P.cornell_scene(device=dev)
+    try:
+        with torch.no_grad() if entry == "render_sample_dp" else torch.enable_grad():
+            for f in (frame(3), frame(4), 7, frame(2**32 - 1)):
+                assert same(call(scene, f), eager(scene, f)), f"frame {f}"
+            before = counts()
+            eager(scene, frame(1))
+            one = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+            before = counts()
+            for f in range(3):
+                call(scene, frame(f))
+            three = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+            assert one and three == {k: 3 * v for k, v in one.items()}
+            scene = _update(scene, "diffuse")
+            assert same(call(scene, frame(5)), eager(scene, frame(5)))
+
+        @jit.jit(static_argnames=("mesh",))
+        def syncs(x, mesh):
+            return comm.psum(x, comm.Axis(mesh, "dp")) * x.sum().item()
+
+        with pytest.raises(RuntimeError, match="capturing"):
+            syncs(torch.ones(4, device=dev), mesh)   # the eager call, then its capture
+    finally:
+        shard.render_sample_dp.clear()
+        shard._train_step_dp.clear()
+        dist.destroy_process_group()

@@ -13,9 +13,19 @@ point, directional and spot lights against JAX's; the key of a compiled
 call; and the tree flattening that copies a call's tensors into a
 graph's inputs. 32x32 with at most 4 bounces. The graphs themselves
 run on the card: tests/test_torch_cuda.py (marked ``cuda``) and
-chip_smoke.py phase 16.
+chip_smoke.py phases 15a and 16.
+
+The rule of when a call is compiled, on a gloo group of one process in
+this process: ``comm.Axis.capturable`` is false for a gloo group and true
+for NCCL; ``jit`` captures only tensors on CUDA whose groups are all
+NCCL, runs a gloo group on CUDA eagerly and says so once on stderr. With
+the backend name set to "nccl", a CUDA device put into the key and a
+stand-in for the graph (its capture runs the function, its replay
+nothing), three replays of ``render_sample_dp`` and ``train_step_dp`` add
+three eager calls' collective bytes (``comm.BYTES``).
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -23,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import mini_opencl_raytracer_tpu as J
 import mini_opencl_raytracer_tpu_torch as P
@@ -32,6 +43,8 @@ from mini_opencl_raytracer_tpu.ops import rng as jrng
 from mini_opencl_raytracer_tpu_torch import jit as pjit
 from mini_opencl_raytracer_tpu_torch.ops import lights as plights
 from mini_opencl_raytracer_tpu_torch.ops import rng as prng
+from mini_opencl_raytracer_tpu_torch.parallel import comm, shard
+from mini_opencl_raytracer_tpu_torch.parallel import mesh as pmesh
 from mini_opencl_raytracer_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
@@ -293,3 +306,134 @@ def test_scan_frames_frames_are_base_plus_k():
     assert [int(x) for x in seen] == [U32_MAX, 0, 1]
     assert all(x.dtype == torch.int64 and x.dim() == 0 for x in seen)
     assert float(out) == float(U32_MAX + 1)
+
+
+@pytest.fixture(scope="module")
+def mesh11():
+    """A 1 x 1 (dp, tp) mesh over a gloo group of this process alone."""
+    yield pmesh.single_device_mesh(P.MeshConfig(), device_type="cpu")
+    dist.destroy_process_group()
+
+
+class _StandInGraph:
+    """torch.cuda.CUDAGraph's place on the CPU: the capture (``_capture``
+    below) runs the function once, a replay runs nothing, so a replay
+    returns the captured outputs and adds the captured counts."""
+
+    def replay(self):
+        pass
+
+
+def _as_if_on_cuda(monkeypatch, backend: str):
+    """jit sees ``backend`` groups and a CUDA device in the key; captures
+    run eagerly into _StandInGraph. Returns the capture modes used."""
+    modes = []
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    real_key = pjit.Compiled.key
+
+    def key(self, *args, **kwargs):
+        k, leaves, types, _ = real_key(self, *args, **kwargs)
+        cuda = torch.device("cuda", 0)
+        return k[:4] + (cuda,) + k[5:], leaves, types, cuda
+
+    @contextlib.contextmanager
+    def capture(graph, device, mode):
+        modes.append(mode)
+        yield
+
+    monkeypatch.setattr(pjit.Compiled, "key", key)
+    monkeypatch.setattr(pjit, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    return modes
+
+
+def test_axis_capturable_follows_the_backend(mesh11, monkeypatch):
+    """A gloo group (the CPU mesh's) is not capturable and stages through
+    host memory; an NCCL group is capturable and keeps its tensors."""
+    for name in ("dp", "tp"):
+        ax = comm.Axis(mesh11, name)
+        assert (ax.backend, ax.capturable, ax.staged) == ("gloo", False, True)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    ax = comm.Axis(mesh11, "dp")
+    assert (ax.backend, ax.capturable, ax.staged) == ("nccl", True, False)
+
+
+@pytest.mark.parametrize("backend,device,graph", [
+    ("gloo", "cpu", False), ("nccl", "cpu", False), ("gloo", "cuda", False),
+    ("nccl", "cuda", True)])
+def test_capture_rule(mesh11, monkeypatch, capsys, backend, device, graph):
+    """A graph only for tensors on CUDA whose groups are all NCCL, captured
+    in thread_local mode; anything else runs eagerly at every call, and a
+    gloo group on CUDA says so once on stderr."""
+    if device == "cuda":
+        modes = _as_if_on_cuda(monkeypatch, backend)
+    else:
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    calls = []
+
+    def fn(x, mesh):
+        calls.append(1)
+        return comm.psum(x, comm.Axis(mesh, "dp"))
+
+    prog = pjit.jit(fn, static_argnames=("mesh",))
+    x = torch.arange(4.0)
+    key = prog.key(x, mesh11)[0]
+    assert key[6] == tuple((n, backend, backend == "nccl") for n in ("dp", "tp"))
+    assert prog.captures(key) == graph
+    for _ in range(3):
+        assert torch.equal(prog(x, mesh11), x)
+    assert len(prog._programs) == int(graph)
+    assert len(calls) == (2 if graph else 3)
+    if graph:
+        assert modes == ["thread_local"]
+    err = capsys.readouterr().err
+    announced = err.count("fn runs eagerly on cuda:0: the groups of axes dp (gloo), tp (gloo)")
+    assert announced == int(device == "cuda" and backend == "gloo"), err
+
+
+@pytest.mark.parametrize("entry", ["render_sample_dp", "train_step_dp"])
+def test_replays_add_the_captured_bytes(mesh11, monkeypatch, entry):
+    """Three replays add three eager calls' collective bytes and return the
+    eager call's outputs; the capture's own bytes are not counted."""
+    _as_if_on_cuda(monkeypatch, "nccl")
+    scene, cam = P.cornell_scene(device=CPU), P.Camera.default(device=CPU)
+    cfg = P.RenderConfig(width=16, height=16, bounces=1, backend="bruteforce")
+    call = {"render_sample_dp": lambda: shard.render_sample_dp(scene, cam, cfg, mesh11),
+            "train_step_dp": lambda: shard.train_step_dp(scene, cam, cfg, mesh11,
+                                                         grad_buckets=2)}[entry]
+    compiled = shard.render_sample_dp if entry == "render_sample_dp" else shard._train_step_dp
+    try:
+        for k in comm.BYTES:
+            comm.BYTES[k] = 0
+        first = call()
+        one = {k: v for k, v in comm.BYTES.items() if v}
+        assert len(compiled._programs) == 1 and one
+        for k in comm.BYTES:
+            comm.BYTES[k] = 0
+        outs = [call() for _ in range(3)]
+        assert {k: v for k, v in comm.BYTES.items() if v} == {k: 3 * v for k, v in one.items()}
+        la, da = pjit.flatten(first)
+        for out in outs:
+            lb, db = pjit.flatten(out)
+            assert da == db and all(torch.equal(a, b) for a, b in zip(la, lb))
+    finally:
+        compiled.clear()
+
+
+def test_disable_jit_runs_eagerly(mesh11, monkeypatch):
+    """Inside disable_jit() a call that would be captured runs its
+    function each time and makes no program."""
+    _as_if_on_cuda(monkeypatch, "nccl")
+    calls = []
+
+    def fn(x, mesh):
+        calls.append(1)
+        return comm.psum(x, comm.Axis(mesh, "dp"))
+
+    prog = pjit.jit(fn, static_argnames=("mesh",))
+    with pjit.disable_jit():
+        for _ in range(2):
+            prog(torch.ones(3), mesh11)
+    assert len(calls) == 2 and not prog._programs
+    prog(torch.ones(3), mesh11)
+    assert len(calls) == 4 and len(prog._programs) == 1

@@ -12,7 +12,10 @@ result). Counterparts of tests/test_sharding.py's dp, ring, a2a, LBVH
 ring, mega dp, spp, gradient, bucketed training-step and
 ``dryrun_multichip`` cases, plus a ring whose triangle count tp does not
 divide (tp=3), a ring whose slices exceed 2048 triangles (the cluster
-kernel's plain version per slice), and the collectives themselves.
+kernel's plain version per slice), and the collectives themselves. The
+entry points are compiled programs (jit.py), which on the CPU run their
+bodies eagerly; each is also held against JAX's at a frame given as a
+0-d tensor, the form a captured graph reads at each replay.
 
 Tolerances: images atol 2e-5, rtol 1e-4 (tests/test_torch_render.py);
 gradients scale-normalised atol 1e-4 (tests/test_torch_grad.py).
@@ -167,6 +170,28 @@ def test_dryrun_multichip_step_matches_jax(ranks, scenes):
     new = np.asarray(scene.materials.diffuse - 0.1 * g.materials.diffuse)
     np.testing.assert_allclose(got["new_diffuse"], new, atol=1e-6)
     assert np.abs(got["materials.diffuse"]).max() > 0
+
+
+@pytest.mark.parametrize("name,fn,dp,tp", [
+    ("dp4_f5", jshard.render_sample_dp, 4, 1),
+    ("ring22_f5", jshard.render_sample_ring, 2, 2),
+    ("a2a22_f5", jshard.render_sample_a2a, 2, 2),
+])
+def test_tensor_frame_matches_jax(ranks, scenes, name, fn, dp, tp):
+    """The port's entry point at frame torch.tensor(5) against JAX's at
+    frame 5."""
+    mesh, mc = _mesh(dp, tp)
+    ref = np.asarray(fn(scenes["cornell"], CAM, CFG, mesh, frame=5, mesh_cfg=mc))
+    _image(ranks, "shard4", name, ref)
+
+
+def test_train_step_dp_tensor_frame_matches_jax(ranks, scenes):
+    mesh, mc = _mesh(4, 1)
+    loss, g = jshard.train_step_dp(scenes["cornell"], CAM, CFG, mesh, frame=5, mesh_cfg=mc,
+                                   grad_buckets=4)
+    got = ranks.replicated("shard4", "train4_f5")
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-6)
+    run.assert_grads_close(got, run.jax_leaves(g))
 
 
 def test_collectives(ranks):

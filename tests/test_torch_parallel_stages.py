@@ -10,7 +10,9 @@ fixture, each rank's result equal to rank 0's bitwise. Counterparts of
 tests/test_sharding.py's pipeline (2 stages, 4 microbatches), EP routing
 (ep=4) and EP render (default capacity and capacity 4, which overflows)
 cases, plus a gradient (of the mean squared radiance) through each of
-the pipeline and the EP render against jax.grad.
+the pipeline and the EP render against jax.grad, and each render at a
+frame given as a 0-d tensor (the compiled entry points' replayed form;
+on the CPU they run eagerly) against JAX's at that frame.
 
 Tolerances: images atol 2e-5, rtol 1e-4; gradients scale-normalised atol
 1e-4; the EP routing demo 1e-6, as tests/test_sharding.py.
@@ -124,6 +126,18 @@ def test_ep_gradients_match_jax(ranks, cornell):
     g = jgrad.grad_float_leaves(lambda s: jnp.mean(J.render_sample(s, CAM, CFG) ** 2),
                                 cornell)
     run.assert_grads_close(ranks.replicated("stages4", "ep_grad4"), run.jax_leaves(g))
+
+
+def test_pipeline_tensor_frame_matches_jax(ranks, cornell):
+    ref = np.asarray(render_sample_pp(cornell, CAM, CFG, _pp_mesh(), frame=5, n_micro=4))
+    got = ranks.replicated("stages2", "pp2_f5")["img"]
+    np.testing.assert_allclose(got, ref, atol=run.ATOL, rtol=run.RTOL)
+
+
+def test_ep_render_tensor_frame_matches_jax(ranks, cornell):
+    ref = np.asarray(render_sample_ep(cornell, CAM, CFG, _ep_mesh(), frame=5, ep_axis="dp"))
+    got = ranks.replicated("stages4", "ep4_f5")["img"]
+    np.testing.assert_allclose(got, ref, atol=run.ATOL, rtol=run.RTOL)
 
 
 def _carry(jcfg, pcfg):
