@@ -150,7 +150,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    frame, a tensor frame and after a material update, the launches and
    collective bytes of 3 replays equal to 3 eager calls', five pairs in
    turns by CUDA events and one profiled call each; pp and ep against the
-   single-device render; and a capture that fails under NCCL raises;
+   single-device render; ``render_sample_pp``'s gradient (pp=1, eager,
+   Cornell 512x512 x 8) with remat on and off: bitwise (deterministic
+   algorithms), ms/step, peak memory; and a capture that fails under NCCL
+   raises;
 16. the compiled programs (jit.py: CUDA graphs, the JAX package's
    ``jax.jit``): the eager main step and config 3 frame under
    ``torch.cuda.set_sync_debug_mode("error")``; ``render`` on mega (Cornell 1920x1080 x 9, 4 frames),
@@ -164,6 +167,29 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    and the device busy time of one call of each under torch.profiler.
    Since ``render`` is compiled, phases 5, 10, 11 and 14 call it once at
    the measured key (eager run and capture) before they time a replay.
+17. the backward's two modes. ``remat`` (the default; ops/integrator
+   ._remat): on the wavefront gradient steps, path C (bunny 512x512 x 2)
+   and path A (bunny 1920x1080 x 9, K6, sorted), the loss and every
+   gradient bitwise equal with remat on and off (both under
+   ``torch.use_deterministic_algorithms``), K6 launches a step (the
+   recompute doubles them), the peak device memory of a step, ms/step in
+   five pairs in turns and one profiled step each; sponza 3840x2160 x 9
+   with remat on (peak memory, ms/step) beside the projection of remat off
+   from the bunny's bytes a ray a bounce; the CLI optimize's compiled step
+   on the bunny (a CUDA graph whose backward recomputes through K6, each
+   captured K6 launch with its own counter) against eager, remat on and
+   off. ``bwd_residuals``: the main step (Cornell 1920x1080 x 9) with the
+   residual variants of K2 and K4 (launches, every gradient against the
+   recompute mode per leaf, peak memory, the compiled step in five pairs
+   in turns with one profiled step each, bitwise eager); K2 and K4 with
+   and without rows at bounces 1-8 by device time, each variant bitwise
+   its twin (K4 in the gradient gate with direct specular) and against its
+   plain version at bounce 1 (the rows K4 reads, megakernel.rows_read), in
+   the options of parity.RESID_OPTIONS (Blinn 17 rows, GGX 16, shadow rays
+   17, direct specular 20, soft edges 18), and with Blinn on bounce 1's
+   rays compacted to those with a winner; and on parity.K2_CASES' states
+   in each option. Since remat is on
+   by default, phase 12's path C step launches K6 twice a bounce.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -172,7 +198,8 @@ what the inputs need; the bound that charged every pair is printed beside
 them (phases 5/6 and 13).
 
 The last lines are one JSON object with a summary per kernel (launches
-from the run of the path that uses it, errors, times, bound), the card's
+from the run of the path that uses it, errors, times, bound; the residual
+variants' from phase 17's main step), the card's
 name and power limit, and the device line ``{"ok": true, "device": ...}``.
 """
 
@@ -188,10 +215,12 @@ import time
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
 KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
-           "bvh_walk")
+           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
+           "bounce_fwd_resid": _CSRC + "megakernel.cu",
+           "bounce_bwd_resid": _CSRC + "megakernel_bwd.cu",
            "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
            "bvh_walk": _CSRC + "bvh.cu"}
 # The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
@@ -199,6 +228,10 @@ SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megake
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
             "bounce0_bwd": _TPU + "megakernel.py:1173", "bounce_bwd": _TPU + "megakernel.py:1329",
             "panel": _TPU + "panel.py:83", "clustered": _TPU + "clustered.py:350",
+            # The residual variants (cfg.bwd_residuals): _bounce_fwd_kernel
+            # with save_resid, _bounce_bwd_kernel reading the rows.
+            "bounce_fwd_resid": _TPU + "megakernel.py:1041",
+            "bounce_bwd_resid": _TPU + "megakernel.py:1329",
             "bvh_walk": "mini_opencl_raytracer_tpu/ops/bvh.py:173 _intersect_one"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
@@ -222,6 +255,19 @@ MT_FLOPS = 45
 ADJ_FLOPS = {"live": 303, "diffuse": 77, "blinn": 165, "ggx": 170, "on": 145,
              "diffuse_adj": 67, "blinn_adj": 266, "ggx_adj": 282, "point": 159, "spot": 219,
              "directional": 119, "dspec": 113, "soft": 58, "raygen": 85}
+# Of those, the operations K4 with rows (kResid) reads instead of
+# computing, counted the same way (a draw's scaling counts one; its integer
+# hash, like everywhere here, none): per ray with a winner the 1 / det and
+# the pick's draw and compare (3); soft edges the margin and the sigmoid
+# (9); the diffuse draws' terms (11); Blinn's draws, angle, cos, sin, the
+# clamp and log of u2, cos_h's divide and exp, sin_h's sqrt, cos^alpha's
+# divide, product and exp, the roughness (17); GGX's draws, angle, cos,
+# sin, roughness, clamped u2, cos_h's clamp and sqrt, sin_h's sqrt (14);
+# per light seen the distance of the replay (dot, max, sqrt) and of the
+# adjoint (max, sqrt) (9); direct specular the replay's two max and pow,
+# the adjoint's pow and log (5).
+RESID_SAVED = {"live": 3, "soft": 9, "diffuse": 11, "blinn": 17, "ggx": 14, "light": 9,
+               "dspec": 5}
 
 
 def log(msg: str) -> None:
@@ -368,26 +414,57 @@ def profile_step(torch, step, card: str, label: str = "6 profile") -> None:
         log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:5d} x {e.key[:100]}")
 
 
-def adjoint_flops(torch, rng, cfg, lv, seeds, alive, winner, occ, alive_next, bounce: int,
-                  first: bool) -> int:
-    """Float operations the backward of one bounce needs on these rays:
-    one replay and its adjoint per ray with a winner, by lobe and by light
-    type (ADJ_FLOPS), raygen and its adjoint for every ray of K3."""
-    F = ADJ_FLOPS
-    n = lambda m: int(m.sum().item())
+def adjoint_classes(rng, cfg, lv, seeds, alive, winner, occ, alive_next, bounce: int):
+    """The rays that set a bounce's backward work: (live: alive with a
+    winner, spec: the lobe pick of the bounce's draw, on: live paths that go
+    on, [(light kind, the rays on that see it)])."""
     live = (alive > 0) & (winner >= 0)
-    on = live & (alive_next > 0)      # paths that go on: lobe and light adjoints
+    on = live & (alive_next > 0)
     u = rng.uniform(rng.from_i32_bits(seeds), rng.bounce_site(bounce, rng.SITE_LOBE))
     spec = u > (1.0 - cfg.specular_prob)
-    lobe = "ggx" if cfg.specular_model == "ggx" else "blinn"
-    ops = n(live) * (F["live"] + (F["soft"] if cfg.soft_edge_sigma > 0 else 0))
-    ops += n(live & ~spec) * F["diffuse"] + n(live & spec) * F[lobe]
-    ops += n(on) * F["on"] + n(on & ~spec) * F["diffuse_adj"] + n(on & spec) * F[lobe + "_adj"]
+    seen = []
     for li, t in enumerate(lv[:, 6].round().int().tolist()):
-        seen = on & (((occ >> li) & 1) == 0) if cfg.shadow_rays else on
         kind = "directional" if t <= 0 else "point" if t == 1 else "spot"
-        ops += n(seen) * (F[kind] + (F["dspec"] if cfg.direct_specular else 0))
+        seen.append((kind, on & (((occ >> li) & 1) == 0) if cfg.shadow_rays else on))
+    return live, spec, on, seen
+
+
+def adjoint_flops(torch, rng, cfg, lv, seeds, alive, winner, occ, alive_next, bounce: int,
+                  first: bool, resid: bool = False) -> int:
+    """Float operations the backward of one bounce needs on these rays:
+    one replay and its adjoint per ray with a winner, by lobe and by light
+    type (ADJ_FLOPS), raygen and its adjoint for every ray of K3. With
+    ``resid`` (K4 reading the rows) less what the rows replace
+    (RESID_SAVED)."""
+    F = ADJ_FLOPS
+    S = RESID_SAVED if resid else dict.fromkeys(RESID_SAVED, 0)
+    n = lambda m: int(m.sum().item())
+    live, spec, on, seen = adjoint_classes(rng, cfg, lv, seeds, alive, winner, occ, alive_next,
+                                           bounce)
+    lobe = "ggx" if cfg.specular_model == "ggx" else "blinn"
+    soft = F["soft"] - S["soft"] if cfg.soft_edge_sigma > 0 else 0
+    dspec = F["dspec"] - S["dspec"] if cfg.direct_specular else 0
+    ops = n(live) * (F["live"] - S["live"] + soft)
+    ops += n(live & ~spec) * (F["diffuse"] - S["diffuse"]) + n(live & spec) * (F[lobe] - S[lobe])
+    ops += n(on) * F["on"] + n(on & ~spec) * F["diffuse_adj"] + n(on & spec) * F[lobe + "_adj"]
+    for kind, m in seen:
+        ops += n(m) * (F[kind] - S["light"] + dspec)
     return ops + (alive.numel() * F["raygen"] if first else 0)
+
+
+def resid_row_bytes(mk, cfg, num_lights: int, classes, write: bool) -> int:
+    """Bytes of the known-value rows on these rays (mk.rows_read): K2
+    (``write``) writes the shared rows, the picked lobe's and every light's
+    of each ray alive with a winner; K4 reads the same but a light's only
+    on the rays that see it. ``classes``: adjoint_classes'."""
+    live, spec, _, seen = classes
+    read = mk.rows_read(cfg, num_lights)
+    n = lambda m: int(m.sum().item())
+    per_light = 3 if cfg.direct_specular else 1
+    rows = (n(live) * (len(read["all"]) - num_lights * per_light)
+            + n(live & ~spec) * len(read["diffuse"]) + n(live & spec) * len(read["specular"]))
+    rows += sum(n(live if write else m) for _, m in seen) * per_light
+    return 4 * rows
 
 
 def bwd_bytes(cfg, alive, winner, first: bool) -> int:
@@ -1283,6 +1360,26 @@ def phase15(mrt, torch, parity, grad, dev, card: str, cam, cornell, bunny, sponz
         for fn in compiled_fns:
             fn.clear()
 
+        # The pipeline's gradient (eager: a compiled parallel call takes no
+        # argument that requires grad) with remat on and off: its stages'
+        # make_bounce_step checkpoints each bounce (phase 17 has the rest).
+        pp_g, pp_ms, pp_pk = {}, {}, {}
+        for r in (False, True):
+            c8 = dataclasses.replace(cfg512(8), remat=r)
+            step = lambda c8=c8: grad.grad_float_leaves(
+                lambda sc: pipeline.render_sample_pp(sc, cam, c8, mpp, 0, n_micro=2).mean(),
+                cornell)
+            with disable_jit():
+                pp_g[r] = deterministic(torch, step)
+                _, pp_pk[r] = peak_mib(torch, step)
+                pp_ms[r] = median(in_turns({"s": lambda i: step()}, pairs=3)["s"])
+        if not same_tree(torch, pp_g[False], pp_g[True]):
+            raise AssertionError("15a: render_sample_pp gradients differ with remat on and off")
+        log(f"[15a nccl] render_sample_pp pp=1 gradient (Cornell 512x512 x 8, 2 microbatches, "
+            f"eager): bitwise equal with remat on and off (deterministic algorithms); ms/step "
+            f"off {pp_ms[False]:.2f}, on {pp_ms[True]:.2f}; peak memory off {pp_pk[False]:.1f} "
+            f"MiB, on {pp_pk[True]:.1f} MiB ({card})")
+
         # Under NCCL a capture that fails raises (here: a host read).
         @jit(static_argnames=("mesh",))
         def syncs(x, mesh):
@@ -1389,6 +1486,29 @@ def run_counts() -> dict:
     return dict(kernel_counts(), **{f"bytes {k}": v for k, v in comm.BYTES.items() if v})
 
 
+def in_turns(fns: dict, units: int = 1, pairs: int = 5) -> dict:
+    """ms per unit of each of two calls by CUDA events, ``pairs`` pairs in
+    turns (a, b; b, a; ...); each call gets the pair's index: {name: [ms,
+    ...]}."""
+    names = list(fns)
+    t = {n: [] for n in names}
+    for i in range(pairs):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            t[n].append(events_ms(lambda: fns[n](i), units))
+    return t
+
+
+def median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def busy_line(b, ms, units: int = 1) -> str:
+    """busy_ms's (busy, wall) per unit, with the idle share."""
+    if b is None:
+        return "not measured"
+    return f"busy {b / units:.4f} of {ms / units:.4f} ms, idle {max(0.0, 1.0 - b / ms):.3f}"
+
+
 def compiled_against_eager(torch, label: str, scene, acc, compiled, eager, checks,
                            units: int, unit: str, card: str, grad: bool = False) -> dict:
     """A compiled call against the eager call, each called as
@@ -1417,28 +1537,18 @@ def compiled_against_eager(torch, label: str, scene, acc, compiled, eager, check
         if not one or three != {k: 3 * v for k, v in one.items()}:
             raise AssertionError(f"{label}: launches and bytes of 3 replays {three}, one "
                                  f"eager call {one}")
-        pairs = []
-        for i in range(5):
-            order = ("eager", "compiled") if i % 2 == 0 else ("compiled", "eager")
-            t = {}
-            for side in order:
-                fn = eager if side == "eager" else compiled
-                t[side] = events_ms(lambda: fn(scene, acc, frame(100 + i)), units)
-            pairs.append(t)
-        busy_e, ms_be = busy_ms(torch, lambda: eager(scene, acc, frame(7)))
-        busy_c, ms_bc = busy_ms(torch, lambda: compiled(scene, acc, frame(7)))
-    med = lambda side: sorted(p[side] for p in pairs)[2]
-    wins = sum(p["compiled"] < p["eager"] for p in pairs)
-    fmt = lambda side: ", ".join(f"{p[side]:.4f}" for p in pairs)
-    busy = lambda b, ms: ("not measured" if b is None else
-                          f"{b / units:.4f} ms/{unit} busy of {ms / units:.4f}, idle "
-                          f"{max(0.0, 1.0 - b / ms):.3f}")
+        t = in_turns({"eager": lambda i: eager(scene, acc, frame(100 + i)),
+                      "compiled": lambda i: compiled(scene, acc, frame(100 + i))}, units)
+        busy_e = busy_ms(torch, lambda: eager(scene, acc, frame(7)))
+        busy_c = busy_ms(torch, lambda: compiled(scene, acc, frame(7)))
+    wins = sum(c < e for c, e in zip(t["compiled"], t["eager"]))
+    fmt = lambda side: ", ".join(f"{x:.4f}" for x in t[side])
     log(f"{label}: bitwise equal to eager ({'; '.join(w for w, _, _ in checks)}); "
         f"launches and bytes of 3 replays = 3 x {one}")
-    log(f"{label}: ms/{unit} eager {med('eager'):.4f} (median; {fmt('eager')}), "
-        f"compiled {med('compiled'):.4f} ({fmt('compiled')}); compiled faster in "
-        f"{wins}/5 pairs; profiled: eager {busy(busy_e, ms_be)}, compiled "
-        f"{busy(busy_c, ms_bc)} ({card})")
+    log(f"{label}: ms/{unit} eager {median(t['eager']):.4f} (median; {fmt('eager')}), "
+        f"compiled {median(t['compiled']):.4f} ({fmt('compiled')}); compiled faster in "
+        f"{wins}/5 pairs; profiled, per {unit}: eager {busy_line(*busy_e, units)}, compiled "
+        f"{busy_line(*busy_c, units)} ({card})")
     return three
 
 
@@ -1542,6 +1652,373 @@ def phase16(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, main_cf
     _render_compiled.clear()
     log(f"[16 compiled] phase 16 in {time.perf_counter() - t_phase:.1f} s")
     return bvh_launches
+
+
+def peak_mib(torch, fn):
+    """(fn(), the peak device memory in MiB that the call allocates above
+    what was allocated before it: torch.cuda.max_memory_allocated after
+    reset_peak_memory_stats)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def deterministic(torch, fn):
+    """fn() under torch.use_deterministic_algorithms(True): index_add_ and
+    the gathers' backward then sum in a fixed order (their CUDA kernels
+    otherwise add with atomics, in run order). New tensors are not filled
+    (the mode's fill_uninitialized_memory): every kernel writes its
+    outputs. With the fill, a path A step (bunny 1080p x 9) took 11.5 s
+    in this mode against ~0.5 s in the default one."""
+    import torch.utils.deterministic as det
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def compacted_times(torch, mk, parity, table, tris, lv, state, seeds, kc, b: int, cfg, gen,
+                    k2: dict, k4: dict, card: str) -> None:
+    """K2 and K4 with and without rows (device time) on bounce ``b``'s rays
+    compacted to those alive with a winner, in ray order, beside their
+    ratios on the rays as they come (``k2`` / ``k4``' first entries): every
+    lane of a warp then holds a ray whose rows are written and read, and a
+    warp's rows sit on consecutive entries, so the ratio's fall measures
+    what the scattered rows cost."""
+    keep = parity.live_rays(state[3], kc[5]).nonzero().squeeze(1)
+    st = tuple(x[:, keep].contiguous() for x in state[:3]) + (state[3][keep].contiguous(),)
+    sd = seeds[keep].contiguous()
+    ck = mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg)
+    rows = mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg, save_resid=True)[7]
+    args = (table, lv, *st, sd, ck[5], ck[6], parity.cotangents(ck[2], gen), b, cfg)
+    t = {"K2": device_ms(lambda: mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg)),
+         "K2 with rows": device_ms(lambda: mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg,
+                                                         save_resid=True)),
+         "K4": device_ms(lambda: mk.bounce_bwd(*args)),
+         "K4 with rows": device_ms(lambda: mk.bounce_bwd(*args, resid=rows))}
+    log(f"[17 time] 1080p bounce {b} compacted to its {keep.numel()} rays with a winner, device "
+        f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f"; with rows / without: K2 {t['K2 with rows'] / t['K2']:.3f} (as the rays come "
+        f"{k2['on'][0] / k2['off'][0]:.3f}), K4 {t['K4 with rows'] / t['K4']:.3f} (as they "
+        f"come {k4['on'][0] / k4['off'][0]:.3f}) ({card})")
+
+
+def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bunny, sponza,
+            accels, main_cfg, main_ids) -> dict:
+    """17. The backward's two modes. 17.1 ``remat`` on the wavefront
+    gradient steps (path C, bunny 512x512 x 2; path A, bunny 1920x1080 x
+    9): loss and every gradient bitwise equal between remat on and off
+    (both under torch.use_deterministic_algorithms), K6 launches a step (B
+    off, 2B on: the recompute), peak memory of a step, ms/step in five
+    pairs in turns and one profiled step each; sponza 3840x2160 x 9 with
+    remat on (peak memory, ms/step) beside the bunny-derived projection of
+    remat off; the CLI optimize's compiled value-and-grad step on the bunny
+    (a CUDA graph whose backward recomputes through K6): against eager, K6
+    launches a replay, ms/step and peak memory, remat on and off. 17.2
+    ``bwd_residuals`` on the main step (Cornell 1920x1080 x 9, mega):
+    launches (the residual variants of K2 and K4), every gradient against
+    the recompute mode (gate, and bitwise where the design allows; largest
+    difference per leaf), peak memory, the compiled step in five pairs in
+    turns with one profiled step each; K2 and K4 with and without rows at
+    bounces 1-8 of the main path by device time, each variant bitwise its
+    recompute twin (K4 in the gate with direct specular) and against its
+    plain version at bounce 1 (the rows K4 reads on live rays, gradients),
+    in the options of parity.RESID_OPTIONS (Blinn, GGX, shadow rays, direct
+    specular, soft edges), with Blinn also on bounce 1's rays compacted to
+    those with a winner (compacted_times); then on parity.K2_CASES' states
+    in each option.
+    Returns the two variants' rows of the kernels line."""
+    from mini_opencl_raytracer_tpu_torch.jit import disable_jit, jit
+    t_phase = time.perf_counter()
+    loss_fn = lambda im: im.mean()
+
+    # 17.1 remat.
+    acc_b = accels["bunny"]
+    per_ray = {}
+    for label, cfg in (("path C (bunny 512x512 x 2)", mrt.RenderConfig(width=512, height=512,
+                                                                       bounces=2)),
+                       ("path A (bunny 1920x1080 x 9)", mrt.RenderConfig(width=1920, height=1080,
+                                                                         bounces=9))):
+        steps = {r: (lambda r=r: grad.loss_and_grads(bunny, cam, dataclasses.replace(cfg, remat=r),
+                                                    loss_fn, accel=acc_b))
+                 for r in (False, True)}
+        for r in (False, True):
+            steps[r]()
+        torch.cuda.synchronize()
+        got = {r: deterministic(torch, steps[r]) for r in (False, True)}
+        if not same_tree(torch, got[False], got[True]):
+            raise AssertionError(f"[17 remat] {label}: gradients of remat on and off differ")
+        default = [steps[False]() for _ in range(2)]
+        torch.cuda.synchronize()
+        rerun = same_tree(torch, *default)
+        lau = {}
+        for r in (False, True):
+            reset_all()
+            steps[r]()
+            torch.cuda.synchronize()
+            lau[r] = kernel_counts()
+            want = {"clustered_closest": cfg.bounces * (2 if r else 1)}
+            if lau[r] != want:
+                raise AssertionError(f"[17 remat] {label} remat={r}: launches {lau[r]}, "
+                                     f"expected {want}")
+        peak = {r: peak_mib(torch, steps[r])[1] for r in (False, True)}
+        t = in_turns({"off": lambda i: steps[False](), "on": lambda i: steps[True]()})
+        busy = {r: busy_ms(torch, steps[r]) for r in (False, True)}
+        rays = cfg.num_pixels * cfg.bounces
+        per_ray[label] = {r: peak[r] * 2**20 / rays for r in (False, True)}
+        log(f"[17 remat] {label}: loss and every gradient bitwise equal, remat on vs off "
+            f"(deterministic algorithms; two default-mode steps bitwise: {rerun}, index_add_'s "
+            f"atomics); K6 launches a step off {lau[False]}, on "
+            f"{lau[True]}")
+        log(f"[17 remat] {label}: peak memory a step off {peak[False]:.1f} MiB "
+            f"({per_ray[label][False]:.1f} B a ray a bounce), on {peak[True]:.1f} MiB "
+            f"({per_ray[label][True]:.1f} B), {peak[False] / peak[True]:.2f}x less; ms/step off "
+            f"{median(t['off']):.3f} (median; {', '.join(f'{x:.3f}' for x in t['off'])}), on "
+            f"{median(t['on']):.3f} ({', '.join(f'{x:.3f}' for x in t['on'])}), on / off "
+            f"{median(t['on']) / median(t['off']):.3f}; profiled: off {busy_line(*busy[False])}, "
+            f"on {busy_line(*busy[True])} ({card})")
+
+    cfg4 = mrt.RenderConfig(width=3840, height=2160, bounces=9)
+    step4 = lambda: grad.loss_and_grads(sponza, cam, cfg4, loss_fn, accel=accels["sponza"])
+    res4, pk4 = peak_mib(torch, step4)
+    for name, g in list(grad._leaves(res4[1])) + list(grad._leaves(res4[2])):
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"[17 remat] sponza 4K x 9: gradient of {name} not finite")
+    del res4
+    ms4 = events_ms(step4)
+    rays4 = cfg4.num_pixels * cfg4.bounces
+    proj = per_ray["path A (bunny 1920x1080 x 9)"][False] * rays4 / 2**30
+    log(f"[17 remat] sponza 3840x2160 x 9, remat on: peak memory {pk4:.1f} MiB "
+        f"({pk4 * 2**20 / rays4:.1f} B a ray a bounce), {ms4:.1f} ms/step, all gradients "
+        f"finite; remat off not run: projection from the bunny 1080p step's "
+        f"{per_ray['path A (bunny 1920x1080 x 9)'][False]:.1f} B a ray a bounce, {proj:.1f} GiB "
+        f"(a projection, not a measurement; {card})")
+
+    # The CLI optimize's compiled step (cli.cmd_optimize) on the bunny.
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    with torch.no_grad():
+        target = mrt.render_sample(bunny, cam, cfg3, frame=0, accel=acc_b)
+    kd0 = (bunny.materials.diffuse * 0.2 + 0.4).clamp(0.0, 1.0)
+
+    def value_and_grad(cfg):
+        def fn(diffuse):
+            diffuse = diffuse.detach().requires_grad_()
+            s = dataclasses.replace(bunny, materials=dataclasses.replace(bunny.materials,
+                                                                         diffuse=diffuse))
+            loss = torch.mean((mrt.render_sample(s, cam, cfg, frame=0, accel=acc_b) - target) ** 2)
+            (g,) = torch.autograd.grad(loss, diffuse)
+            return loss.detach(), g
+        return fn
+
+    for r in (False, True):
+        fn = value_and_grad(dataclasses.replace(cfg3, remat=r))
+        comp = jit(fn)
+        before = torch.cuda.memory_allocated()
+        _, pk = peak_mib(torch, lambda: comp(kd0))   # the eager run and the capture
+        pool = (torch.cuda.memory_allocated() - before) / 2**20
+        with disable_jit():
+            ref = fn(kd0)
+        reset_all()
+        rep = comp(kd0 * 0.9)
+        torch.cuda.synchronize()
+        n = kernel_counts()
+        want = {"clustered_closest": cfg3.bounces * (2 if r else 1)}
+        if n != want:
+            raise AssertionError(f"[17 remat] compiled optimize step remat={r}: launches {n}, "
+                                 f"expected {want}")
+        rep = comp(kd0)
+        st = parity.check_grad_sum(f"[17 remat] compiled optimize step remat={r}", rep[1], ref[1])
+        rel = abs(rep[0].item() - ref[0].item()) / abs(ref[0].item())
+        if rel > 1e-5:
+            raise AssertionError(f"[17 remat] compiled optimize step: loss {rep[0]} vs {ref[0]}")
+        ms = median(in_turns({"c": lambda i: comp(kd0)}, pairs=3)["c"])
+        log(f"[17 remat] the CLI optimize's compiled step on the bunny (512x512 x 2, K6), "
+            f"remat={r}: a replay launches {n}; against eager: loss rel {rel:.1e}, d/d diffuse "
+            f"max|diff| / max|ref| {st['rel']:.2e} (gate 2e-3); {ms:.3f} ms/step; the first "
+            f"call (eager run and capture) peaks at {pk:.1f} MiB, the graph keeps {pool:.1f} "
+            f"MiB ({card})")
+        comp.clear()
+
+    # 17.2 bwd_residuals on the main step.
+    cfg_r = dataclasses.replace(main_cfg, bwd_residuals=True)
+    step_r = lambda: grad.loss_and_grads(cornell, cam, cfg_r, loss_fn)
+    step_c = lambda: grad.loss_and_grads(cornell, cam, main_cfg, loss_fn)
+    step_r()
+    step_c()
+    torch.cuda.synchronize()
+    reset_counts(mk.LAUNCHES)
+    res_r = step_r()
+    torch.cuda.synchronize()
+    launches = dict(mk.LAUNCHES)
+    want = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=1, bounce_fwd_resid=8, bounce0_bwd=1,
+                bounce_bwd_resid=8)
+    if launches != want:
+        raise AssertionError(f"[17 resid] launches of a step {launches}, expected {want}")
+    res_c = step_c()
+    torch.cuda.synchronize()
+    diffs = []
+    for (name, a), (_, b) in zip(list(grad._leaves(res_r[1])) + list(grad._leaves(res_r[2])),
+                                 list(grad._leaves(res_c[1])) + list(grad._leaves(res_c[2]))):
+        if not a.is_floating_point():
+            continue
+        st = parity.check_grad_sum(f"[17 resid] {name}", a, b)
+        same = " =" if torch.equal(a, b) else ""
+        diffs.append(f"{name} {st['max']:.2e}/{st['scale']:.2e}{same}")
+    log(f"[17 resid] loss_and_grads Cornell 1920x1080 x 9, bwd_residuals on vs off: loss "
+        f"{res_r[0].item():.7f} vs {res_c[0].item():.7f} (bitwise "
+        f"{torch.equal(res_r[0], res_c[0])}); launches a step {launches}; max|diff| / max|ref| "
+        f"per leaf (= bitwise): {'; '.join(diffs)}")
+    del res_r, res_c
+    peak = {"on": peak_mib(torch, step_r)[1], "off": peak_mib(torch, step_c)[1]}
+    frame = lambda f: torch.full((), f, dtype=torch.int64, device=dev)
+    def step_with(c):
+        return lambda s, a, f: grad.loss_and_grads(s, cam, c, loss_fn)
+
+    comp = {"on": jit(step_with(cfg_r)), "off": jit(step_with(main_cfg))}
+    with torch.enable_grad():
+        for m in comp:
+            comp[m](cornell, None, frame(0))
+        eager_r = grad.loss_and_grads(cornell, cam, cfg_r, loss_fn)
+        if not same_tree(torch, comp["on"](cornell, None, frame(1)), eager_r):
+            raise AssertionError("[17 resid] the compiled step with rows differs from eager")
+        t = in_turns({m: (lambda i, m=m: comp[m](cornell, None, frame(3))) for m in ("off", "on")})
+        busy = {m: busy_ms(torch, lambda m=m: comp[m](cornell, None, frame(4))) for m in comp}
+    log(f"[17 resid] compiled step (jit of loss_and_grads, Cornell 1920x1080 x 9), bitwise "
+        f"eager with rows: ms/step off {median(t['off']):.4f} (median; "
+        f"{', '.join(f'{x:.4f}' for x in t['off'])}), on {median(t['on']):.4f} "
+        f"({', '.join(f'{x:.4f}' for x in t['on'])}), on / off "
+        f"{median(t['on']) / median(t['off']):.3f}; profiled: off {busy_line(*busy['off'])}, on "
+        f"{busy_line(*busy['on'])}; peak memory of an eager step off {peak['off']:.1f} MiB, on "
+        f"{peak['on']:.1f} MiB ({card})")
+    for c in comp.values():
+        c.clear()
+
+    # K2 / K4 with and without rows at bounces 1-8 of the main path, and
+    # each variant against its plain version at bounce 1, in each option.
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    camv = mk.camera_vector(cam)
+    row = {}
+    for option, (kw, n_rows) in parity.RESID_OPTIONS.items():
+        cfg = dataclasses.replace(main_cfg, **kw)
+        table, tris, lv = mk._tables(cornell, cfg, None)
+        b0 = mk.bounce0_fwd(table, tris, lv, camv, main_ids, 0, cfg)
+        seeds = b0[7]
+        state = b0[:4]
+        k2, k4 = {"off": [], "on": []}, {"off": [], "on": []}
+        for b in range(1, cfg.bounces):
+            kc = mk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg)
+            kr = mk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg, save_resid=True)
+            torch.cuda.synchronize()
+            if kr[7].shape[0] != n_rows or not all(torch.equal(x, y) for x, y in zip(kr[:7], kc)):
+                raise AssertionError(f"[17 resid] {option} bounce {b}: K2 with rows "
+                                     f"({kr[7].shape[0]} rows) changes its outputs")
+            cot = parity.cotangents(kc[2], gen)
+            args = (table, lv, *state, seeds, kc[5], kc[6], cot, b, cfg)
+            g_r = mk.bounce_bwd(*args, resid=kr[7])
+            g_c = mk.bounce_bwd(*args)
+            torch.cuda.synchronize()
+            bw = parity.check_resid_bwd(f"[17 resid] {option} bounce {b} K4", g_r, g_c, cfg)
+            k2["off"].append(device_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, seeds, b,
+                                                             cfg)))
+            k2["on"].append(device_ms(lambda: mk.bounce_fwd(table, tris, lv, *state, seeds, b,
+                                                            cfg, save_resid=True)))
+            k4["off"].append(device_ms(lambda: mk.bounce_bwd(*args)))
+            k4["on"].append(device_ms(lambda: mk.bounce_bwd(*args, resid=kr[7])))
+            if b == 1:
+                pl = mk.bounce_fwd_plain(table, tris, lv, *state, seeds, b, cfg, save_resid=True)
+                rows = parity.check_resid_rows(f"[17 resid] {option} K2 rows", kr[7], pl[7],
+                                               state[3], kr[5], cfg, lv.shape[0])
+                pg = mk.bounce_bwd_plain(*args, resid=pl[7])
+                gst = parity.check_grads(f"[17 resid] {option} K4 with rows", g_r, pg,
+                                         parity.BOUNCE_GRADS)
+                live = int(rows["live"])
+                if option == "blinn":
+                    p2 = time_ms(lambda: mk.bounce_fwd_plain(table, tris, lv, *state, seeds, b,
+                                                             cfg, save_resid=True), 2)
+                    p4 = time_ms(lambda: mk.bounce_bwd_plain(*args, resid=pl[7]), 2)
+                    tab_bytes = (table.numel() + tris.numel() + lv.numel()) * 4
+                    lim = torch.full((main_ids.numel(),), min(cfg.t_max, 3.0e38), device=dev)
+                    need = hit_pairs(torch, tris, state[0].T, state[1].T, lim, cfg.backface_cull,
+                                     state[3] > 0)
+                    classes = adjoint_classes(rng, cfg, lv, seeds, state[3], kc[5], kc[6],
+                                              kc[3], b)
+                    flops4 = adjoint_flops(torch, rng, cfg, lv, seeds, state[3], kc[5], kc[6],
+                                           kc[3], b, False, resid=True)
+                    rows2 = resid_row_bytes(mk, cfg, lv.shape[0], classes, write=True)
+                    rows4 = resid_row_bytes(mk, cfg, lv.shape[0], classes, write=False)
+                    by2 = fwd_bytes(state[3]) + rows2 + tab_bytes
+                    by4 = (bwd_bytes(cfg, state[3], kc[5], False) - live * 4 + rows4
+                           + 2 * (table.numel() + lv.numel()) * 4)
+                    row = {"bounce_fwd_resid": dict(ms=k2["on"][0], plain_ms=p2,
+                                                    bound=bound(by2, need * MT_FLOPS),
+                                                    err=rows["max_abs_err"]),
+                           "bounce_bwd_resid": dict(ms=k4["on"][0], plain_ms=p4,
+                                                    bound=bound(by4, flops4),
+                                                    err=gst["max_abs_err"])}
+                    log(f"[17 bound] bounce_fwd_resid at 1080p bounce 1: {by2 / 1e6:.2f} MB "
+                        f"({live} rays with a winner write {rows2 / 1e6:.2f} MB of rows), bound "
+                        f"{row['bounce_fwd_resid']['bound']['bound_ms']:.4f} ms; "
+                        f"bounce_bwd_resid: {by4 / 1e6:.2f} MB ({rows4 / 1e6:.2f} MB of rows "
+                        f"read, no seed), {flops4 / 1e9:.4f} GFLOP, bound "
+                        f"{row['bounce_bwd_resid']['bound']['bound_ms']:.4f} ms; plain {p2:.3f} / "
+                        f"{p4:.3f} ms ({card})")
+                if option == "blinn":
+                    compacted_times(torch, mk, parity, table, tris, lv, state, seeds, kc, b, cfg,
+                                    gen, k2, k4, card)
+                log(f"[17 resid] {option}, 1080p bounce 1: K2 rows ({n_rows} a ray) vs plain on "
+                    f"{live} live rays: max {rows['max']:.2e}, bitwise {rows['bitwise']}; K4 "
+                    f"with rows bitwise K4 without: {bw['bitwise']}; vs plain max "
+                    f"{gst['max_abs_err']:.2e}")
+            state = kc[:4]
+        fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
+        log(f"[17 time] {option}, 1080p bounces 1-8, device ms: K2 off [{fmt(k2['off'])}] sum "
+            f"{sum(k2['off']):.4f}, with rows [{fmt(k2['on'])}] sum {sum(k2['on']):.4f}; K4 off "
+            f"[{fmt(k4['off'])}] sum {sum(k4['off']):.4f}, with rows [{fmt(k4['on'])}] sum "
+            f"{sum(k4['on']):.4f} ({card})")
+
+    # The variants on K2_CASES' states, in each option.
+    n_cases = 0
+    for option in parity.RESID_OPTIONS:
+        for name in parity.K2_CASES:
+            label = f"[17 cases] {option} / {name}"
+            scene, cfg, state, b = parity.resid_case(name, option, dev)
+            table, tris, lv = mk._tables(scene, cfg, None)
+            kr = mk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
+            kc = mk.bounce_fwd(table, tris, lv, *state, b, cfg)
+            pl = mk.bounce_fwd_plain(table, tris, lv, *state, b, cfg, save_resid=True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(kr[:7], kc)):
+                raise AssertionError(f"{label}: K2 with rows changes its outputs")
+            parity.check_bitwise(label, kr[:7], pl[:7])
+            rows = parity.check_resid_rows(label, kr[7], pl[7], state[3], kr[5], cfg, lv.shape[0])
+            cot = parity.cotangents(kc[2], gen)
+            args = (table, lv, *state, kc[5], kc[6], cot, b, cfg)
+            g_r = mk.bounce_bwd(*args, resid=kr[7])
+            parity.check_resid_bwd(label, g_r, mk.bounce_bwd(*args), cfg)
+            gst = parity.check_grads(label, g_r, mk.bounce_bwd_plain(*args, resid=pl[7]),
+                                     parity.BOUNCE_GRADS)
+            row["bounce_fwd_resid"]["err"] = max(row["bounce_fwd_resid"]["err"],
+                                                 rows["max_abs_err"])
+            row["bounce_bwd_resid"]["err"] = max(row["bounce_bwd_resid"]["err"],
+                                                 gst["max_abs_err"])
+            n_cases += 1
+    log(f"[17 cases] K2 and K4 with rows on {n_cases} states (parity.K2_CASES x "
+        f"RESID_OPTIONS): K2's outputs bitwise its plain version's and its twin's without rows, "
+        f"rows on the live rays in the forward gate, K4 in the gradient gate of its plain "
+        f"version and its twin (bitwise but with direct specular)")
+    row["bounce_fwd_resid"]["launches"] = launches["bounce_fwd_resid"]
+    row["bounce_bwd_resid"]["launches"] = launches["bounce_bwd_resid"]
+    log(f"[17] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 def main() -> int:
@@ -1781,8 +2258,8 @@ def main() -> int:
     launches = dict(mk.LAUNCHES)
     ms_frame = start.elapsed_time(end) / frames
     log(f"[5 forward] launches {launches}")
-    expect = {"bounce0_fwd": frames, "bounce_fwd": frames * (cfg.bounces - 1),
-              "bounce0_bwd": 0, "bounce_bwd": 0}
+    expect = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=frames,
+                  bounce_fwd=frames * (cfg.bounces - 1))
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     if tuple(img.shape) != (1080, 1920, 3) or not torch.isfinite(img).all():
@@ -1855,7 +2332,8 @@ def main() -> int:
     torch.cuda.synchronize()
     per_step = dict(mk.LAUNCHES)
     log(f"[6 train] launches per step {per_step}; loss {loss.item():.6f}")
-    expect = {"bounce0_fwd": 1, "bounce_fwd": 8, "bounce0_bwd": 1, "bounce_bwd": 8}
+    expect = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=1, bounce_fwd=8, bounce0_bwd=1,
+                  bounce_bwd=8)
     if per_step != expect:
         raise AssertionError(f"launch counts per step {per_step}, expected {expect}")
     leaves = list(grad._leaves(g_scene)) + [(f"camera.{k}", v) for k, v in grad._leaves(g_cam)]
@@ -2233,7 +2711,9 @@ def main() -> int:
     ms_c = events_ms(lambda: out_c.extend(
         grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3) for _ in range(steps_c)),
         steps_c)
-    expect = {"clustered_closest": steps_c * cfg3.bounces, "clustered_any": 0}
+    # With remat (the default) the backward recomputes each bounce, K6
+    # included: twice the forward's launches.
+    expect = {"clustered_closest": steps_c * cfg3.bounces * 2, "clustered_any": 0}
     if cl.LAUNCHES != expect:
         raise AssertionError(f"path C launches {cl.LAUNCHES}, expected {expect}")
     loss_c, gs_c, gc_c = out_c[-1]
@@ -2354,6 +2834,14 @@ def main() -> int:
     # 16. The compiled programs against eager.
     launches["bvh_walk"] = phase16(mrt, torch, grad, dev, card, cam, cornell, bunny, acc3,
                                    main_cfg, cfg3)["bvh_walk"]
+
+    # 17. The backward's two modes: remat and the residual variants.
+    for name, r in phase17(mrt, torch, grad, parity, mk, rng, dev, card, cam, cornell, bunny,
+                           sponza, accels, main_cfg, main_ids).items():
+        launches[name] = r["launches"]
+        max_err[name] = r["err"]
+        times[name] = (r["ms"], r["plain_ms"])
+        bounds[name] = r["bound"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -79,15 +79,18 @@ class RenderConfig:
     # "mega". "auto" and "mega" resolve to "mega" for eligible scenes
     # (render.resolve_backend), as in the JAX package.
     backend: str = "auto"
-    # Kept for parity with the JAX config; the port does not read it (it
-    # selects rematerialisation in the JAX backward).
+    # Rematerialise the wavefront backward (ops/integrator._remat, JAX's
+    # jax.checkpoint): where a gradient is taken, each bounce keeps only
+    # its input carry and recomputes the rest, the intersection included.
+    # The gradients are bitwise those of remat=False. The mega path keeps
+    # only its own per-bounce state either way.
     remat: bool = True
     # Generate camera rays and seeds inside the first bounce kernel.
     fused_raygen: bool = True
-    # Kept for parity with the JAX config, where it selects the backward's
-    # known-value residual rows. The port's backward recomputes the
-    # forward bounce for both values (the same gradients: the JAX tests
-    # hold the two modes within 1e-5).
+    # Mega path backward: the bounce kernel K2 also writes the known-value
+    # residual rows of its shading (ops/known.py, 17 a ray on Cornell) and
+    # K4 reads them instead of recomputing the transcendentals and the RNG
+    # draws. False recomputes. The gradients agree within float rounding.
     bwd_residuals: bool = False
     # Coherence-sort the wavefront between bounces (ops/integrator.py);
     # None = on above SORT_RAYS_MIN_TRIS triangles. Per-pixel values do

@@ -7,8 +7,11 @@
 //                       pinhole raygen and per-pixel seeds in-kernel, then
 //                       the first bounce.
 //   bounce_fwd_kernel   replaces megakernel.py:_bounce_fwd_kernel (K2): one
-//                       bounce from the carried ray state (bounces >= 1),
-//                       forward only (no residual rows).
+//                       bounce from the carried ray state (bounces >= 1);
+//                       with F_RESID (cfg.bwd_residuals, the JAX kernel's
+//                       save_resid) it also writes the known-value
+//                       residual rows that the backward K4 reads
+//                       (write_rows).
 //
 // A bounce is: closest hit over all triangles (Moller-Trumbore, exact f32
 // divide, strict '<' so the lowest index wins a tie, |det| > 1e-10 or
@@ -194,6 +197,90 @@ __device__ __forceinline__ bool any_bundle(const float* s_tris, int T, V3 o, V3 
   return hit;
 }
 
+// The known-value residual rows of a ray that is alive and has a winner
+// (K2 with F_RESID): ops/known.py's values in the layout of rows_of (the
+// JAX package's _num_resid_rows, 17 rows on Cornell), at the ray's own
+// index, so packing a tile's live rays moves no row. Only the rows that K4
+// reads are written: 1 / det, the coverage, the pick, the picked lobe's
+// draw terms (diffuse cos phi sin t, sin phi sin t, cos t; Blinn log u2,
+// cos_h, sin_h, cos phi, sin phi, cos^alpha, roughness; GGX roughness,
+// clamped u2, cos_h, sin_h, cos phi, sin phi) and each light's distance,
+// with direct specular its Blinn-Phong power and the log of its base. The
+// normal's, the ONB's, the sampled direction's and the half vectors'
+// inverse lengths and the other lobe's rows stay unwritten (K4's
+// normalizes keep their sqrt, megakernel_bwd.cu), like every row of rays
+// that are not alive or have no winner. Each value is the expression
+// bounce_body and the backward's replay compute (same operations in the
+// same order), so K4 reads the bits it would otherwise recompute. ``tr``
+// is the winner's record (v0, e1, e2); ``rs`` points at row 0 of the ray,
+// rows p.num_rays apart. Not inlined: the rows need their own registers,
+// which the body should not hold for them.
+__device__ __noinline__ void write_rows(const MegaParams& p, const float* tr,
+                                        const float* s_lights, V3 d, V3 normal, V3 pos,
+                                        float ns, float cov, bool pick_spec, uint32_t seed,
+                                        float* rs) {
+  const size_t R = p.num_rays;
+  const Rows rl = rows_of(p.flags, p.num_lights);
+  rs[kInvDet * R] = 1.0f / dot(ld3(tr + 3), cross(d, ld3(tr + 6)));
+  if (rl.cov >= 0) rs[rl.cov * R] = cov;
+  rs[rl.pick * R] = pick_spec ? 1.0f : 0.0f;
+  if (!pick_spec) {
+    const float du1 = uniform_cm(seed, p.cms[1]);
+    const float du2 = uniform_cm(seed, p.cms[2]);
+    const float phi_d = kTwoPi * du1;
+    const float sin_t = sqrtf(du2);
+    rs[rl.d_cp * R] = cosf(phi_d) * sin_t;
+    rs[rl.d_sp * R] = sinf(phi_d) * sin_t;
+    rs[rl.d_ct * R] = sqrtf(fmaxf(1.0f - du2, 0.0f));
+  } else {
+    const float su1 = uniform_cm(seed, p.cms[3]);
+    const float su2 = uniform_cm(seed, p.cms[4]);
+    const float phi_s = kTwoPi * su1;
+    float* sr = rs + rl.spec * R;
+    if (p.flags & F_GGX) {
+      const float rough = sqrtf(2.0f / (fmaxf(ns, 0.0f) + 2.0f));
+      const float a = rough * rough;
+      const float a2 = fmaxf(a * a, 1e-12f);
+      const float u2c = clampf(su2, 0.0f, 1.0f - 1e-7f);
+      const float cos_h2 = (1.0f - u2c) / (1.0f + (a2 - 1.0f) * u2c);
+      sr[kGRough * R] = rough;
+      sr[kGU2c * R] = u2c;
+      sr[kGCosH * R] = sqrtf(clampf(cos_h2, 0.0f, 1.0f));
+      sr[kGSinH * R] = sqrtf(fmaxf(1.0f - cos_h2, 0.0f));
+      sr[kGCphi * R] = cosf(phi_s);
+      sr[kGSphi * R] = sinf(phi_s);
+    } else {
+      const float alpha = fmaxf(ns, 0.0f);
+      const float log_u2 = logf(clampf(su2, 1e-12f, 1.0f));
+      const float cos_h = expf(log_u2 / (alpha + 1.0f));
+      sr[kBLogU2 * R] = log_u2;
+      sr[kBCosH * R] = cos_h;
+      sr[kBSinH * R] = sqrtf(fmaxf(1.0f - cos_h * cos_h, 0.0f));
+      sr[kBCphi * R] = cosf(phi_s);
+      sr[kBSphi * R] = sinf(phi_s);
+      sr[kBCosn * R] = expf(log_u2 * (alpha / (alpha + 1.0f)));
+      sr[kBRough * R] = sqrtf(2.0f / (alpha + 2.0f));
+    }
+  }
+  const V3 wo = -d;
+  for (int li = 0; li < p.num_lights; ++li) {
+    const float* lrow = s_lights + kLightCols * li;
+    float* lr = rs + (rl.light + li * rl.per_light) * R;
+    const V3 to_l = ld3(lrow + kLPos) - pos;
+    const float dist = sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
+    lr[kLDist * R] = dist;
+    if (p.flags & F_DSPEC) {
+      const V3 ldir = normalize(ld3(lrow + kLDir));
+      const bool is_dir = (int)rintf(lrow[kLType]) <= 0;
+      const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
+      const V3 hraw = l_unit + wo;
+      const float xb = fmaxf(fmaxf(dot(normal, normalize(hraw)), 0.0f), 1e-6f);
+      lr[kLPow * R] = powf(xb, fmaxf(ns, 1.0f));
+      lr[kLLog * R] = logf(fmaxf(xb, 1e-20f));
+    }
+  }
+}
+
 // One bounce of ray i (ops/integrator.shade_hit after the closest hit).
 struct RayOut {
   V3 o, d, beta, rad;
@@ -205,11 +292,13 @@ struct RayOut {
 // cull, so every lane of the warp stays in the body while a warp reduction may
 // follow: a lane whose path ends goes on with its result set and its
 // later work discarded. Without it (K2), the loops are dense and a lane
-// returns as soon as its path ends.
-template <bool kCull>
+// returns as soon as its path ends. kResid (K2 with F_RESID) also writes
+// the ray's residual rows from ``rs`` on (write_rows).
+template <bool kCull, bool kResid>
 __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
                               const float* s_lights, const float* __restrict__ tab,
-                              V3 o, V3 d, V3 beta, bool alive, uint32_t seed, int& tests) {
+                              V3 o, V3 d, V3 beta, bool alive, uint32_t seed, int& tests,
+                              float* rs) {
   RayOut r;
   r.o = o;
   r.d = d;
@@ -241,7 +330,8 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
 
   const float w = 1.0f - u - v;
   const V3 pos = o + d * t;
-  const V3 normal = normalize(u * n1 + v * n2 + w * n0);
+  const V3 nraw = u * n1 + v * n2 + w * n0;
+  const V3 normal = normalize(nraw);
 
   float cov = 1.0f;
   V3 rad = mk(0.0f, 0.0f, 0.0f);
@@ -257,8 +347,12 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   const bool pick_spec = uniform_cm(seed, p.cms[0]) > p.spec_threshold;
   const bool use_y = fabsf(normal.x) > 1e-3f;
   const V3 axis = use_y ? mk(0.0f, 1.0f, 0.0f) : mk(1.0f, 0.0f, 0.0f);
-  const V3 tt = normalize(cross(axis, normal));
+  const V3 craw = cross(axis, normal);
+  const V3 tt = normalize(craw);
   const V3 ss = cross(normal, tt);
+  if (kResid)
+    write_rows(p, s_tris + kTriCols * best, s_lights, d, normal, pos, ns, cov, pick_spec, seed,
+               rs);
 
   V3 wi, f;
   float pdf;
@@ -443,8 +537,8 @@ bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
   const V3 o = ld3(cam + kCamPos);
 
   int tests = 0;
-  const RayOut r =
-      bounce_body<true>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f), in, seed, tests);
+  const RayOut r = bounce_body<true, false>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f),
+                                            in, seed, tests, nullptr);
   if (!in) return;
   store(r, i, p.num_rays, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
   seeds_out[i] = (int)seed;
@@ -463,15 +557,15 @@ bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
 // its index and its results stored there, so its arithmetic, and its
 // bits, are the same in whichever lane runs it. A block has kTile threads
 // for a tile of kTile rays (mrt_bounce_fwd picks 128 or 512), at most 64
-// registers a thread.
-template <int kTile>
+// registers a thread. kResid: also the residual rows ([n, R], write_rows).
+template <int kTile, bool kResid>
 __global__ void __launch_bounds__(kTile, 1024 / kTile)
 bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __restrict__ tris,
                   const float* __restrict__ lights, const float* __restrict__ o_in,
                   const float* __restrict__ d_in, const float* __restrict__ beta_in,
                   const float* __restrict__ alive_in, const int* __restrict__ seeds,
                   float* o_out, float* d_out, float* beta_out, float* alive_out,
-                  float* rad_out, int* idx_out, int* occ_out) {
+                  float* rad_out, int* idx_out, int* occ_out, float* resid) {
   extern __shared__ float smem[];
   __shared__ int s_queue[kTile];
   __shared__ int s_cnt[kTile / 32];
@@ -521,8 +615,9 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
   }
   if (j < 0) return;
   int tests = 0;
-  const RayOut r = bounce_body<false>(p, s_tris, s_lights, tab, o, d, beta, true,
-                                      (uint32_t)seeds[j], tests);
+  const RayOut r = bounce_body<false, kResid>(p, s_tris, s_lights, tab, o, d, beta, true,
+                                              (uint32_t)seeds[j], tests,
+                                              kResid ? resid + j : nullptr);
   store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
 }
 
@@ -547,17 +642,25 @@ cudaError_t prepare(size_t smem) {
 }
 
 int check_scene(const MegaParams& p) {
-  return p.num_tris > kMaxTris || p.num_lights > kMaxLights ? (int)cudaErrorInvalidValue : 0;
+  return p.num_tris > kMaxTris || p.num_lights > kMaxLights || (p.flags & ~kKnownFlags)
+             ? (int)cudaErrorInvalidValue
+             : 0;
+}
+
+template <int kTile, bool kResid, typename... Args>
+int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
+  const size_t smem = smem_bytes(p);
+  cudaError_t e = prepare<bounce_fwd_kernel<kTile, kResid>>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (p.num_rays + kTile - 1) / kTile;
+  bounce_fwd_kernel<kTile, kResid><<<grid, kTile, smem, stream>>>(p, args...);
+  return (int)cudaGetLastError();
 }
 
 template <int kTile, typename... Args>
-int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
-  const size_t smem = smem_bytes(p);
-  cudaError_t e = prepare<bounce_fwd_kernel<kTile>>(smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (p.num_rays + kTile - 1) / kTile;
-  bounce_fwd_kernel<kTile><<<grid, kTile, smem, stream>>>(p, args...);
-  return (int)cudaGetLastError();
+int launch_tile(const MegaParams& p, cudaStream_t stream, Args... args) {
+  return (p.flags & F_RESID) ? launch_bounce_fwd<kTile, true>(p, stream, args...)
+                             : launch_bounce_fwd<kTile, false>(p, stream, args...);
 }
 
 }  // namespace
@@ -574,6 +677,7 @@ extern "C" int mrt_bounce0_fwd(const MegaParams* p, const uint32_t* frame_cm, co
                                int* stats, void* stream) {
   if (p->num_rays <= 0) return 0;
   if (check_scene(*p)) return check_scene(*p);
+  if (p->flags & F_RESID) return (int)cudaErrorInvalidValue;  // K1 has no residual mode
   const size_t smem = smem_bytes(*p);
   cudaError_t e = prepare<bounce0_fwd_kernel>(smem);
   if (e != cudaSuccess) return (int)e;
@@ -584,13 +688,15 @@ extern "C" int mrt_bounce0_fwd(const MegaParams* p, const uint32_t* frame_cm, co
   return (int)cudaGetLastError();
 }
 
+// mrt_bounce_fwd's resid: [n, R] rows with F_RESID (rows_of), else null.
 extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float* tris,
                               const float* lights, const float* o_in, const float* d_in,
                               const float* beta_in, const float* alive_in, const int* seeds,
                               float* o, float* d, float* beta, float* alive, float* rad,
-                              int* idx, int* occ, void* stream) {
+                              int* idx, int* occ, float* resid, void* stream) {
   if (p->num_rays <= 0) return 0;
   if (check_scene(*p)) return check_scene(*p);
+  if ((p->flags & F_RESID) && !resid) return (int)cudaErrorInvalidValue;
   // K2's tile: 128 rays while a live ray runs at most 256 Moller-Trumbore
   // tests (the triangles, and as many again per light with shadow rays),
   // else 512. A larger tile packs its live rays into fuller warps: on
@@ -601,10 +707,10 @@ extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float
   const long tests = (long)p->num_tris * (1 + ((p->flags & F_SHADOW) ? p->num_lights : 0));
   const cudaStream_t s = (cudaStream_t)stream;
   if (tests > 256)
-    return launch_bounce_fwd<512>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
-                                  o, d, beta, alive, rad, idx, occ);
-  return launch_bounce_fwd<128>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o,
-                                d, beta, alive, rad, idx, occ);
+    return launch_tile<512>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o, d,
+                            beta, alive, rad, idx, occ, resid);
+  return launch_tile<128>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o, d,
+                          beta, alive, rad, idx, occ, resid);
 }
 
 extern "C" const char* mrt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -21,7 +21,11 @@ struct MegaParams {
 
 namespace {
 
-enum : int { F_SHADOW = 1, F_DSPEC = 2, F_CULL = 4, F_GGX = 8, F_SOFT = 16 };
+// F_RESID: K2 writes the known-value residual rows, K4 reads them
+// (cfg.bwd_residuals; K1 and K3 take no such flag). An entry point refuses
+// a flag it does not know.
+enum : int { F_SHADOW = 1, F_DSPEC = 2, F_CULL = 4, F_GGX = 8, F_SOFT = 16, F_RESID = 32 };
+constexpr int kKnownFlags = F_SHADOW | F_DSPEC | F_CULL | F_GGX | F_SOFT | F_RESID;
 
 constexpr int kBlock = 256;
 constexpr int kTriCols = 9;    // v0, e1, e2
@@ -90,6 +94,45 @@ __device__ __forceinline__ float dmax(float x, float c) {
 // d min(x, c) / dx, halved at a tie like jnp.minimum.
 __device__ __forceinline__ float dmin(float x, float c) {
   return x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+
+// Where each known-value residual row of a ray sits (ops/known.py:layout,
+// the JAX package's emission order): row k of ray j at resid[k * R + j].
+// Row 0 is the winner's 1 / det, row 1 the inverse length of its normal,
+// then the coverage (soft edges), the pick, the ONB's inverse length and
+// the diffuse block (cos phi sin t, sin phi sin t, cos t, the direction's
+// inverse length). The specular block holds (Blinn) log u2, cos_h, sin_h,
+// cos phi, sin phi, the half vector's inverse length, cos^alpha,
+// roughness, or (GGX) roughness, clamped u2, cos_h, sin_h, cos phi, sin
+// phi, the half vector's inverse length. Light li's rows start at light +
+// li * per_light: its distance and, with direct specular, the half
+// vector's inverse length, the Blinn-Phong power and the log of its base.
+// The kernels write and read only the rows K4 replays from
+// (megakernel.cu:write_rows); the inverse lengths stay unwritten.
+struct Rows {
+  int cov, pick, d_cp, d_sp, d_ct, spec, light, per_light, n;
+};
+enum : int { kInvDet = 0 };
+enum : int { kBLogU2 = 0, kBCosH, kBSinH, kBCphi, kBSphi, kBCosn = 6, kBRough };
+enum : int { kGRough = 0, kGU2c, kGCosH, kGSinH, kGCphi, kGSphi };
+enum : int { kLDist = 0, kLPow = 2, kLLog };
+
+__host__ __device__ __forceinline__ Rows rows_of(int flags, int num_lights) {
+  Rows r;
+  int k = 2;                        // 0: 1 / det, 1: the normal's inverse length
+  r.cov = (flags & F_SOFT) ? k++ : -1;
+  r.pick = k++;
+  k++;                              // the ONB's inverse length
+  r.d_cp = k++;
+  r.d_sp = k++;
+  r.d_ct = k++;
+  k++;                              // the diffuse direction's inverse length
+  r.spec = k;
+  k += (flags & F_GGX) ? 7 : 8;
+  r.light = k;
+  r.per_light = (flags & F_DSPEC) ? 4 : 1;
+  r.n = k + num_lights * r.per_light;
+  return r;
 }
 
 }  // namespace

@@ -8,7 +8,10 @@
 //                       the camera vector.
 //   bounce_bwd_kernel   replaces megakernel.py:_bounce_bwd_kernel (K4): the
 //                       VJP of one bounce from the carried state, with the
-//                       per-ray d(o, d, beta).
+//                       per-ray d(o, d, beta). With F_RESID (kResid; the
+//                       JAX kernel under cfg.bwd_residuals) it reads the
+//                       known-value rows K2 wrote instead of recomputing
+//                       (below).
 //
 // The adjoint. The TPU kernels run jax.vjp of a replay inside the kernel.
 // Here it is written by hand, one thread per ray: ray_adjoint replays the
@@ -89,6 +92,32 @@
 // kernel_sass.py), on top of ~0.08-0.1 ms for the scan and the dead rays'
 // pass-through, which runs near the memory rate.
 //
+// The residual variant (kResid). K2 with F_RESID stores, per ray with a
+// winner, the values of its shading's transcendentals and of what the RNG
+// draws alone decide (megakernel.cu:write_rows, ops/known.py). K4 then
+// reads, instead of computing: the lobe pick, the diffuse and specular
+// draws' terms with their cos / sin / sqrt / exp / log (sample_brdf), the
+// roughness sqrt, the winner's 1 / det, the soft-edge sigmoid, each
+// light's distance, and with direct specular the Blinn-Phong power and the
+// log of its base. It reads neither the seeds nor the draw counters, so it
+// hashes no random number. The rows hold the bits the recompute would
+// produce, and every adjoint formula is the recompute's (sqrt0_adj on the
+// row's sin_h, the sigmoid's y (1 - y), 1 / det squared), so the gradients
+// are bitwise the recompute's, but for one term: the power's derivative in
+// the base, which the recompute takes as ex * pow(xb, ex - 1) and the
+// variant as ex * y / xb from the row y (the JAX package's _k_pow), so
+// with direct specular they differ by float rounding. The normalizes keep
+// their sqrt: their adjoint needs the length itself (normalize_adj), and
+// 1 / (the row) is not its bits. Every discrete decision replays bit for
+// bit: the pick is a row, the ONB axis comes from the normal, the rest from
+// the replayed values. It loads 1 / det, the pick and each light's rows,
+// and 3 (diffuse) or 7 (Blinn specular) of its lobe: 8 a ray with a
+// winner on average on Cornell, where a warp's rays, queued in ray order
+// with the dead ones between them, span several lines per row. On the
+// H100 the variant is the slower one: at the main path's 1080p bounce 1 it
+// took 1.13x the recompute, and 1.08x on the same rays compacted to those
+// with a winner (chip_smoke.py phase 17; PERF.md).
+//
 // Built with the forward kernels' flags (no fast-math, -fmad=false).
 
 #include "megakernel.cuh"
@@ -122,6 +151,7 @@ struct BwdIO {
   const int* pixel_ids;
   const float *o, *d, *beta, *alive;
   const int *seeds, *winner, *occ;
+  const float* resid;  // K4 with F_RESID: [n, R] known-value rows (rows_of)
   const float *co, *cd, *cb, *cr;
   float *d_o, *d_d, *d_beta;
   float* part;  // [gridDim.x, part_cols] block partials
@@ -191,13 +221,19 @@ struct Hit {
   bool dvalid, tvalid;
 };
 
-__device__ __forceinline__ Hit winner_point(const MegaParams& p, const float* row, V3 o, V3 d) {
+// kResid: 1 / det and the coverage from the ray's rows ``rs``.
+template <bool kResid>
+__device__ __forceinline__ Hit winner_point(const MegaParams& p, const float* row, V3 o, V3 d,
+                                            const float* rs) {
   Hit h;
   const V3 v0 = ld3(row + kV0), e1 = ld3(row + kE1), e2 = ld3(row + kE2);
   h.pvec = cross(d, e2);
   h.det = dot(e1, h.pvec);
   h.dvalid = (p.flags & F_CULL) ? h.det > kDetEps : fabsf(h.det) > kDetEps;
-  h.inv = h.dvalid ? 1.0f / h.det : 0.0f;
+  if constexpr (kResid)
+    h.inv = h.dvalid ? rs[kInvDet * (size_t)p.num_rays] : 0.0f;
+  else
+    h.inv = h.dvalid ? 1.0f / h.det : 0.0f;
   h.tvec = o - v0;
   h.u = dot(h.tvec, h.pvec) * h.inv;
   h.qvec = cross(h.tvec, e1);
@@ -211,8 +247,12 @@ __device__ __forceinline__ Hit winner_point(const MegaParams& p, const float* ro
   h.normal = normalize(h.nraw);
   h.cov = 1.0f;
   if (p.flags & F_SOFT) {
-    const float margin = fminf(fminf(h.u, h.v), 1.0f - h.u - h.v);
-    h.cov = 1.0f / (1.0f + expf(-(margin * p.inv_soft_sigma)));
+    if constexpr (kResid) {
+      h.cov = rs[rows_of(p.flags, p.num_lights).cov * (size_t)p.num_rays];
+    } else {
+      const float margin = fminf(fminf(h.u, h.v), 1.0f - h.u - h.v);
+      h.cov = 1.0f / (1.0f + expf(-(margin * p.inv_soft_sigma)));
+    }
   }
   return h;
 }
@@ -228,25 +268,40 @@ struct Brdf {
   float g1v, g1l, G, xf, x2, fr, mi, mo, denom, num, scale;
 };
 
+// kResid: the pick and the draws' terms from the ray's rows ``rs``
+// (seed unused).
+template <bool kResid>
 __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, V3 normal, V3 wo,
-                                            V3 kd, V3 ks, float ns) {
+                                            V3 kd, V3 ks, float ns, const float* rs) {
   Brdf b = {};
-  b.pick_spec = uniform_cm(seed, p.cms[0]) > p.spec_threshold;
+  const size_t R = p.num_rays;
+  const Rows rl = rows_of(p.flags, p.num_lights);
+  const float* sr = kResid ? rs + rl.spec * R : nullptr;
+  if constexpr (kResid)
+    b.pick_spec = rs[rl.pick * R] > 0.5f;
+  else
+    b.pick_spec = uniform_cm(seed, p.cms[0]) > p.spec_threshold;
   const bool use_y = fabsf(normal.x) > 1e-3f;
   const V3 axis = use_y ? mk(0.0f, 1.0f, 0.0f) : mk(1.0f, 0.0f, 0.0f);
   b.craw = cross(axis, normal);
   b.tt = normalize(b.craw);
   b.ss = cross(normal, b.tt);
   if (!b.pick_spec) {
-    const float du1 = uniform_cm(seed, p.cms[1]);
-    const float du2 = uniform_cm(seed, p.cms[2]);
-    const float phi = kTwoPi * du1;
-    const float sin_t = sqrtf(du2);
-    b.cos_t = sqrtf(fmaxf(1.0f - du2, 0.0f));
-    b.cphi = cosf(phi);
-    b.sphi = sinf(phi);
-    b.cp = b.cphi * sin_t;
-    b.sp = b.sphi * sin_t;
+    if constexpr (kResid) {
+      b.cp = rs[rl.d_cp * R];
+      b.sp = rs[rl.d_sp * R];
+      b.cos_t = rs[rl.d_ct * R];
+    } else {
+      const float du1 = uniform_cm(seed, p.cms[1]);
+      const float du2 = uniform_cm(seed, p.cms[2]);
+      const float phi = kTwoPi * du1;
+      const float sin_t = sqrtf(du2);
+      b.cos_t = sqrtf(fmaxf(1.0f - du2, 0.0f));
+      b.cphi = cosf(phi);
+      b.sphi = sinf(phi);
+      b.cp = b.cphi * sin_t;
+      b.sp = b.sphi * sin_t;
+    }
     b.wraw = b.ss * b.cp + b.tt * b.sp + normal * b.cos_t;
     b.wi = normalize(b.wraw);
     b.pdf = dot(b.wi, normal) * kInvPi;
@@ -254,36 +309,42 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
     b.valid = b.pdf > 0.0f;
     return b;
   }
-  const float su1 = uniform_cm(seed, p.cms[3]);
-  const float su2 = uniform_cm(seed, p.cms[4]);
-  const float phi = kTwoPi * su1;
-  b.cphi = cosf(phi);
-  b.sphi = sinf(phi);
+  float su2 = 0.0f;
+  if constexpr (kResid) {
+    b.cphi = sr[((p.flags & F_GGX) ? kGCphi : kBCphi) * R];
+    b.sphi = sr[((p.flags & F_GGX) ? kGSphi : kBSphi) * R];
+  } else {
+    const float su1 = uniform_cm(seed, p.cms[3]);
+    su2 = uniform_cm(seed, p.cms[4]);
+    const float phi = kTwoPi * su1;
+    b.cphi = cosf(phi);
+    b.sphi = sinf(phi);
+  }
   b.alpha = fmaxf(ns, 0.0f);
   if (p.flags & F_GGX) {
-    b.rough = sqrtf(2.0f / (b.alpha + 2.0f));
+    b.rough = kResid ? sr[kGRough * R] : sqrtf(2.0f / (b.alpha + 2.0f));
     b.a_g = b.rough * b.rough;
     b.a2 = fmaxf(b.a_g * b.a_g, 1e-12f);
-    b.u2c = clampf(su2, 0.0f, 1.0f - 1e-7f);
+    b.u2c = kResid ? sr[kGU2c * R] : clampf(su2, 0.0f, 1.0f - 1e-7f);
     b.den = 1.0f + (b.a2 - 1.0f) * b.u2c;
     b.cos_h2 = (1.0f - b.u2c) / b.den;
-    b.cos_h = sqrtf(clampf(b.cos_h2, 0.0f, 1.0f));
+    b.cos_h = kResid ? sr[kGCosH * R] : sqrtf(clampf(b.cos_h2, 0.0f, 1.0f));
     b.sh2 = fmaxf(1.0f - b.cos_h2, 0.0f);
-    b.sin_h = sqrtf(b.sh2);
+    b.sin_h = kResid ? sr[kGSinH * R] : sqrtf(b.sh2);
     b.dd = b.cos_h2 * (b.a2 - 1.0f) + 1.0f;
     b.ddm = fmaxf(b.dd * b.dd, 1e-12f);
     b.d_ndf = b.a2 * kInvPi / b.ddm;
     b.pdf_h = b.d_ndf * b.cos_h;
   } else {
-    b.log_u2 = logf(clampf(su2, 1e-12f, 1.0f));
+    b.log_u2 = kResid ? sr[kBLogU2 * R] : logf(clampf(su2, 1e-12f, 1.0f));
     b.a1 = b.alpha + 1.0f;
-    b.cos_h = expf(b.log_u2 / b.a1);
+    b.cos_h = kResid ? sr[kBCosH * R] : expf(b.log_u2 / b.a1);
     b.sh2 = fmaxf(1.0f - b.cos_h * b.cos_h, 0.0f);
-    b.sin_h = sqrtf(b.sh2);
-    b.cosn = expf(b.log_u2 * (b.alpha / b.a1));
+    b.sin_h = kResid ? sr[kBSinH * R] : sqrtf(b.sh2);
+    b.cosn = kResid ? sr[kBCosn * R] : expf(b.log_u2 * (b.alpha / b.a1));
     b.d_ndf = (b.alpha + 2.0f) * kHalfInvPi * b.cosn;
     b.pdf_h = (b.alpha + 1.0f) * kHalfInvPi * b.cosn;
-    b.rough = sqrtf(2.0f / (b.alpha + 2.0f));
+    b.rough = kResid ? sr[kBRough * R] : sqrtf(2.0f / (b.alpha + 2.0f));
   }
   b.cp = b.cphi * b.sin_h;
   b.sp = b.sphi * b.sin_h;
@@ -327,11 +388,13 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
 // Returns d(o, d, beta); fills row with the winner row's 28 gradient
 // columns when the ray is alive and has a winner; adds each light's 10
 // gradient columns, summed over the warp, to lg[li * 10 + k] (lane 0).
+// kResid: the ray's known-value rows start at ``rs`` (seed unused).
+template <bool kResid>
 __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_lights,
                                             const float* __restrict__ tab, V3 o, V3 d, V3 beta,
                                             bool alive, uint32_t seed, int winner, int occ,
                                             const Cot& c, V3& g_o, V3& g_d, V3& g_beta,
-                                            float (&row)[kRowGrads], float* lg) {
+                                            float (&row)[kRowGrads], float* lg, const float* rs) {
   const bool soft = p.flags & F_SOFT;
   const bool dspec = p.flags & F_DSPEC;
   const bool shadow = p.flags & F_SHADOW;
@@ -339,6 +402,10 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
   const bool live = alive && winner >= 0;
   const float* trow = tab + (size_t)(live ? winner : 0) * kTabCols;
   const V3 wo = -d;
+  const size_t R = p.num_rays;
+  const Rows rl = rows_of(p.flags, p.num_lights);
+  // Light li's rows (kResid).
+  auto lrows = [&](int li) { return rs + (rl.light + li * rl.per_light) * R; };
 
   // ------------------------------------------------- replay (what the head
   // of the adjoint and the light loop read; the rest is replayed below)
@@ -347,14 +414,14 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
   float ns = 0.0f, cov = 1.0f, cos_i2 = 0.0f, pdf_safe = 1.0f;
   bool lo = false;
   if (live) {
-    const Hit h = winner_point(p, trow, o, d);
+    const Hit h = winner_point<kResid>(p, trow, o, d, rs);
     pos = h.pos;
     normal = h.normal;
     cov = h.cov;
     kd = ld3(trow + kKD);
     ks = ld3(trow + kKS);
     ns = trow[kNS];
-    const Brdf b = sample_brdf(p, seed, normal, wo, kd, ks, ns);
+    const Brdf b = sample_brdf<kResid>(p, seed, normal, wo, kd, ks, ns, rs);
     wi = b.wi;
     f = b.f;
     cos_i2 = dot(wi, normal);
@@ -373,7 +440,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       const V3 ldir = normalize(ld3(lrow + kLDir));
       const int ltype = (int)rintf(lrow[kLType]);
       const V3 to_l = ld3(lrow + kLPos) - pos;
-      const float dist = sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
+      const float dist = kResid ? lrows(li)[kLDist * R] : sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
       const bool is_dir = ltype <= 0;
       const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
       const float ndl = fmaxf(dot(normal, l_unit), 0.0f);
@@ -387,7 +454,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       if (dspec) {
         const V3 h = normalize(l_unit + wo);
         const float ndoth = fmaxf(dot(normal, h), 0.0f);
-        float spec = powf(fmaxf(ndoth, 1e-6f), fmaxf(ns, 1.0f));
+        float spec = kResid ? lrows(li)[kLPow * R] : powf(fmaxf(ndoth, 1e-6f), fmaxf(ns, 1.0f));
         spec = ndl > 0.0f ? spec : 0.0f;
         spec_w += attn * lrow[kLInt] * spec;
       }
@@ -455,7 +522,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       const float cos_cut = lrow[kLCut];
       const V3 to_l = ld3(lrow + kLPos) - pos;
       const float dq = dot(to_l, to_l);
-      const float dist = sqrtf(fmaxf(dq, 1e-12f));
+      const float dist = kResid ? lrows(li)[kLDist * R] : sqrtf(fmaxf(dq, 1e-12f));
       const bool is_dir = ltype <= 0;
       const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
       const float nd = dot(normal, l_unit);
@@ -482,13 +549,16 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
         const float ndoth = fmaxf(nh, 0.0f);
         const float xb = fmaxf(ndoth, 1e-6f);
         const float ex = fmaxf(ns, 1.0f);
-        const float spec_p = powf(xb, ex);
+        const float spec_p = kResid ? lrows(li)[kLPow * R] : powf(xb, ex);
         const float spec = ndl > 0.0f ? spec_p : 0.0f;
         g_ai += g_spec_w * spec;
         if (ndl > 0.0f) {
           const float g_spec = g_spec_w * ai;
-          const float g_xb = g_spec * (ex * powf(xb, ex - 1.0f));
-          g_ns += dmax(ns, 1.0f) * (g_spec * (spec_p * logf(xb)));
+          // d pow / d xb: ex y / xb from the row (JAX's _k_pow), else ex pow(xb, ex - 1).
+          const float g_xb = kResid ? g_spec * ((ex * spec_p) / fmaxf(xb, 1e-20f))
+                                    : g_spec * (ex * powf(xb, ex - 1.0f));
+          const float log_xb = kResid ? lrows(li)[kLLog * R] : logf(xb);
+          g_ns += dmax(ns, 1.0f) * (g_spec * (spec_p * log_xb));
           const float g_nh = dmax(nh, 0.0f) * dmax(ndoth, 1e-6f) * g_xb;
           g_normal = g_normal + h * g_nh;
           const V3 g_hraw = normalize_adj(hraw, normal * g_nh);
@@ -548,7 +618,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
   // BRDF sample recomputed, through opaque() (see the note at the top).
   const float* trow2 = opaque(trow);
   const V3 d2 = opaque(d);
-  const Hit h = winner_point(p, trow2, opaque(o), d2);
+  const Hit h = winner_point<kResid>(p, trow2, opaque(o), d2, rs);
   normal = h.normal;
   const V3 wo2 = -d2;
   const V3 ke = ld3(trow2 + kKE);
@@ -569,8 +639,8 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
   }
 
   if (lo) {
-    const Brdf b = sample_brdf(p, seed, normal, wo2, ld3(trow2 + kKD), ld3(trow2 + kKS),
-                               trow2[kNS]);
+    const Brdf b = sample_brdf<kResid>(p, seed, normal, wo2, ld3(trow2 + kKD), ld3(trow2 + kKS),
+                                       trow2[kNS], rs);
     V3 g_ss = zero3(), g_tt = zero3();
     const V3 wi2 = b.wi;
     if (!b.pick_spec) {
@@ -859,7 +929,7 @@ __device__ __forceinline__ void flush_cam(Smem& s, float (&cg)[kCamGrads]) {
 // One round: the adjoint of the n <= kBlock rays at the head of the queue
 // (thread t takes entry t), their table rows summed into the block's
 // partial, their light and camera gradients into the warps' rows.
-template <bool kFirst>
+template <bool kFirst, bool kResid>
 __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& io, Smem& s,
                                               float* acc, int head, int n) {
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -883,8 +953,8 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
     if (kFirst) {
       Raygen r = {};
       if (in) r = raygen(p, io.cam, io.pixel_ids[j], *io.frame_cm);
-      ray_adjoint(p, s.lights, io.tab, r.o, r.d, mk(1.0f, 1.0f, 1.0f), in, r.seed, win, occ, c,
-                  g_o, g_d, g_beta, row, lg);
+      ray_adjoint<false>(p, s.lights, io.tab, r.o, r.d, mk(1.0f, 1.0f, 1.0f), in, r.seed, win,
+                         occ, c, g_o, g_d, g_beta, row, lg, nullptr);
       if (in) raygen_adj(r, g_o, g_d, cg);
       w = in ? win : -1;
     } else {
@@ -896,10 +966,10 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
         d = ld_col(io.d, j, R);
         beta = ld_col(io.beta, j, R);
         alive = io.alive[j] > 0.0f;
-        seed = (uint32_t)io.seeds[j];
+        if (!kResid) seed = (uint32_t)io.seeds[j];  // the variant reads no seed
       }
-      ray_adjoint(p, s.lights, io.tab, o, d, beta, alive, seed, win, occ, c, g_o, g_d, g_beta,
-                  row, lg);
+      ray_adjoint<kResid>(p, s.lights, io.tab, o, d, beta, alive, seed, win, occ, c, g_o, g_d,
+                          g_beta, row, lg, kResid && in ? io.resid + j : nullptr);
       if (in) {
         st_col(io.d_o, j, R, g_o);
         st_col(io.d_d, j, R, g_d);
@@ -917,7 +987,8 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
 
 // The body of both backward kernels: kFirst selects K3 (raygen from pixel
 // ids, camera gradient) or K4 (carried state, per-ray d(o, d, beta));
-// kSmemTab puts the block's table partial in shared memory.
+// kSmemTab puts the block's table partial in shared memory; kResid (K4
+// only) reads the known-value rows.
 //
 // Block b scans its tiles b, b + G, b + 2G, ... kTilesPerStep at a time.
 // Rays without a winner (dead or missed) pass their cotangents through
@@ -926,7 +997,7 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
 // kBlock rays a round differentiates them, and a last round takes the
 // rest, so the warps that run the adjoint are full of live rays however
 // few there are.
-template <bool kFirst, bool kSmemTab>
+template <bool kFirst, bool kSmemTab, bool kResid>
 __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
@@ -994,7 +1065,7 @@ __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
     for (;;) {
       const int n = count >= kBlock ? kBlock : last ? count : 0;
       if (n == 0) break;
-      adjoint_round<kFirst>(p, io, s, acc, head, n);
+      adjoint_round<kFirst, kResid>(p, io, s, acc, head, n);
       head += n;
       count -= n;
     }
@@ -1023,13 +1094,13 @@ __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
 template <bool kSmemTab>
 __global__ void __launch_bounds__(kBlock, 2)
 bounce0_bwd_kernel(MegaParams p, BwdIO io) {
-  bwd_body<true, kSmemTab>(p, io);
+  bwd_body<true, kSmemTab, false>(p, io);
 }
 
-template <bool kSmemTab>
+template <bool kSmemTab, bool kResid>
 __global__ void __launch_bounds__(kBlock, 2)
 bounce_bwd_kernel(MegaParams p, BwdIO io) {
-  bwd_body<false, kSmemTab>(p, io);
+  bwd_body<false, kSmemTab, kResid>(p, io);
 }
 
 // The second launch: column j of the G block partials, summed over 8
@@ -1090,7 +1161,8 @@ cudaError_t finish(const MegaParams& p, bool first, int grid, const float* part,
 }
 
 int check_args(const MegaParams* p, int grid, int smem_tab) {
-  if (p->num_lights > kMaxLights || grid < 1 || (smem_tab && p->num_tris > kSmemRows))
+  if (p->num_lights > kMaxLights || grid < 1 || (smem_tab && p->num_tris > kSmemRows) ||
+      (p->flags & ~kKnownFlags))
     return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
@@ -1103,7 +1175,9 @@ int check_args(const MegaParams* p, int grid, int smem_tab) {
 // launch (the wrapper allocates it with torch.empty); `smem_table` keeps
 // each block's table partial in shared memory (T_pad <= kSmemRows). Each
 // launches two kernels on the given stream, does not synchronise, and
-// returns the first cudaError_t that is not cudaSuccess.
+// returns the first cudaError_t that is not cudaSuccess. mrt_bounce_bwd's
+// resid: the [n, R] rows K2 wrote, with F_RESID (then seeds may be null),
+// else null.
 extern "C" int mrt_bounce0_bwd(const MegaParams* p, int grid, int smem_table,
                                const uint32_t* frame_cm, const float* tab, const float* lights,
                                const float* cam, const int* pixel_ids, const int* winner,
@@ -1114,6 +1188,7 @@ extern "C" int mrt_bounce0_bwd(const MegaParams* p, int grid, int smem_table,
   if (p->num_rays <= 0) return 0;
   const int bad = check_args(p, grid, smem_table);
   if (bad) return bad;
+  if (p->flags & F_RESID) return (int)cudaErrorInvalidValue;  // K3 has no residual mode
   const cudaStream_t st = (cudaStream_t)stream;
   BwdIO io = {};
   io.tab = tab;
@@ -1141,10 +1216,12 @@ extern "C" int mrt_bounce_bwd(const MegaParams* p, int grid, int smem_table,
                               const int* seeds, const int* winner, const int* occ,
                               const float* co, const float* cd, const float* cb, const float* cr,
                               float* part, float* d_o, float* d_d, float* d_beta, float* d_tab,
-                              float* d_lights, void* stream) {
+                              float* d_lights, const float* resid, void* stream) {
   if (p->num_rays <= 0) return 0;
   const int bad = check_args(p, grid, smem_table);
   if (bad) return bad;
+  const bool res = p->flags & F_RESID;
+  if (res ? !resid : !seeds) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   BwdIO io = {};
   io.tab = tab;
@@ -1163,10 +1240,13 @@ extern "C" int mrt_bounce_bwd(const MegaParams* p, int grid, int smem_table,
   io.d_o = d_o;
   io.d_d = d_d;
   io.d_beta = d_beta;
+  io.resid = resid;
   io.part = part;
-  const cudaError_t e = smem_table
-      ? launch_bwd<bounce_bwd_kernel<true>>(*p, io, grid, true, st)
-      : launch_bwd<bounce_bwd_kernel<false>>(*p, io, grid, false, st);
+  const cudaError_t e =
+      res ? (smem_table ? launch_bwd<bounce_bwd_kernel<true, true>>(*p, io, grid, true, st)
+                        : launch_bwd<bounce_bwd_kernel<false, true>>(*p, io, grid, false, st))
+          : (smem_table ? launch_bwd<bounce_bwd_kernel<true, false>>(*p, io, grid, true, st)
+                        : launch_bwd<bounce_bwd_kernel<false, false>>(*p, io, grid, false, st));
   if (e != cudaSuccess) return (int)e;
   return (int)finish(*p, false, grid, part, d_tab, d_lights, nullptr, st);
 }

@@ -10,8 +10,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import rng
-from .linalg import build_onb, dot, reflect, spherical_dir, vclip, vmax
+from . import known, rng
+from .linalg import build_onb, dot, reflect, vclip, vmax
 
 _TWO_PI = 2.0 * math.pi
 _INV_PI = 1.0 / math.pi
@@ -38,18 +38,24 @@ def _sqrt0(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
-def sample_hemisphere_cosine(normal, u1, u2) -> torch.Tensor:
-    """Cosine-weighted hemisphere direction (kernel_bvh.cl:79-90)."""
-    phi = _TWO_PI * u1
-    sin_theta = torch.sqrt(u2)
-    cos_theta = torch.sqrt(torch.clamp(1.0 - u2, min=0.0))
-    s, t = build_onb(normal)
-    return spherical_dir(s, t, normal, phi, sin_theta, cos_theta)
+def _direction(kn, name: str, s, t, n, cp, sp, ct) -> torch.Tensor:
+    """Direction from local spherical angles in the (s, t, n) frame
+    (kernel_bvh.cl:89, 238): normalize(s cp + t sp + n ct) with the
+    azimuth terms cp = cos(phi) sin(theta), sp = sin(phi) sin(theta)."""
+    return known.normalize(kn, name, s * cp[..., None] + t * sp[..., None]
+                           + n * ct[..., None])
 
 
-def sample_diffuse(normal, diffuse, u1, u2) -> BrdfSample:
-    """Lambert lobe (kernel_bvh.cl:264-269): f = Kd/pi, pdf = cos/pi."""
-    wi = sample_hemisphere_cosine(normal, u1, u2)
+def sample_diffuse(normal, diffuse, u1, u2, kn=None) -> BrdfSample:
+    """Lambert lobe (kernel_bvh.cl:264-269): a cosine-weighted hemisphere
+    direction (kernel_bvh.cl:79-90), f = Kd/pi, pdf = cos/pi. The azimuth
+    and elevation terms depend on the draws alone (known-value
+    constants)."""
+    cp = known.const(kn, "d_cp", lambda: torch.cos(_TWO_PI * u1) * torch.sqrt(u2))
+    sp = known.const(kn, "d_sp", lambda: torch.sin(_TWO_PI * u1) * torch.sqrt(u2))
+    ct = known.const(kn, "d_ct", lambda: torch.sqrt(torch.clamp(1.0 - u2, min=0.0)))
+    s, t = build_onb(normal, kn)
+    wi = _direction(kn, "d_wi", s, t, normal, cp, sp, ct)
     pdf = dot(wi, normal) * _INV_PI
     f = diffuse * _INV_PI
     return BrdfSample(wi=wi, f=f, pdf=pdf, valid=pdf > 0.0)
@@ -90,37 +96,39 @@ def _specular_tail(wo, normal, specular, wh, d_ndf, pdf_h, roughness):
     return BrdfSample(wi=wi, f=f, pdf=pdf, valid=valid)
 
 
-def sample_specular(wo, normal, specular, ns, u1, u2) -> BrdfSample:
+def sample_specular(wo, normal, specular, ns, u1, u2, kn=None) -> BrdfSample:
     """Blinn half-vector lobe with exponent alpha = Ns
     (kernel_bvh.cl:227-239, 271-292, spec-cleaned)."""
     alpha = vmax(ns, 0.0)
-    phi = _TWO_PI * u1
-    log_u2 = torch.log(torch.clamp(u2, 1e-12, 1.0))
-    cos_h = torch.exp(log_u2 / (alpha + 1.0))
-    sin_h = _sqrt0(vmax(1.0 - cos_h * cos_h, 0.0))
-    s, t = build_onb(normal)
-    wh = spherical_dir(s, t, normal, phi, sin_h, cos_h)
+    log_u2 = known.const(kn, "log_u2", lambda: torch.log(torch.clamp(u2, 1e-12, 1.0)))
+    cos_h = known.exp(kn, "cos_h", log_u2 / (alpha + 1.0))
+    sin_h = known.sqrt0(kn, "sin_h", vmax(1.0 - cos_h * cos_h, 0.0))
+    cphi = known.const(kn, "s_cp", lambda: torch.cos(_TWO_PI * u1))
+    sphi = known.const(kn, "s_sp", lambda: torch.sin(_TWO_PI * u1))
+    s, t = build_onb(normal, kn)
+    wh = _direction(kn, "wh", s, t, normal, cphi * sin_h, sphi * sin_h, cos_h)
     # cos^alpha(theta_h) reuses the sampling log.
-    cosn = torch.exp(log_u2 * (alpha / (alpha + 1.0)))
+    cosn = known.exp(kn, "cosn", log_u2 * (alpha / (alpha + 1.0)))
     d_ndf = (alpha + 2.0) * (0.5 * _INV_PI) * cosn
     pdf_h = (alpha + 1.0) * (0.5 * _INV_PI) * cosn
     return _specular_tail(wo, normal, specular, wh, d_ndf, pdf_h,
-                          torch.sqrt(2.0 / (alpha + 2.0)))
+                          known.sqrt(kn, "rough", 2.0 / (alpha + 2.0)))
 
 
-def sample_specular_ggx(wo, normal, specular, ns, u1, u2) -> BrdfSample:
+def sample_specular_ggx(wo, normal, specular, ns, u1, u2, kn=None) -> BrdfSample:
     """GGX lobe: DistributionGGX (kernel_bvh.cl:221-225) with matching
     half-vector sampling; Ns maps to roughness r = sqrt(2/(Ns+2))."""
-    r = torch.sqrt(2.0 / (vmax(ns, 0.0) + 2.0))
+    r = known.sqrt(kn, "rough", 2.0 / (vmax(ns, 0.0) + 2.0))
     a = r * r
     a2 = vmax(a * a, 1e-12)
-    phi = _TWO_PI * u1
-    u2c = torch.clamp(u2, 0.0, 1.0 - 1e-7)
+    u2c = known.const(kn, "u2c", lambda: torch.clamp(u2, 0.0, 1.0 - 1e-7))
     cos_h2 = (1.0 - u2c) / (1.0 + (a2 - 1.0) * u2c)
-    cos_h = torch.sqrt(vclip(cos_h2, 0.0, 1.0))
-    sin_h = _sqrt0(vmax(1.0 - cos_h2, 0.0))
-    s, t = build_onb(normal)
-    wh = spherical_dir(s, t, normal, phi, sin_h, cos_h)
+    cos_h = known.sqrt(kn, "cos_h", vclip(cos_h2, 0.0, 1.0))
+    sin_h = known.sqrt0(kn, "sin_h", vmax(1.0 - cos_h2, 0.0))
+    cphi = known.const(kn, "s_cp", lambda: torch.cos(_TWO_PI * u1))
+    sphi = known.const(kn, "s_sp", lambda: torch.sin(_TWO_PI * u1))
+    s, t = build_onb(normal, kn)
+    wh = _direction(kn, "wh", s, t, normal, cphi * sin_h, sphi * sin_h, cos_h)
     dd = cos_h2 * (a2 - 1.0) + 1.0
     d_ndf = a2 * _INV_PI / vmax(dd * dd, 1e-12)
     pdf_h = d_ndf * cos_h
@@ -129,21 +137,28 @@ def sample_specular_ggx(wo, normal, specular, ns, u1, u2) -> BrdfSample:
 
 def sample_brdf(wo, normal, diffuse, specular, ns, seeds, bounce: int,
                 specular_prob: float = 0.5,
-                specular_model: str = "blinn") -> BrdfSample:
-    """50/50 lobe roulette (kernel_bvh.cl:294-302), branch-free."""
-    u_lobe = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_LOBE))
-    pick_spec = u_lobe > (1.0 - specular_prob)
-
-    du1 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_DIFF_PHI))
-    du2 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_DIFF_R2))
-    su1 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_SPEC_PHI))
-    su2 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_SPEC_COS))
-
-    diff = sample_diffuse(normal, diffuse, du1, du2)
-    if specular_model == "ggx":
-        spec = sample_specular_ggx(wo, normal, specular, ns, su1, su2)
+                specular_model: str = "blinn", kn=None) -> BrdfSample:
+    """50/50 lobe roulette (kernel_bvh.cl:294-302), branch-free. A
+    reading ``kn`` (ops/known.py) replays the recorded pick and draws:
+    ``seeds`` is not read."""
+    if kn is not None and not kn.writing:
+        pick_spec = kn.take("pick") > 0.5
+        du1 = du2 = su1 = su2 = None
     else:
-        spec = sample_specular(wo, normal, specular, ns, su1, su2)
+        u_lobe = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_LOBE))
+        pick_spec = u_lobe > (1.0 - specular_prob)
+        if kn is not None:
+            kn.emit("pick", pick_spec.to(u_lobe.dtype))
+        du1 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_DIFF_PHI))
+        du2 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_DIFF_R2))
+        su1 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_SPEC_PHI))
+        su2 = rng.uniform(seeds, rng.bounce_site(bounce, rng.SITE_SPEC_COS))
+
+    diff = sample_diffuse(normal, diffuse, du1, du2, kn)
+    if specular_model == "ggx":
+        spec = sample_specular_ggx(wo, normal, specular, ns, su1, su2, kn)
+    else:
+        spec = sample_specular(wo, normal, specular, ns, su1, su2, kn)
 
     sel = pick_spec[..., None]
     return BrdfSample(

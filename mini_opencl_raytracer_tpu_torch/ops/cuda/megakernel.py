@@ -17,6 +17,17 @@ Four kernels, written by hand in ``csrc/``:
   with the winner indices and occlusion bits of the forward held fixed
   (replace ``_bounce0_bwd_kernel`` and ``_bounce_bwd_kernel``).
 
+``bounce_fwd`` and ``bounce_bwd`` each have a residual variant, the JAX
+kernels' under ``cfg.bwd_residuals`` (``_run_bounce_fwd(save_resid=True)``
+and ``_run_bounce_bwd`` with ``resid``): ``bounce_fwd(save_resid=True)``
+also returns the known-value rows [n, R] (ops/known.py's layout) of every
+ray that is alive and has a winner, and ``bounce_bwd(resid=rows)`` reads
+them instead of recomputing the shading's transcendentals and the RNG
+draws. The kernels write only the rows K4 reads (``rows_read``); the
+other rows, and every row of the other rays, are left undefined. ``_Bounce`` takes that path
+when ``cfg.bwd_residuals``. The plain versions record and replay the same
+rows through ops/known.py.
+
 Each has a plain PyTorch version here: the forward ones composed from
 ops/camera, ops/intersect, ops/shading, ops/brdf, ops/lights and
 ops/integrator, the backward ones ``torch.autograd.grad`` of a replay of
@@ -44,14 +55,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ...config import RenderConfig
 from ...models.scene import Camera, Geometry, Lights, Materials, Scene
-from .. import rng
+from .. import known, rng
 from ..camera import rays_from_basis, tan_half_fov
 from ..integrator import shade_hit
 from ..intersect import closest_hit_edges, occluded_edges
@@ -59,7 +70,26 @@ from ..linalg import cross, vmax
 from ..shading import winner_attributes
 from . import build
 
-LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0}
+# Launches per kernel; the residual variants count apart.
+LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0,
+            "bounce_fwd_resid": 0, "bounce_bwd_resid": 0}
+
+
+def rows_read(cfg: RenderConfig, num_lights: int) -> Dict[str, List[int]]:
+    """The known-value rows (ops/known.layout) that K2 writes and K4 reads
+    (csrc/megakernel.cu:write_rows), by the rays they belong to: "all" for
+    every ray alive with a winner (1 / det, the coverage, the pick, each
+    light's distance and, with direct specular, its power and the log of its
+    base), "diffuse" / "specular" for those whose pick row is 0 / 1 (the
+    picked lobe's draw terms). The inverse lengths are not among them."""
+    ix = known.layout(cfg, num_lights)
+    spec = (("rough", "u2c", "cos_h", "sin_h", "s_cp", "s_sp") if cfg.specular_model == "ggx"
+            else ("log_u2", "cos_h", "sin_h", "s_cp", "s_sp", "cosn", "rough"))
+    lights = [f"{n}{li}" for li in range(num_lights) for n in ("dist", "pow", "logb")]
+    rows = lambda names: [ix[n] for n in names if n in ix]
+    return {"all": rows(["inv_det", "cov", "pick"] + lights),
+            "diffuse": rows(("d_cp", "d_sp", "d_ct")), "specular": rows(spec)}
+
 
 # Scene limit of the mega path, kept equal to the JAX package's for
 # dispatch parity (there a TPU VMEM bound; re-deriving it from Hopper's
@@ -87,8 +117,8 @@ _CAM_POS, _CAM_RIGHT, _CAM_UP, _CAM_FRONT = 0, 3, 6, 9
 _CAM_COLS = 16
 _NUM_SITES = 5
 
-# Flag bits of _Params.flags (csrc/megakernel.cu).
-_F_SHADOW, _F_DSPEC, _F_CULL, _F_GGX, _F_SOFT = 1, 2, 4, 8, 16
+# Flag bits of _Params.flags (csrc/megakernel.cuh).
+_F_SHADOW, _F_DSPEC, _F_CULL, _F_GGX, _F_SOFT, _F_RESID = 1, 2, 4, 8, 16, 32
 
 # Rays per chunk in the plain versions' [rays x tris] panels.
 _PLAIN_CHUNK = 1 << 16
@@ -193,10 +223,11 @@ def camera_vector(camera: Camera) -> torch.Tensor:
 # Plain versions of the two kernels.
 
 def _shade_rows(table_rows, lights, o, d, beta, alive, seeds, idx, hit,
-                bounce: int, cfg: RenderConfig, occluder=None, occ=None):
+                bounce: int, cfg: RenderConfig, occluder=None, occ=None, kn=None):
     """Everything after the closest hit, on the winners' table rows: the
     (t, u, v) recompute on (v0, e1, e2), then ops/integrator.shade_hit.
-    ``occ`` replays recorded occlusion bits instead of ``occluder``."""
+    ``occ`` replays recorded occlusion bits instead of ``occluder``; ``kn``
+    records or replays the known-value rows (ops/known.py)."""
     rows = table_rows[torch.where(hit, idx, torch.zeros_like(idx))]
 
     def c3(off):
@@ -205,16 +236,17 @@ def _shade_rows(table_rows, lights, o, d, beta, alive, seeds, idx, hit,
     at = winner_attributes(o, d, hit, c3(_V0), c3(_E1), c3(_E2), c3(_N0),
                            c3(_N1), c3(_N2), c3(_KD), c3(_KS), c3(_KE),
                            rows[:, _NS], backface_cull=cfg.backface_cull,
-                           soft_sigma=cfg.soft_edge_sigma)
+                           soft_sigma=cfg.soft_edge_sigma, kn=kn)
     return shade_hit(at, hit, o, d, beta, torch.zeros_like(beta), alive,
                      seeds, bounce, unpack_lights(lights), cfg, occluder,
-                     occ_bits=occ)
+                     occ_bits=occ, kn=kn)
 
 
 def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
-                  bounce: int, cfg: RenderConfig):
+                  bounce: int, cfg: RenderConfig, save_resid: bool = False):
     """One bounce on [R, 3] ray state with the mega tables; returns the
-    kernel's outputs in its [3, R] / [R] layout."""
+    kernel's outputs in its [3, R] / [R] layout, and with ``save_resid``
+    the known-value rows [n, R] of every ray after them."""
     v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
     best_t, best_idx = closest_hit_edges(o, d, v0, e1, e2, cfg.t_max,
                                          cfg.backface_cull, _PLAIN_CHUNK)
@@ -224,14 +256,16 @@ def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
         return occluded_edges(so, sd, t_limit, v0, e1, e2,
                               cfg.backface_cull, _PLAIN_CHUNK)
 
+    kn = known.Known(cfg, lights.shape[0]) if save_resid else None
     o_n, d_n, b_n, rad, alive_n, occ = _shade_rows(
         table_rows, lights, o, d, beta, alive, seeds, best_idx, hit, bounce,
-        cfg, occluder)
+        cfg, occluder, kn=kn)
     winner = torch.where(alive & hit, best_idx, torch.full_like(best_idx, -1))
     occ = torch.where(alive_n, occ, torch.zeros_like(occ))
-    return (o_n.T.contiguous(), d_n.T.contiguous(), b_n.T.contiguous(),
-            alive_n.to(torch.float32), rad.T.contiguous(),
-            winner.to(torch.int32), occ.to(torch.int32))
+    out = (o_n.T.contiguous(), d_n.T.contiguous(), b_n.T.contiguous(),
+           alive_n.to(torch.float32), rad.T.contiguous(),
+           winner.to(torch.int32), occ.to(torch.int32))
+    return out + (kn.stacked().contiguous(),) if save_resid else out
 
 
 def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame,
@@ -253,20 +287,26 @@ def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame,
 
 
 def bounce_fwd_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
-                     bounce: int, cfg: RenderConfig):
-    """Plain version of one bounce from the carried [3, R] ray state."""
+                     bounce: int, cfg: RenderConfig, save_resid: bool = False):
+    """Plain version of one bounce from the carried [3, R] ray state;
+    ``save_resid`` appends the known-value rows [n, R] (every ray's: the
+    kernel writes those of rays that are alive and have a winner)."""
     return _bounce_plain(table_rows, tris, lights, o.T, d.T, beta.T,
-                         alive > 0.0, rng.from_i32_bits(seeds), bounce, cfg)
+                         alive > 0.0, rng.from_i32_bits(seeds), bounce, cfg,
+                         save_resid=save_resid)
 
 
 def _replay(table_rows, lights, o, d, beta, alive, seeds, winner, occ,
-            bounce: int, cfg: RenderConfig):
+            bounce: int, cfg: RenderConfig, resid=None):
     """One bounce with the forward's winners and occlusion bits frozen:
-    no intersection, [R, 3] state in, (o', d', beta', radiance) out."""
+    no intersection, [R, 3] state in, (o', d', beta', radiance) out.
+    ``resid``: the forward's known-value rows, substituted at each site
+    (the seeds are then not read)."""
     idx = winner.to(torch.int64)
+    kn = None if resid is None else known.Known(cfg, lights.shape[0], rows=resid)
     o_n, d_n, b_n, rad, _, _ = _shade_rows(table_rows, lights, o, d, beta,
                                            alive, seeds, idx, idx >= 0,
-                                           bounce, cfg, occ=occ)
+                                           bounce, cfg, occ=occ, kn=kn)
     return o_n, d_n, b_n, rad
 
 
@@ -301,15 +341,18 @@ def bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame,
 
 
 def bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds, winner,
-                     occ, cot, bounce: int, cfg: RenderConfig):
+                     occ, cot, bounce: int, cfg: RenderConfig, resid=None):
     """Plain version of one bounce's VJP from the carried [3, R] state.
     Returns (d_o, d_d, d_beta [3, R], d_table [T_pad, 32],
-    d_lights [L, 16]); the alive mask and the seeds carry no gradient."""
+    d_lights [L, 16]); the alive mask and the seeds carry no gradient.
+    ``resid``: autograd of the replay with the known-value rows
+    substituted (ops/known.lin), the JAX package's bwd_residuals replay."""
     with torch.enable_grad():
         tab, lv, oi, di, bi = (x.detach().requires_grad_()
                                for x in (table_rows, lights, o, d, beta))
         outs = _replay(tab, lv, oi.T, di.T, bi.T, alive > 0.0,
-                       rng.from_i32_bits(seeds), winner, occ, bounce, cfg)
+                       rng.from_i32_bits(seeds), winner, occ, bounce, cfg,
+                       resid=resid)
         g_tab, g_lv, g_o, g_d, g_b = _vjp(outs, (tab, lv, oi, di, bi), cot)
     return g_o, g_d, g_b, g_tab, g_lv
 
@@ -372,14 +415,16 @@ def _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot, tensors):
     return T_pad
 
 
-def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int) -> _Params:
+def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
+            resid: bool = False) -> _Params:
     p = _Params()
     p.num_rays, p.num_tris, p.num_lights = R, T, L
     p.flags = ((_F_SHADOW if cfg.shadow_rays else 0)
                | (_F_DSPEC if cfg.direct_specular else 0)
                | (_F_CULL if cfg.backface_cull else 0)
                | (_F_GGX if cfg.specular_model == "ggx" else 0)
-               | (_F_SOFT if cfg.soft_edge_sigma > 0.0 else 0))
+               | (_F_SOFT if cfg.soft_edge_sigma > 0.0 else 0)
+               | (_F_RESID if resid else 0))
     p.width, p.height = cfg.width, cfg.height
     f32 = np.float32
     p.t_max = f32(min(cfg.t_max, 3.0e38))
@@ -418,11 +463,11 @@ def frame_word(frame, device) -> torch.Tensor:
 
 def _launch(name: str, fn, device, params, tensors, *ints, ptrs=()):
     """Launch entry point ``fn``: (params, *ints, *tensor pointers, *ptrs,
-    stream); ``ptrs`` are raw pointers that may be None (null)."""
+    stream); a None among ``tensors`` and ``ptrs`` passes null."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(params), *ints,
-                 *[t.data_ptr() for t in tensors], *ptrs, stream)
+                 *[None if t is None else t.data_ptr() for t in tensors], *ptrs, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
 
@@ -473,10 +518,13 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame,
 
 
 def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
-               bounce: int, cfg: RenderConfig):
+               bounce: int, cfg: RenderConfig, save_resid: bool = False):
     """One fused bounce from the carried state; ``bounce`` selects the
     RNG draw sites. Returns (o, d, beta, alive, radiance, winner,
-    occ_bits); the radiance is this bounce's contribution alone."""
+    occ_bits); the radiance is this bounce's contribution alone. With
+    ``save_resid`` also the known-value rows [known.num_rows, R] float32 (the
+    kernel writes the rows of rays that are alive and have a winner and
+    leaves the others undefined)."""
     device = o.device
     R = alive.shape[0]
     _check_common(table_rows, tris, lights, cfg, device,
@@ -488,15 +536,18 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
     _check(seeds, "seeds", torch.int32, (R,), device)
     if device.type == "cpu":
         return bounce_fwd_plain(table_rows, tris, lights, o, d, beta, alive,
-                                seeds, bounce, cfg)
+                                seeds, bounce, cfg, save_resid=save_resid)
     if device.type != "cuda":
         raise ValueError(f"bounce_fwd runs on cpu or cuda, not {device}")
     out = _empty_state(R, device)
+    rows = (torch.empty((known.num_rows(cfg, lights.shape[0]), R), dtype=torch.float32,
+                        device=device) if save_resid else None)
     if R:
-        params = _params(cfg, R, tris.shape[0], lights.shape[0], bounce)
-        _launch("bounce_fwd", build.library().mrt_bounce_fwd, device, params,
-                (table_rows, tris, lights, o, d, beta, alive, seeds) + out)
-    return out
+        params = _params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid)
+        _launch("bounce_fwd_resid" if save_resid else "bounce_fwd",
+                build.library().mrt_bounce_fwd, device, params,
+                (table_rows, tris, lights, o, d, beta, alive, seeds) + out + (rows,))
+    return out + (rows,) if save_resid else out
 
 
 class BwdPlan(NamedTuple):
@@ -523,12 +574,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _bwd_launch(name: str, fn, device, params, plan: BwdPlan, tensors) -> None:
+def _bwd_launch(name: str, fn, device, params, plan: BwdPlan, tensors, ptrs=()) -> None:
     """Launch a backward entry point with its plan and its partials."""
     part = torch.empty((plan.grid, plan.part_cols), dtype=torch.float32,
                        device=device)
     _launch(name, fn, device, params, tensors[:-1] + (part,) + tensors[-1],
-            plan.grid, int(plan.smem_table))
+            plan.grid, int(plan.smem_table), ptrs=ptrs)
 
 
 def _device_index(device) -> int:
@@ -568,10 +619,12 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame, winner, occ,
 
 
 def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
-               bounce: int, cfg: RenderConfig):
+               bounce: int, cfg: RenderConfig, resid=None):
     """VJP of ``bounce_fwd`` with its winners and occlusion bits frozen.
     Returns (d_o, d_d, d_beta [3, R], d_table [T_pad, 32],
-    d_lights [L, 16]); the alive mask and the seeds carry no gradient."""
+    d_lights [L, 16]); the alive mask and the seeds carry no gradient.
+    ``resid``: the rows of ``bounce_fwd(save_resid=True)``, read instead of
+    recomputing (the kernel then does not read ``seeds``)."""
     device = o.device
     R = alive.shape[0]
     T_pad = _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot,
@@ -581,9 +634,11 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
         _check(t, name, torch.float32, (3, R), device)
     _check(alive, "alive", torch.float32, (R,), device)
     _check(seeds, "seeds", torch.int32, (R,), device)
+    if resid is not None:
+        _check(resid, "resid", torch.float32, (known.num_rows(cfg, lights.shape[0]), R), device)
     if device.type == "cpu":
         return bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds,
-                                winner, occ, cot, bounce, cfg)
+                                winner, occ, cot, bounce, cfg, resid=resid)
     if device.type != "cuda":
         raise ValueError(f"bounce_bwd runs on cpu or cuda, not {device}")
     L = lights.shape[0]
@@ -593,10 +648,13 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
            new((T_pad, _C_PAD), **f32), new((L, _LCOLS), **f32))
     if R:
         plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), False)
-        _bwd_launch("bounce_bwd", build.library().mrt_bounce_bwd, device,
-                    _params(cfg, R, T_pad, L, bounce), plan,
-                    (table_rows, lights, o, d, beta, alive, seeds, winner, occ)
-                    + tuple(cot) + (out,))
+        res = resid is not None
+        _bwd_launch("bounce_bwd_resid" if res else "bounce_bwd", build.library().mrt_bounce_bwd,
+                    device,
+                    _params(cfg, R, T_pad, L, bounce, resid=res), plan,
+                    (table_rows, lights, o, d, beta, alive, None if res else seeds,
+                     winner, occ) + tuple(cot) + (out,),
+                    ptrs=(resid.data_ptr() if res else None,))
     return out
 
 
@@ -638,29 +696,33 @@ class _Bounce0(torch.autograd.Function):
 
 class _Bounce(torch.autograd.Function):
     """(table, lights, o, d, beta) -> bounce_fwd's outputs; the backward is
-    bounce_bwd."""
+    bounce_bwd. With ``cfg.bwd_residuals`` the forward keeps the
+    known-value rows and the backward reads them (the JAX ``_bounce_fwd``
+    / ``_bounce_bwd``, megakernel.py:1523-1546)."""
 
     @staticmethod
     def forward(ctx, table_rows, lights, o, d, beta, tris, alive, seeds,
                 bounce, cfg):
         out = bounce_fwd(table_rows.detach(), tris.detach(), lights.detach(),
                          o.detach(), d.detach(), beta.detach(), alive, seeds,
-                         bounce, cfg)
+                         bounce, cfg, save_resid=cfg.bwd_residuals)
+        rows = out[7] if cfg.bwd_residuals else None
+        out = out[:7]
         _, _, _, alive_n, _, winner, occ = out
         ctx.save_for_backward(table_rows, lights, o, d, beta, alive, seeds,
-                              winner, occ)
+                              winner, occ, rows)
         ctx.bounce, ctx.cfg = bounce, cfg
         ctx.mark_non_differentiable(alive_n, winner, occ)
         return out
 
     @staticmethod
     def backward(ctx, g_o, g_d, g_beta, _g_alive, g_rad, _g_w, _g_occ):
-        table_rows, lights, o, d, beta, alive, seeds, winner, occ = \
+        table_rows, lights, o, d, beta, alive, seeds, winner, occ, rows = \
             ctx.saved_tensors
         d_o, d_d, d_beta, d_tab, d_lv = bounce_bwd(
             table_rows.detach(), lights.detach(), o.detach(), d.detach(),
             beta.detach(), alive, seeds, winner, occ,
-            _cot((g_o, g_d, g_beta, g_rad)), ctx.bounce, ctx.cfg)
+            _cot((g_o, g_d, g_beta, g_rad)), ctx.bounce, ctx.cfg, resid=rows)
         return d_tab, d_lv, d_o, d_d, d_beta, None, None, None, None, None
 
 

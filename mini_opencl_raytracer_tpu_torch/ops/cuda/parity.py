@@ -8,6 +8,15 @@ kernels' any-hit occlusion exactly equal. Knife-edge decisions
 (a ray on a shared edge, a sample on a validity threshold) may flip under
 different float rounding; those flips are the gate's only allowed error.
 
+Residual variants (cfg.bwd_residuals): K2's known-value rows against the
+plain version's on the rows K4 reads (megakernel.rows_read) and the live
+rays (alive with a winner; the other rows and rays are undefined), under
+the forward gate, with whether they are bitwise equal; K2's other outputs
+bitwise equal to those of K2 without rows; K4 with rows bitwise equal to
+K4 without, except with direct specular, where the power's derivative is
+taken from its row (csrc/megakernel_bwd.cu) and the two are held in the
+gradient gate.
+
 Gradients: per-ray outputs (d_o, d_d, d_beta) take the forward gate
 scaled by s = max |plain|: mean |diff| <= 1e-4 s and frac(|diff| >
 1e-3 s) <= 1e-4. Sums over rays (d_table, d_lights, d_camv) and scene or
@@ -18,6 +27,8 @@ differences: relative error <= 5e-2. Every value must be finite.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -25,7 +36,7 @@ from ...models.cornell import cornell_scene
 from ...render import _swizzled_ids
 from ...models.scene import (LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT,
                              Camera, Geometry, Lights, Scene)
-from .. import integrator, rng
+from .. import integrator, known, rng
 from ..camera import generate_rays
 from ..shading import build_shading_table, hit_attributes
 
@@ -445,6 +456,68 @@ def k2_case(name: str, device, width: int = 128, height: int = 72, seed: int = 9
         alive, seeds = alive[:n].clone(), seeds[:n].contiguous()
         alive[0] = 1.0
     return scene, cfg, (o, d, beta, alive, seeds), 1
+
+
+# The options that change the residual rows (ops/known.layout), the
+# residual variants of K2 / K4 run in each on K2_CASES' states (chip_smoke
+# phase 17, tests/test_torch_cuda.py): (config fields, rows on Cornell's
+# one light).
+RESID_OPTIONS = {"blinn": ({}, 17), "ggx": (dict(specular_model="ggx"), 16),
+                 "shadow rays": (dict(shadow_rays=True), 17),
+                 "direct specular": (dict(direct_specular=True), 20),
+                 "soft edge": (dict(soft_edge_sigma=0.05), 18)}
+
+
+def resid_case(name: str, option: str, device, width: int = 128, height: int = 72):
+    """(scene, cfg, state, bounce) of K2_CASES' ``name`` with the residual
+    option ``option`` (RESID_OPTIONS) added to its config."""
+    scene, cfg, state, bounce = k2_case(name, device, width, height)
+    return (scene, dataclasses.replace(cfg, bwd_residuals=True, **RESID_OPTIONS[option][0]),
+            state, bounce)
+
+
+def live_rays(alive: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
+    """The rays whose residual rows K2 writes: alive with a winner."""
+    return (alive > 0.0) & (winner >= 0)
+
+
+def check_resid_rows(label: str, k_rows: torch.Tensor, p_rows: torch.Tensor,
+                     alive: torch.Tensor, winner: torch.Tensor, cfg, num_lights: int) -> dict:
+    """K2's rows against the plain version's, under the forward gate row by
+    row, on the rows the kernels write (megakernel.rows_read): the shared
+    rows on the live rays, each lobe's on the live rays whose plain pick
+    is that lobe. Returns the worst row's stats, ``bitwise`` (every
+    compared value equal), ``live`` and ``max_abs_err``."""
+    from .megakernel import rows_read
+    if k_rows.shape != p_rows.shape:
+        raise AssertionError(f"{label}: rows {tuple(k_rows.shape)} vs {tuple(p_rows.shape)}")
+    read = rows_read(cfg, num_lights)
+    live = live_rays(alive, winner)
+    spec = p_rows[known.layout(cfg, num_lights)["pick"]] > 0.5
+    rays = {"all": live, "diffuse": live & ~spec, "specular": live & spec}
+    worst = {"max": 0.0, "mean": 0.0, "frac": 0.0}
+    bitwise = True
+    for part, idx in read.items():
+        for r in idx:
+            k, p = k_rows[r, rays[part]], p_rows[r, rays[part]]
+            if k.numel():
+                st = check_float(f"{label}.row{r}", k, p)
+                worst = {n: max(worst[n], st[n]) for n in worst}
+                bitwise = bitwise and bool(torch.equal(k, p))
+    return dict(worst, bitwise=bitwise, live=int(live.sum().item()), max_abs_err=worst["max"])
+
+
+def check_resid_bwd(label: str, with_rows, without, cfg) -> dict:
+    """K4 with rows against K4 without on the same inputs: bitwise, but
+    in the gradient gate with direct specular (module docstring)."""
+    if not cfg.direct_specular:
+        bad = [n for n, a, b in zip(BOUNCE_GRADS, with_rows, without) if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: K4 with rows is not bitwise K4 without: {bad}")
+        return {"bitwise": True}
+    stats = check_grads(label, with_rows, without, BOUNCE_GRADS)
+    stats["bitwise"] = all(torch.equal(a, b) for a, b in zip(with_rows, without))
+    return stats
 
 
 def k2_ray_set_cases(device, t_max: float = 3.0e38):

@@ -23,14 +23,22 @@ paths; each ray's values do not depend on where it sits in the wavefront,
 so the sort changes no pixel. ``make_bounce_step`` is the per-bounce
 transition in scan form for callers that run bounces apart (the pipeline
 stages of parallel/pipeline.py); it keeps the ray order.
+
+With ``cfg.remat`` (the default) each bounce runs under a checkpoint
+where a gradient is taken (``_remat``, the JAX package's
+``jax.checkpoint``): the backward keeps each bounce's input carry and
+recomputes the rest of the bounce, the intersection included, instead of
+holding every bounce's autograd graph.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig
 from ..models.scene import Lights, Scene
@@ -72,7 +80,7 @@ def park_point(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
               alive, seeds, bounce: int, lights: Lights, cfg: RenderConfig,
               occluder_fn: Optional[Callable] = None,
-              occ_bits: Optional[torch.Tensor] = None):
+              occ_bits: Optional[torch.Tensor] = None, kn=None):
     """One bounce of the recurrence after the closest hit.
 
     Returns (o_next, d_next, beta_new, radiance, alive_next, occ_bits):
@@ -80,7 +88,8 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     ``occ_bits`` the per-light shadow-ray bitmask (0 without shadow rays).
     With shadow rays on, ``occ_bits`` given as an input replays that
     recorded visibility instead of calling ``occluder_fn`` (the backward
-    bounce's frozen occlusion).
+    bounce's frozen occlusion). ``kn`` records or replays the known-value
+    rows of the BRDF sample and the lights (ops/known.py).
     """
     # Filled in on the device (no copy from host memory), rounded as
     # float32(c) * intensity like the kernels' sky.
@@ -102,7 +111,7 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     wo = -d
     sample = sample_brdf(wo, at.normal, at.kd, at.ks, at.ns, seeds, bounce,
                          specular_prob=cfg.specular_prob,
-                         specular_model=cfg.specular_model)
+                         specular_model=cfg.specular_model, kn=kn)
     cos_i = dot(sample.wi, at.normal)
     pdf_safe = torch.where(sample.pdf > 0.0, sample.pdf,
                            torch.ones_like(sample.pdf))
@@ -118,7 +127,7 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
                       occluder_fn=occluder_fn if cfg.shadow_rays else None,
                       direct_specular=cfg.direct_specular,
                       shadow_eps=cfg.ray_epsilon,
-                      occ_bits=occ_bits if cfg.shadow_rays else None)
+                      occ_bits=occ_bits if cfg.shadow_rays else None, kn=kn)
     direct = dl.diffuse_weight[:, None] * at.kd
     if cfg.direct_specular:
         direct = direct + dl.specular_weight[:, None] * at.ks
@@ -148,6 +157,39 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
         return o, d, beta, radiance, alive, seeds
 
     return bounce_step
+
+
+def _tensor_leaves(obj):
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _tensor_leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
+def _remat(scene: Scene, cfg: RenderConfig, fn):
+    """``fn(carry, bounce)`` under a per-bounce checkpoint when
+    ``cfg.remat`` and a gradient is being taken (grad mode on, and a leaf
+    of the scene or a tensor of the carry requires grad); else ``fn``
+    itself, so a forward without a gradient runs as it would without
+    remat. The port's RNG is counter-based and draws nothing from torch's
+    generators, so no RNG state is saved (saving it would also touch the
+    CUDA generator inside a graph capture). The recompute runs the same
+    deterministic kernels on the same inputs, so the gradients equal those
+    of ``remat=False`` bit for bit."""
+    if not cfg.remat:
+        return fn
+    scene_grad = any(t.requires_grad for t in _tensor_leaves(scene))
+
+    def step(carry, bounce: int):
+        if torch.is_grad_enabled() and (scene_grad or any(
+                isinstance(x, torch.Tensor) and x.requires_grad for x in carry)):
+            return checkpoint(fn, carry, bounce, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(carry, bounce)
+
+    return step
 
 
 def _sorted_wavefront(scene: Scene, intersect_fn, occluder_fn):
@@ -191,13 +233,13 @@ def make_bounce_step(scene: Scene, cfg: RenderConfig, intersect_fn,
     step keeps the ray order (coherence sorting, where on, happens inside
     it through ``_sorted_wavefront``), so bounce segments can run as
     pipeline stages (parallel/pipeline.py); ``trace_paths`` keeps its
-    wavefront permuted instead."""
+    wavefront permuted instead. Applies ``cfg.remat``."""
     occ = occluder_fn if cfg.shadow_rays else None
     sort_on = (cfg.sort_rays if cfg.sort_rays is not None
                else scene.num_triangles > SORT_RAYS_MIN_TRIS)
     if sort_on:
         intersect_fn, occ = _sorted_wavefront(scene, intersect_fn, occ)
-    core = make_bounce_core(scene, cfg, intersect_fn, occ)
+    core = _remat(scene, cfg, make_bounce_core(scene, cfg, intersect_fn, occ))
 
     def step(carry, bounce: int):
         carry = core(carry, bounce)
@@ -223,7 +265,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins: torch.Tensor,
     R = origins.shape[0]
     dtype = cfg.torch_dtype()
     dev = origins.device
-    step = make_bounce_core(scene, cfg, intersect_fn, occluder_fn)
+    step = _remat(scene, cfg, make_bounce_core(scene, cfg, intersect_fn, occluder_fn))
     carry = (origins, directions,
              torch.ones((R, 3), dtype=dtype, device=dev),
              torch.zeros((R, 3), dtype=dtype, device=dev),
@@ -264,16 +306,10 @@ def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
     lo, hi = torch.amin(pts, dim=0), torch.amax(pts, dim=0)
     park_o = park_point(lo, hi).to(dtype)
     park_d = torch.full((3,), 1.0 / math.sqrt(3.0), dtype=dtype, device=dev)
-    step = make_bounce_core(scene, cfg, intersect_fn, occluder_fn)
-    carry = step((origins, directions,
-                  torch.ones((R, 3), dtype=dtype, device=dev),
-                  torch.zeros((R, 3), dtype=dtype, device=dev),
-                  torch.ones((R,), dtype=torch.bool, device=dev),
-                  seeds), 0)
-    stats = [carry[4].to(dtype).mean()] if with_stats else []
-    ridx = torch.arange(R, device=dev)
-    for bounce in range(1, cfg.bounces):
-        o, d, beta, radiance, alive, seeds_ = carry
+    core = make_bounce_core(scene, cfg, intersect_fn, occluder_fn)
+
+    def sorted_step(carry, bounce: int):
+        o, d, beta, radiance, alive, seeds_, ridx = carry
         keys = _ray_sort_keys(o.detach(), d.detach(), lo, hi)
         keys = torch.where(alive, keys, torch.full_like(keys, DEAD_KEY))
         perm = torch.sort(keys, stable=True).indices
@@ -282,9 +318,23 @@ def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
         am = alive[:, None]
         o = torch.where(am, o, park_o)
         d = torch.where(am, d, park_d)
-        carry = step((o, d, beta, radiance, alive, seeds_), bounce)
+        return core((o, d, beta, radiance, alive, seeds_), bounce) + (ridx,)
+
+    # With remat the sort and the park run inside the checkpoint (as in the
+    # JAX package), so a bounce keeps only its permuted carry.
+    step0, sorted_step = _remat(scene, cfg, core), _remat(scene, cfg, sorted_step)
+    carry = step0((origins, directions,
+                   torch.ones((R, 3), dtype=dtype, device=dev),
+                   torch.zeros((R, 3), dtype=dtype, device=dev),
+                   torch.ones((R,), dtype=torch.bool, device=dev),
+                   seeds), 0)
+    stats = [carry[4].to(dtype).mean()] if with_stats else []
+    carry = carry + (torch.arange(R, device=dev),)
+    for bounce in range(1, cfg.bounces):
+        carry = sorted_step(carry, bounce)
         if with_stats:
             stats.append(carry[4].to(dtype).mean())
+    ridx = carry[6]
     inverse = torch.empty_like(ridx)
     inverse[ridx] = torch.arange(R, device=dev)
     # Final clamp (kernel_bvh.cl:383).

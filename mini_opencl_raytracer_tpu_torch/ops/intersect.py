@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from ..models.scene import Geometry
+from . import known
 from .linalg import cross, dot, normalize
 
 _DET_EPS = 1e-10
@@ -35,18 +36,20 @@ class Hit:
     rows: Optional[torch.Tensor] = None
 
 
-def ray_triangle_edges(o, d, v0, e1, e2, backface_cull: bool = False):
+def ray_triangle_edges(o, d, v0, e1, e2, backface_cull: bool = False, kn=None):
     """Möller-Trumbore on (v0, e1 = v1 - v0, e2 = v2 - v0).
 
     All inputs broadcast; returns (t, u, v, valid) with t = +inf where
-    invalid."""
+    invalid. ``kn``: the known-value rows (ops/known.py), for the
+    reciprocal of the determinant."""
     pvec = cross(d, e2)
     det = dot(e1, pvec)
     if backface_cull:
         valid = det > _DET_EPS
     else:
         valid = torch.abs(det) > _DET_EPS
-    inv_det = torch.where(valid, 1.0 / torch.where(valid, det, torch.ones_like(det)),
+    inv_det = torch.where(valid, known.recip(kn, "inv_det",
+                                             torch.where(valid, det, torch.ones_like(det))),
                           torch.zeros_like(det))
     tvec = o - v0
     u = dot(tvec, pvec) * inv_det

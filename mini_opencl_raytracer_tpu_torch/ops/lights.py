@@ -11,6 +11,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..models.scene import LIGHT_DIRECTIONAL, LIGHT_SPOT, Lights
+from . import known
 from .linalg import dot, normalize, vclip, vmax
 
 
@@ -57,6 +58,7 @@ def direct_light(
     direct_specular: bool = False,
     shadow_eps: float = 1e-2,
     occ_bits: Optional[torch.Tensor] = None,  # [R] int32 recorded occlusion
+    kn=None,                  # known-value rows (ops/known.py)
 ) -> DirectLight:
     """Sum the analytic direct-light weights over all lights.
     ``occluder_fn`` enables shadow rays; the per-light occlusion is also
@@ -80,7 +82,7 @@ def direct_light(
         cos_cut = lights.cos_cutoff[li]
 
         to_light = lpos[None, :] - position
-        dist = torch.sqrt(vmax(dot(to_light, to_light), 1e-12))
+        dist = known.sqrt(kn, f"dist{li}", vmax(dot(to_light, to_light), 1e-12))
         l_point = to_light / dist[..., None]
         is_dir = ltype <= LIGHT_DIRECTIONAL
         l_unit = (-ldir[None, :]).expand_as(l_point) if is_dir else l_point
@@ -115,9 +117,10 @@ def direct_light(
         diff_total = diff_total + weight
 
         if direct_specular:
-            h = normalize(l_unit + wo)
+            h = known.normalize(kn, f"h{li}", l_unit + wo)
             ndoth = vmax(dot(normal, h), 0.0)
-            spec = torch.pow(vmax(ndoth, 1e-6), vmax(shininess, 1.0))
+            spec = known.power(kn, f"pow{li}", f"logb{li}", vmax(ndoth, 1e-6),
+                               vmax(shininess, 1.0))
             spec = torch.where(ndotl > 0.0, spec, zero)
             spec_w = attn * intensity * spec
             if shadowed:

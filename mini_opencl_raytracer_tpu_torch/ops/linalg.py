@@ -57,23 +57,15 @@ def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return -v + 2.0 * dot(v, n)[..., None] * n
 
 
-def build_onb(n: torch.Tensor):
+def build_onb(n: torch.Tensor, kn=None):
     """Orthonormal basis (s, t) around n, SampleHemisphereCosine's frame
     (kernel_bvh.cl:85-87): axis = |n.x|>0.001 ? +Y : +X;
-    t = normalize(cross(axis, n)); s = cross(n, t)."""
+    t = normalize(cross(axis, n)); s = cross(n, t). ``kn``: the
+    known-value rows (ops/known.py)."""
+    from . import known
     use_y = (torch.abs(n[..., 0]) > 1e-3)[..., None]
     e = torch.eye(3, dtype=n.dtype, device=n.device)   # made on the device
     axis = torch.where(use_y, e[1], e[0])
-    t = normalize(cross(axis, n))
+    t = known.normalize(kn, "onb", cross(axis, n))
     s = cross(n, t)
     return s, t
-
-
-def spherical_dir(s, t, n, phi, sin_theta, cos_theta) -> torch.Tensor:
-    """Direction from local spherical angles in the (s, t, n) frame
-    (kernel_bvh.cl:89, 238)."""
-    return normalize(
-        s * (torch.cos(phi) * sin_theta)[..., None]
-        + t * (torch.sin(phi) * sin_theta)[..., None]
-        + n * cos_theta[..., None]
-    )

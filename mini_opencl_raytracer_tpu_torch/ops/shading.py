@@ -16,8 +16,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.scene import Geometry, Materials
+from . import known
 from .intersect import Hit, ray_triangle_edges
-from .linalg import normalize
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -87,33 +87,34 @@ class HitAttributes(NamedTuple):
 
 
 def soft_coverage(u: torch.Tensor, v: torch.Tensor,
-                  soft_sigma: float) -> torch.Tensor:
+                  soft_sigma: float, kn=None) -> torch.Tensor:
     """Sigmoid coverage of the winner's barycentric edge margin
     min(u, v, 1-u-v): ~1 inside the triangle, 0.5 on an edge. The margin
     is scaled by 1/sigma (what torch does on CUDA for a division by a
     scalar, written out so the CPU and the kernels round alike)."""
     margin = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
-    return torch.sigmoid(margin * (1.0 / soft_sigma))
+    return known.sigmoid(kn, "cov", margin * (1.0 / soft_sigma))
 
 
 def winner_attributes(o, d, hit, v0, e1, e2, n0, n1, n2, kd, ks, ke, ns,
                       uvs=None, backface_cull: bool = False,
-                      soft_sigma: float = 0.0) -> HitAttributes:
+                      soft_sigma: float = 0.0, kn=None) -> HitAttributes:
     """Recompute (t, u, v) on the winner's gathered (v0, e1, e2) and
-    interpolate position, normal and uv (kernel_bvh.cl:144-147)."""
-    t, u, v, _ = ray_triangle_edges(o, d, v0, e1, e2, backface_cull)
+    interpolate position, normal and uv (kernel_bvh.cl:144-147). ``kn``:
+    the known-value rows (ops/known.py)."""
+    t, u, v, _ = ray_triangle_edges(o, d, v0, e1, e2, backface_cull, kn=kn)
     zero = torch.zeros_like(t)
     t = torch.where(hit, t, zero)
     u = torch.where(hit, u, zero)
     v = torch.where(hit, v, zero)
     if soft_sigma > 0.0:
-        coverage = soft_coverage(u, v, soft_sigma)
+        coverage = soft_coverage(u, v, soft_sigma, kn)
     else:
         coverage = torch.ones_like(t)
     uc, vc = u[:, None], v[:, None]
     w = 1.0 - uc - vc
     pos = o + d * t[:, None]
-    normal = normalize(uc * n1 + vc * n2 + w * n0)
+    normal = known.normalize(kn, "n_norm", uc * n1 + vc * n2 + w * n0)
     uv = None
     if uvs is not None:
         uv0, uv1, uv2 = uvs

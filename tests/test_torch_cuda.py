@@ -26,8 +26,9 @@ import pytest
 import torch
 
 import mini_opencl_raytracer_tpu_torch as P
+from mini_opencl_raytracer_tpu_torch import grad as pgrad
 from mini_opencl_raytracer_tpu_torch import native as pnative
-from mini_opencl_raytracer_tpu_torch.ops import integrator, rng
+from mini_opencl_raytracer_tpu_torch.ops import integrator, known, rng
 from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays, rays_from_basis
 from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
@@ -949,3 +950,134 @@ def test_compiled_parallel_equals_eager_on_card(entry):
         shard.render_sample_dp.clear()
         shard._train_step_dp.clear()
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The backward's two modes: the residual variants of K2 / K4
+# (cfg.bwd_residuals) and remat.
+
+@pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
+def test_resid_options_have_their_rows(option):
+    """Each residual option's row count on Cornell (one light) is the
+    layout's, and every K2 case keeps live rays in that option (CPU)."""
+    kw, n = parity.RESID_OPTIONS[option]
+    assert known.num_rows(P.RenderConfig(**kw), 1) == n
+    scene, cfg, state, b = parity.resid_case("10% alive", option, "cpu", 64, 36)
+    assert cfg.bwd_residuals and all(getattr(cfg, k) == v for k, v in kw.items())
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
+    assert out[7].shape == (n, state[3].shape[0])
+    assert parity.live_rays(state[3], out[5]).sum() > 0
+
+
+# The rows K2 writes and K4 reads on Cornell's one light, per residual
+# option: (every live ray's, a diffuse ray's, a specular ray's).
+ROWS_READ = {"blinn": (3, 3, 7), "ggx": (3, 3, 6), "shadow rays": (3, 3, 7),
+             "direct specular": (5, 3, 7), "soft edge": (4, 3, 7)}
+
+
+@pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
+def test_resid_rows_compared_are_those_read(option):
+    """megakernel.rows_read names distinct rows of the layout, as many as
+    K4 reads in each option, and parity.check_resid_rows holds exactly
+    those: the unread rows, the other lobe's rows and the rays without a
+    winner may hold anything, while a changed read row of a live ray of
+    its lobe fails the gate (CPU, the plain rows)."""
+    scene, cfg, state, b = parity.resid_case("10% alive", option, "cpu", 64, 36)
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
+    rows, alive, winner = out[7], state[3], out[5]
+    read = pmk.rows_read(cfg, 1)
+    assert tuple(len(read[k]) for k in ("all", "diffuse", "specular")) == ROWS_READ[option]
+    flat = read["all"] + read["diffuse"] + read["specular"]
+    assert len(set(flat)) == len(flat) and max(flat) < rows.shape[0]
+    live = parity.live_rays(alive, winner)
+    spec = rows[known.layout(cfg, 1)["pick"]] > 0.5
+    assert (live & spec).any() and (live & ~spec).any()
+    junk = rows.clone()
+    junk[[r for r in range(rows.shape[0]) if r not in flat]] = float("nan")
+    for r in read["diffuse"]:
+        junk[r, spec] = float("nan")
+    for r in read["specular"]:
+        junk[r, ~spec] = float("nan")
+    junk[:, ~live] = float("nan")
+    assert parity.check_resid_rows(option, junk, rows, alive, winner, cfg, 1)["bitwise"]
+    for part, rays in (("all", live), ("diffuse", live & ~spec), ("specular", live & spec)):
+        bad = rows.clone()
+        bad[read[part][-1], rays.nonzero()[0, 0]] += 1.0
+        with pytest.raises(AssertionError):
+            parity.check_resid_rows(option, bad, rows, alive, winner, cfg, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
+def test_resid_kernels_match_plain_on_card(option):
+    """K2 with rows: its outputs bitwise its twin's without rows and its
+    plain version's, the rows K4 reads of the live rays in the forward gate
+    of the plain version's. K4 with rows: bitwise K4 without (in the gradient gate
+    with direct specular), in the gradient gate of its plain version (the
+    replay on the plain rows). On K2_CASES' states; launches counted under
+    the variants' names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name in parity.K2_CASES:
+        scene, cfg, state, b = parity.resid_case(name, option, dev)
+        table, tris, lv = pmk._tables(scene, cfg, None)
+        n0 = dict(pmk.LAUNCHES)
+        kr = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
+        kc = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
+        pl = pmk.bounce_fwd_plain(table, tris, lv, *state, b, cfg, save_resid=True)
+        torch.cuda.synchronize()
+        assert pmk.LAUNCHES["bounce_fwd_resid"] == n0["bounce_fwd_resid"] + 1
+        assert pmk.LAUNCHES["bounce_fwd"] == n0["bounce_fwd"] + 1
+        assert all(torch.equal(x, y) for x, y in zip(kr[:7], kc)), name
+        parity.check_bitwise(name, kr[:7], pl[:7])
+        parity.check_resid_rows(name, kr[7], pl[7], state[3], kr[5], cfg, lv.shape[0])
+        cot = parity.cotangents(kc[2], gen)
+        args = (table, lv, *state, kc[5], kc[6], cot, b, cfg)
+        g_r = pmk.bounce_bwd(*args, resid=kr[7])
+        assert pmk.LAUNCHES["bounce_bwd_resid"] == n0["bounce_bwd_resid"] + 1
+        parity.check_resid_bwd(name, g_r, pmk.bounce_bwd(*args), cfg)
+        parity.check_grads(name, g_r, pmk.bounce_bwd_plain(*args, resid=pl[7]),
+                           parity.BOUNCE_GRADS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "large scene"])
+def test_remat_bitwise_on_card(backend):
+    """remat on and off: the loss and every gradient bitwise equal (under
+    torch.use_deterministic_algorithms: index_add_ otherwise sums with
+    atomics), the K5 / K6 launches of the recompute on top of the
+    forward's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cam = P.Camera.default(device=dev)
+    if backend == "pallas":
+        scene = P.cornell_scene(device=dev)
+        cfg = P.RenderConfig(width=128, height=128, bounces=3, backend="pallas")
+    else:
+        scene = P.bunny_scene(target_tris=20000, device=dev)
+        cfg = P.RenderConfig(width=128, height=128, bounces=3)
+    accel = P.build_accel(scene, cfg)
+    out, n = {}, {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        n0 = {**ppanel.LAUNCHES, **pcl.LAUNCHES}
+        torch.use_deterministic_algorithms(True)
+        try:
+            out[remat] = pgrad.loss_and_grads(scene, cam, c, lambda im: im.mean(), accel=accel)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n[remat] = {k: v - n0[k] for k, v in {**ppanel.LAUNCHES, **pcl.LAUNCHES}.items()
+                    if v != n0[k]}
+    key = "panel_closest" if backend == "pallas" else "clustered_closest"
+    assert n[False] == {key: cfg.bounces} and n[True] == {key: 2 * cfg.bounces}
+    assert torch.equal(out[False][0], out[True][0])
+    for part in (1, 2):
+        for (k, a), (_, b) in zip(pgrad._leaves(out[False][part]),
+                                  pgrad._leaves(out[True][part])):
+            assert torch.equal(a, b), k
