@@ -184,11 +184,14 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    in turns with one profiled step each, bitwise eager); K2 and K4 with
    and without rows at bounces 1-8 by device time, each variant bitwise
    its twin (K4 in the gradient gate with direct specular) and against its
-   plain version at bounce 1 (the rows K4 reads, megakernel.rows_read), in
+   plain version at bounce 1 (K2 ranks the plain version's rays, 0 ..
+   count - 1, and the rows K4 reads, megakernel.rows_read, read back
+   through each one's ranks are bitwise the plain version's), in
    the options of parity.RESID_OPTIONS (Blinn 17 rows, GGX 16, shadow rays
-   17, direct specular 20, soft edges 18), and with Blinn on bounce 1's
-   rays compacted to those with a winner; and on parity.K2_CASES' states
-   in each option. Since remat is on
+   17, direct specular 20, soft edges 18), beside the times of the rows
+   by ray (PERF.md), and with Blinn on bounce 1's rays compacted to those with a winner (every ray
+   ranked); and on parity.RESID_CASES' states (K2_CASES, no ray ranked to
+   every ray ranked) in each option. Since remat is on
    by default, phase 12's path C step launches K6 twice a bounce.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
@@ -453,18 +456,22 @@ def adjoint_flops(torch, rng, cfg, lv, seeds, alive, winner, occ, alive_next, bo
 
 
 def resid_row_bytes(mk, cfg, num_lights: int, classes, write: bool) -> int:
-    """Bytes of the known-value rows on these rays (mk.rows_read): K2
-    (``write``) writes the shared rows, the picked lobe's and every light's
-    of each ray alive with a winner; K4 reads the same but a light's only
-    on the rays that see it. ``classes``: adjoint_classes'."""
-    live, spec, _, seen = classes
+    """Bytes of the known-value rows and their ranks on these rays
+    (mk.rows_read, the rank-indexed layout): K2 (``write``) writes the
+    shared rows and the picked lobe's of each ray alive with a winner, the
+    lights' of each whose path goes on, every ray's rank (4 B) and the
+    count; K4 reads the same rows but a light's only on the rays that see
+    it, and the rank of each ray alive with a winner. ``classes``:
+    adjoint_classes'."""
+    live, spec, on, seen = classes
     read = mk.rows_read(cfg, num_lights)
     n = lambda m: int(m.sum().item())
-    per_light = 3 if cfg.direct_specular else 1
-    rows = (n(live) * (len(read["all"]) - num_lights * per_light)
-            + n(live & ~spec) * len(read["diffuse"]) + n(live & spec) * len(read["specular"]))
-    rows += sum(n(live if write else m) for _, m in seen) * per_light
-    return 4 * rows
+    per_light = len(read["lights"]) // num_lights
+    rows = (n(live) * len(read["all"]) + n(live & ~spec) * len(read["diffuse"])
+            + n(live & spec) * len(read["specular"]))
+    rows += (n(on) * num_lights if write else sum(n(m) for _, m in seen)) * per_light
+    ranks = live.numel() + 1 if write else n(live)
+    return 4 * (rows + ranks)
 
 
 def bwd_bytes(cfg, alive, winner, first: bool) -> int:
@@ -1686,30 +1693,45 @@ def deterministic(torch, fn):
         det.fill_uninitialized_memory = fill
 
 
+# K2 / K4 with rows at the ray's own index (the layout before ranks), as
+# PERF.md records them for the NVIDIA H100 80GB HBM3 at 700 W: device ms at
+# 1080p bounce 1 and over bounces 1-8 as the rays come, and the variants'
+# ratios to their twins on the rays compacted to those with a winner.
+PARENT_RESID = {"K2 with rows": (0.2018, 1.6876, 1.324), "K4 with rows": (0.3211, 1.9664, 1.088)}
+
+
 def compacted_times(torch, mk, parity, table, tris, lv, state, seeds, kc, b: int, cfg, gen,
                     k2: dict, k4: dict, card: str) -> None:
     """K2 and K4 with and without rows (device time) on bounce ``b``'s rays
     compacted to those alive with a winner, in ray order, beside their
-    ratios on the rays as they come (``k2`` / ``k4``' first entries): every
-    lane of a warp then holds a ray whose rows are written and read, and a
-    warp's rows sit on consecutive entries, so the ratio's fall measures
-    what the scattered rows cost."""
+    ratios on the rays as they come (``k2`` / ``k4``' first entries) and
+    the rows by ray's (PARENT_RESID): every ray is then ranked (K2's
+    ranks checked to be 0 .. R - 1, each once, and its count R), so what
+    is left of the ratio is the rows' own cost."""
     keep = parity.live_rays(state[3], kc[5]).nonzero().squeeze(1)
     st = tuple(x[:, keep].contiguous() for x in state[:3]) + (state[3][keep].contiguous(),)
     sd = seeds[keep].contiguous()
     ck = mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg)
-    rows = mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg, save_resid=True)[7]
+    resid = mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg, save_resid=True)[7]
+    n = keep.numel()
+    order = torch.sort(resid.rank.long()).values
+    if not (torch.equal(order, torch.arange(n, device=keep.device)) and resid.count.item() == n):
+        raise AssertionError(f"[17 time] bounce {b} compacted: K2 does not rank every ray "
+                             f"once (count {resid.count.item()} of {n})")
     args = (table, lv, *st, sd, ck[5], ck[6], parity.cotangents(ck[2], gen), b, cfg)
     t = {"K2": device_ms(lambda: mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg)),
          "K2 with rows": device_ms(lambda: mk.bounce_fwd(table, tris, lv, *st, sd, b, cfg,
                                                          save_resid=True)),
          "K4": device_ms(lambda: mk.bounce_bwd(*args)),
-         "K4 with rows": device_ms(lambda: mk.bounce_bwd(*args, resid=rows))}
-    log(f"[17 time] 1080p bounce {b} compacted to its {keep.numel()} rays with a winner, device "
-        f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+         "K4 with rows": device_ms(lambda: mk.bounce_bwd(*args, resid=resid))}
+    par = PARENT_RESID
+    log(f"[17 time] 1080p bounce {b} compacted to its {n} rays with a winner (every ray "
+        f"ranked), device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
         + f"; with rows / without: K2 {t['K2 with rows'] / t['K2']:.3f} (as the rays come "
-        f"{k2['on'][0] / k2['off'][0]:.3f}), K4 {t['K4 with rows'] / t['K4']:.3f} (as they "
-        f"come {k4['on'][0] / k4['off'][0]:.3f}) ({card})")
+        f"{k2['on'][0] / k2['off'][0]:.3f}; rows by ray {par['K2 with rows'][2]:.3f} "
+        f"compacted), K4 "
+        f"{t['K4 with rows'] / t['K4']:.3f} (as they come {k4['on'][0] / k4['off'][0]:.3f}; "
+        f"rows by ray {par['K4 with rows'][2]:.3f} compacted) ({card})")
 
 
 def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bunny, sponza,
@@ -1731,11 +1753,13 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
     turns with one profiled step each; K2 and K4 with and without rows at
     bounces 1-8 of the main path by device time, each variant bitwise its
     recompute twin (K4 in the gate with direct specular) and against its
-    plain version at bounce 1 (the rows K4 reads on live rays, gradients),
-    in the options of parity.RESID_OPTIONS (Blinn, GGX, shadow rays, direct
-    specular, soft edges), with Blinn also on bounce 1's rays compacted to
-    those with a winner (compacted_times); then on parity.K2_CASES' states
-    in each option.
+    plain version at bounce 1 (the same rays ranked, the same count, the
+    rows K4 reads bitwise through each one's ranks, gradients), in the
+    options of
+    parity.RESID_OPTIONS (Blinn, GGX, shadow rays, direct specular, soft
+    edges), with Blinn also on bounce 1's rays compacted to those with a
+    winner (compacted_times); then on parity.RESID_CASES' states in each
+    option.
     Returns the two variants' rows of the kernels line."""
     from mini_opencl_raytracer_tpu_torch.jit import disable_jit, jit
     t_phase = time.perf_counter()
@@ -1918,9 +1942,10 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
             kc = mk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg)
             kr = mk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg, save_resid=True)
             torch.cuda.synchronize()
-            if kr[7].shape[0] != n_rows or not all(torch.equal(x, y) for x, y in zip(kr[:7], kc)):
+            if kr[7].rows.shape[0] != n_rows or not all(torch.equal(x, y)
+                                                        for x, y in zip(kr[:7], kc)):
                 raise AssertionError(f"[17 resid] {option} bounce {b}: K2 with rows "
-                                     f"({kr[7].shape[0]} rows) changes its outputs")
+                                     f"({kr[7].rows.shape[0]} rows) changes its outputs")
             cot = parity.cotangents(kc[2], gen)
             args = (table, lv, *state, seeds, kc[5], kc[6], cot, b, cfg)
             g_r = mk.bounce_bwd(*args, resid=kr[7])
@@ -1936,7 +1961,10 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
             if b == 1:
                 pl = mk.bounce_fwd_plain(table, tris, lv, *state, seeds, b, cfg, save_resid=True)
                 rows = parity.check_resid_rows(f"[17 resid] {option} K2 rows", kr[7], pl[7],
-                                               state[3], kr[5], cfg, lv.shape[0])
+                                               kr[3], cfg, lv.shape[0])
+                if not rows["bitwise"]:
+                    raise AssertionError(f"[17 resid] {option}: K2's rows, read back through "
+                                         f"its ranks, are not bitwise the plain version's")
                 pg = mk.bounce_bwd_plain(*args, resid=pl[7])
                 gst = parity.check_grads(f"[17 resid] {option} K4 with rows", g_r, pg,
                                          parity.BOUNCE_GRADS)
@@ -1965,12 +1993,13 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
                                                     bound=bound(by4, flops4),
                                                     err=gst["max_abs_err"])}
                     log(f"[17 bound] bounce_fwd_resid at 1080p bounce 1: {by2 / 1e6:.2f} MB "
-                        f"({live} rays with a winner write {rows2 / 1e6:.2f} MB of rows), bound "
+                        f"({live} rays with a winner write {rows2 / 1e6:.2f} MB of rows and "
+                        f"ranks, every ray its rank), bound "
                         f"{row['bounce_fwd_resid']['bound']['bound_ms']:.4f} ms; "
                         f"bounce_bwd_resid: {by4 / 1e6:.2f} MB ({rows4 / 1e6:.2f} MB of rows "
-                        f"read, no seed), {flops4 / 1e9:.4f} GFLOP, bound "
+                        f"and ranks read, no seed), {flops4 / 1e9:.4f} GFLOP, bound "
                         f"{row['bounce_bwd_resid']['bound']['bound_ms']:.4f} ms; plain {p2:.3f} / "
-                        f"{p4:.3f} ms ({card})")
+                        f"{p4:.3f} ms; rows by ray: bounds 0.0682 / 0.0620 ms ({card})")
                 if option == "blinn":
                     compacted_times(torch, mk, parity, table, tris, lv, state, seeds, kc, b, cfg,
                                     gen, k2, k4, card)
@@ -1980,15 +2009,20 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
                     f"{gst['max_abs_err']:.2e}")
             state = kc[:4]
         fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
+        par = PARENT_RESID
+        was = (f"; rows by ray: K2 with rows {par['K2 with rows'][0]:.4f} at bounce 1, "
+               f"sum {par['K2 with rows'][1]:.4f}; K4 with rows {par['K4 with rows'][0]:.4f}, "
+               f"sum {par['K4 with rows'][1]:.4f}" if option == "blinn" else "")
         log(f"[17 time] {option}, 1080p bounces 1-8, device ms: K2 off [{fmt(k2['off'])}] sum "
             f"{sum(k2['off']):.4f}, with rows [{fmt(k2['on'])}] sum {sum(k2['on']):.4f}; K4 off "
             f"[{fmt(k4['off'])}] sum {sum(k4['off']):.4f}, with rows [{fmt(k4['on'])}] sum "
-            f"{sum(k4['on']):.4f} ({card})")
+            f"{sum(k4['on']):.4f}{was} ({card})")
 
-    # The variants on K2_CASES' states, in each option.
+    # The variants on RESID_CASES' states (K2_CASES, and every ray ranked),
+    # in each option.
     n_cases = 0
     for option in parity.RESID_OPTIONS:
-        for name in parity.K2_CASES:
+        for name in parity.RESID_CASES:
             label = f"[17 cases] {option} / {name}"
             scene, cfg, state, b = parity.resid_case(name, option, dev)
             table, tris, lv = mk._tables(scene, cfg, None)
@@ -1999,7 +2033,10 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
             if not all(torch.equal(x, y) for x, y in zip(kr[:7], kc)):
                 raise AssertionError(f"{label}: K2 with rows changes its outputs")
             parity.check_bitwise(label, kr[:7], pl[:7])
-            rows = parity.check_resid_rows(label, kr[7], pl[7], state[3], kr[5], cfg, lv.shape[0])
+            rows = parity.check_resid_rows(label, kr[7], pl[7], kr[3], cfg, lv.shape[0])
+            if not rows["bitwise"]:
+                raise AssertionError(f"{label}: K2's rows, read back through its ranks, are "
+                                     f"not bitwise the plain version's")
             cot = parity.cotangents(kc[2], gen)
             args = (table, lv, *state, kc[5], kc[6], cot, b, cfg)
             g_r = mk.bounce_bwd(*args, resid=kr[7])
@@ -2011,9 +2048,10 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
             row["bounce_bwd_resid"]["err"] = max(row["bounce_bwd_resid"]["err"],
                                                  gst["max_abs_err"])
             n_cases += 1
-    log(f"[17 cases] K2 and K4 with rows on {n_cases} states (parity.K2_CASES x "
+    log(f"[17 cases] K2 and K4 with rows on {n_cases} states (parity.RESID_CASES x "
         f"RESID_OPTIONS): K2's outputs bitwise its plain version's and its twin's without rows, "
-        f"rows on the live rays in the forward gate, K4 in the gradient gate of its plain "
+        f"ranking the plain version's rays 0 .. count - 1 (no ray ranked, every ray ranked), "
+        f"the rows read back through them bitwise, K4 in the gradient gate of its plain "
         f"version and its twin (bitwise but with direct specular)")
     row["bounce_fwd_resid"]["launches"] = launches["bounce_fwd_resid"]
     row["bounce_bwd_resid"]["launches"] = launches["bounce_bwd_resid"]

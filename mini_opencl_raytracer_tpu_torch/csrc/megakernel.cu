@@ -9,9 +9,10 @@
 //   bounce_fwd_kernel   replaces megakernel.py:_bounce_fwd_kernel (K2): one
 //                       bounce from the carried ray state (bounces >= 1);
 //                       with F_RESID (cfg.bwd_residuals, the JAX kernel's
-//                       save_resid) it also writes the known-value
-//                       residual rows that the backward K4 reads
-//                       (write_rows).
+//                       save_resid) it also stores the known-value
+//                       residual rows that the backward K4 reads, each
+//                       where the bounce computes its value, at the ray's
+//                       rank among the rays alive with a winner.
 //
 // A bounce is: closest hit over all triangles (Moller-Trumbore, exact f32
 // divide, strict '<' so the lowest index wins a tie, |det| > 1e-10 or
@@ -74,11 +75,11 @@
 namespace {
 
 // One closest-hit test of record ``tr``: true where its t is below t_best,
-// with (t, u, v). NaN-safe comparisons reject what the plain version's
-// (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0) rejects.
+// with (t, u, v) and 1 / det. NaN-safe comparisons reject what the plain
+// version's (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0) rejects.
 __device__ __forceinline__ bool mt_closest(const float* tr, V3 o, V3 d, bool cull,
                                            float t_best, float& t_out, float& u_out,
-                                           float& v_out) {
+                                           float& v_out, float& inv_out) {
   const V3 v0 = ld3(tr), e1 = ld3(tr + 3), e2 = ld3(tr + 6);
   const V3 pvec = cross(d, e2);
   const float det = dot(e1, pvec);
@@ -95,19 +96,21 @@ __device__ __forceinline__ bool mt_closest(const float* tr, V3 o, V3 d, bool cul
   t_out = t;
   u_out = u;
   v_out = v;
+  inv_out = inv;
   return true;
 }
 
 // Closest hit over the staged triangles. Returns the winner index (-1 on a
-// miss) and its (t, u, v); a strict '<' in index order, so the lowest
-// index wins a tie.
+// miss) and its (t, u, v) and 1 / det; a strict '<' in index order, so the
+// lowest index wins a tie.
 __device__ __forceinline__ int closest_hit(const float* s_tris, int T, V3 o, V3 d,
                                            float t_max, bool cull, float& t_out,
-                                           float& u_out, float& v_out) {
+                                           float& u_out, float& v_out, float& inv_out) {
   int best = -1;
   float t_best = t_max;
   for (int k = 0; k < T; ++k)
-    if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out)) best = k;
+    if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out, inv_out))
+      best = k;
   t_out = t_best;
   return best;
 }
@@ -154,11 +157,12 @@ __device__ __forceinline__ int closest_bundle(const float* s_tris, int T, V3 o, 
                                               float t_max, bool cull, bool live, float& t_out,
                                               float& u_out, float& v_out, int& tests) {
   const Bundle b = make_bundle(live, o, d, t_max);
+  float inv;  // K1 keeps no rows
   if (b.dense) {  // the whole warp runs closest_hit's loop
     t_out = t_max;
     if (!live) return -1;
     tests += T;
-    return closest_hit(s_tris, T, o, d, t_max, cull, t_out, u_out, v_out);
+    return closest_hit(s_tris, T, o, d, t_max, cull, t_out, u_out, v_out, inv);
   }
   int best = -1;
   float t_best = t_max;
@@ -169,7 +173,8 @@ __device__ __forceinline__ int closest_bundle(const float* s_tris, int T, V3 o, 
       mask &= mask - 1;
       if (!live) continue;
       ++tests;
-      if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out)) best = k;
+      if (mt_closest(s_tris + kTriCols * k, o, d, cull, t_best, t_best, u_out, v_out, inv))
+        best = k;
     }
   }
   t_out = t_best;
@@ -197,90 +202,6 @@ __device__ __forceinline__ bool any_bundle(const float* s_tris, int T, V3 o, V3 
   return hit;
 }
 
-// The known-value residual rows of a ray that is alive and has a winner
-// (K2 with F_RESID): ops/known.py's values in the layout of rows_of (the
-// JAX package's _num_resid_rows, 17 rows on Cornell), at the ray's own
-// index, so packing a tile's live rays moves no row. Only the rows that K4
-// reads are written: 1 / det, the coverage, the pick, the picked lobe's
-// draw terms (diffuse cos phi sin t, sin phi sin t, cos t; Blinn log u2,
-// cos_h, sin_h, cos phi, sin phi, cos^alpha, roughness; GGX roughness,
-// clamped u2, cos_h, sin_h, cos phi, sin phi) and each light's distance,
-// with direct specular its Blinn-Phong power and the log of its base. The
-// normal's, the ONB's, the sampled direction's and the half vectors'
-// inverse lengths and the other lobe's rows stay unwritten (K4's
-// normalizes keep their sqrt, megakernel_bwd.cu), like every row of rays
-// that are not alive or have no winner. Each value is the expression
-// bounce_body and the backward's replay compute (same operations in the
-// same order), so K4 reads the bits it would otherwise recompute. ``tr``
-// is the winner's record (v0, e1, e2); ``rs`` points at row 0 of the ray,
-// rows p.num_rays apart. Not inlined: the rows need their own registers,
-// which the body should not hold for them.
-__device__ __noinline__ void write_rows(const MegaParams& p, const float* tr,
-                                        const float* s_lights, V3 d, V3 normal, V3 pos,
-                                        float ns, float cov, bool pick_spec, uint32_t seed,
-                                        float* rs) {
-  const size_t R = p.num_rays;
-  const Rows rl = rows_of(p.flags, p.num_lights);
-  rs[kInvDet * R] = 1.0f / dot(ld3(tr + 3), cross(d, ld3(tr + 6)));
-  if (rl.cov >= 0) rs[rl.cov * R] = cov;
-  rs[rl.pick * R] = pick_spec ? 1.0f : 0.0f;
-  if (!pick_spec) {
-    const float du1 = uniform_cm(seed, p.cms[1]);
-    const float du2 = uniform_cm(seed, p.cms[2]);
-    const float phi_d = kTwoPi * du1;
-    const float sin_t = sqrtf(du2);
-    rs[rl.d_cp * R] = cosf(phi_d) * sin_t;
-    rs[rl.d_sp * R] = sinf(phi_d) * sin_t;
-    rs[rl.d_ct * R] = sqrtf(fmaxf(1.0f - du2, 0.0f));
-  } else {
-    const float su1 = uniform_cm(seed, p.cms[3]);
-    const float su2 = uniform_cm(seed, p.cms[4]);
-    const float phi_s = kTwoPi * su1;
-    float* sr = rs + rl.spec * R;
-    if (p.flags & F_GGX) {
-      const float rough = sqrtf(2.0f / (fmaxf(ns, 0.0f) + 2.0f));
-      const float a = rough * rough;
-      const float a2 = fmaxf(a * a, 1e-12f);
-      const float u2c = clampf(su2, 0.0f, 1.0f - 1e-7f);
-      const float cos_h2 = (1.0f - u2c) / (1.0f + (a2 - 1.0f) * u2c);
-      sr[kGRough * R] = rough;
-      sr[kGU2c * R] = u2c;
-      sr[kGCosH * R] = sqrtf(clampf(cos_h2, 0.0f, 1.0f));
-      sr[kGSinH * R] = sqrtf(fmaxf(1.0f - cos_h2, 0.0f));
-      sr[kGCphi * R] = cosf(phi_s);
-      sr[kGSphi * R] = sinf(phi_s);
-    } else {
-      const float alpha = fmaxf(ns, 0.0f);
-      const float log_u2 = logf(clampf(su2, 1e-12f, 1.0f));
-      const float cos_h = expf(log_u2 / (alpha + 1.0f));
-      sr[kBLogU2 * R] = log_u2;
-      sr[kBCosH * R] = cos_h;
-      sr[kBSinH * R] = sqrtf(fmaxf(1.0f - cos_h * cos_h, 0.0f));
-      sr[kBCphi * R] = cosf(phi_s);
-      sr[kBSphi * R] = sinf(phi_s);
-      sr[kBCosn * R] = expf(log_u2 * (alpha / (alpha + 1.0f)));
-      sr[kBRough * R] = sqrtf(2.0f / (alpha + 2.0f));
-    }
-  }
-  const V3 wo = -d;
-  for (int li = 0; li < p.num_lights; ++li) {
-    const float* lrow = s_lights + kLightCols * li;
-    float* lr = rs + (rl.light + li * rl.per_light) * R;
-    const V3 to_l = ld3(lrow + kLPos) - pos;
-    const float dist = sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
-    lr[kLDist * R] = dist;
-    if (p.flags & F_DSPEC) {
-      const V3 ldir = normalize(ld3(lrow + kLDir));
-      const bool is_dir = (int)rintf(lrow[kLType]) <= 0;
-      const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
-      const V3 hraw = l_unit + wo;
-      const float xb = fmaxf(fmaxf(dot(normal, normalize(hraw)), 0.0f), 1e-6f);
-      lr[kLPow * R] = powf(xb, fmaxf(ns, 1.0f));
-      lr[kLLog * R] = logf(fmaxf(xb, 1e-20f));
-    }
-  }
-}
-
 // One bounce of ray i (ops/integrator.shade_hit after the closest hit).
 struct RayOut {
   V3 o, d, beta, rad;
@@ -288,17 +209,9 @@ struct RayOut {
   int winner, occ;
 };
 
-// kCull (K1): the closest hit and the shadow rays run behind the warp's
-// cull, so every lane of the warp stays in the body while a warp reduction may
-// follow: a lane whose path ends goes on with its result set and its
-// later work discarded. Without it (K2), the loops are dense and a lane
-// returns as soon as its path ends. kResid (K2 with F_RESID) also writes
-// the ray's residual rows from ``rs`` on (write_rows).
-template <bool kCull, bool kResid>
-__device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
-                              const float* s_lights, const float* __restrict__ tab,
-                              V3 o, V3 d, V3 beta, bool alive, uint32_t seed, int& tests,
-                              float* rs) {
+// What a ray that is not alive, or misses, passes on: o, d, beta
+// unchanged, no radiance, winner -1, no occlusion bits.
+__device__ __forceinline__ RayOut pass_through(V3 o, V3 d, V3 beta) {
   RayOut r;
   r.o = o;
   r.d = d;
@@ -307,21 +220,49 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   r.alive = false;
   r.winner = -1;
   r.occ = 0;
-  if (!kCull && !alive) return r;
+  return r;
+}
 
+// The bounce after the closest hit: winner ``best`` (-1 on a miss) at (t,
+// u, v), 1 / det ``inv``.
+//
+// kCull (K1): the closest hit and the shadow rays run behind the warp's
+// cull, so every lane of the warp stays in the body while a warp reduction may
+// follow: a lane whose path ends goes on with its result set and its
+// later work discarded. Without it (K2), the loops are dense and a lane
+// returns as soon as its path ends.
+//
+// kResid (K2 with F_RESID) also stores the known-value rows that K4 reads
+// (ops/known.py, rows_of's layout), each where this body computes its
+// value, so nothing is evaluated twice and each row holds the bits K4
+// would otherwise recompute: 1 / det, the coverage, the pick, the picked
+// lobe's draw terms (diffuse cos phi sin t, sin phi sin t, cos t; Blinn log
+// u2, cos_h, sin_h, cos phi, sin phi, cos^alpha, roughness; GGX roughness,
+// clamped u2, cos_h, sin_h, cos phi, sin phi), and for a path that goes on
+// each light's distance and, with direct specular, its Blinn-Phong power
+// and the log of its base (K4 reads a light's rows only on such paths).
+// The inverse lengths and the other lobe's rows stay unwritten (K4's
+// normalizes keep their sqrt, megakernel_bwd.cu). ``rs`` points at row 0
+// of the ray's column, rows ``stride`` apart; null on a miss.
+template <bool kCull, bool kResid>
+__device__ __forceinline__ RayOut shade(const MegaParams& p, const float* s_tris,
+                                        const float* s_lights, const float* __restrict__ tab,
+                                        V3 o, V3 d, V3 beta, bool alive, uint32_t seed,
+                                        int& tests, int best, float t, float u, float v,
+                                        float inv, float* rs, int stride) {
+  RayOut r = pass_through(o, d, beta);
   const bool cull = p.flags & F_CULL;
   const bool shadow = p.flags & F_SHADOW;
   // With the cull and shadow rays, every lane stays for the shadow rays' bundles.
   const bool stay = kCull && shadow;
-  float t, u = 0.0f, v = 0.0f;
-  const int best =
-      kCull ? closest_bundle(s_tris, p.num_tris, o, d, p.t_max, cull, alive, t, u, v, tests)
-            : closest_hit(s_tris, p.num_tris, o, d, p.t_max, cull, t, u, v);
   const V3 sky = mk(p.sky[0], p.sky[1], p.sky[2]);
   const bool hit = best >= 0;
   if (!hit && alive) r.rad = beta * sky;  // miss -> constant-grey sky (kernel_bvh.cl:358-362)
   if (stay ? !__any_sync(kFull, hit) : !hit) return r;
   r.winner = best;
+  const size_t S = stride;
+  const Rows rl = rows_of(p.flags, p.num_lights);
+  if constexpr (kResid) rs[kInvDet * S] = inv;
 
   const float* row = tab + (size_t)(hit ? best : 0) * kTabCols;
   const V3 n0 = ld3(row + kN0), n1 = ld3(row + kN1), n2 = ld3(row + kN2);
@@ -338,6 +279,7 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   if (p.flags & F_SOFT) {
     const float margin = fminf(fminf(u, v), 1.0f - u - v);
     cov = 1.0f / (1.0f + expf(-(margin * p.inv_soft_sigma)));
+    if constexpr (kResid) rs[rl.cov * S] = cov;
     rad = (1.0f - cov) * beta * sky;
   }
   rad = rad + cov * beta * ke * p.emission_scale;  // kernel_bvh.cl:365
@@ -345,14 +287,12 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   // BRDF sampling: only the lobe the roulette picks is evaluated.
   const V3 wo = -d;
   const bool pick_spec = uniform_cm(seed, p.cms[0]) > p.spec_threshold;
+  if constexpr (kResid) rs[rl.pick * S] = pick_spec ? 1.0f : 0.0f;
   const bool use_y = fabsf(normal.x) > 1e-3f;
   const V3 axis = use_y ? mk(0.0f, 1.0f, 0.0f) : mk(1.0f, 0.0f, 0.0f);
   const V3 craw = cross(axis, normal);
   const V3 tt = normalize(craw);
   const V3 ss = cross(normal, tt);
-  if (kResid)
-    write_rows(p, s_tris + kTriCols * best, s_lights, d, normal, pos, ns, cov, pick_spec, seed,
-               rs);
 
   V3 wi, f;
   float pdf;
@@ -363,7 +303,13 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
     const float phi = kTwoPi * du1;
     const float sin_t = sqrtf(du2);
     const float cos_t = sqrtf(fmaxf(1.0f - du2, 0.0f));
-    wi = normalize(ss * (cosf(phi) * sin_t) + tt * (sinf(phi) * sin_t) + normal * cos_t);
+    const float cp = cosf(phi) * sin_t, sp = sinf(phi) * sin_t;
+    if constexpr (kResid) {
+      rs[rl.d_cp * S] = cp;
+      rs[rl.d_sp * S] = sp;
+      rs[rl.d_ct * S] = cos_t;
+    }
+    wi = normalize(ss * cp + tt * sp + normal * cos_t);
     pdf = dot(wi, normal) * kInvPi;
     f = kd * kInvPi;
     valid = pdf > 0.0f;
@@ -371,6 +317,8 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
     const float su1 = uniform_cm(seed, p.cms[3]);
     const float su2 = uniform_cm(seed, p.cms[4]);
     const float phi = kTwoPi * su1;
+    const float cphi = cosf(phi), sphi = sinf(phi);
+    float* sr = kResid ? rs + rl.spec * S : nullptr;
     float cos_h, sin_h, d_ndf, pdf_h, rough;
     if (p.flags & F_GGX) {  // DistributionGGX (kernel_bvh.cl:221-225)
       rough = sqrtf(2.0f / (fmaxf(ns, 0.0f) + 2.0f));
@@ -383,6 +331,14 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
       const float dd = cos_h2 * (a2 - 1.0f) + 1.0f;
       d_ndf = a2 * kInvPi / fmaxf(dd * dd, 1e-12f);
       pdf_h = d_ndf * cos_h;
+      if constexpr (kResid) {
+        sr[kGRough * S] = rough;
+        sr[kGU2c * S] = u2c;
+        sr[kGCosH * S] = cos_h;
+        sr[kGSinH * S] = sin_h;
+        sr[kGCphi * S] = cphi;
+        sr[kGSphi * S] = sphi;
+      }
     } else {  // Blinn half-vector lobe, exponent Ns (ops/brdf.sample_specular)
       const float alpha = fmaxf(ns, 0.0f);
       const float log_u2 = logf(clampf(su2, 1e-12f, 1.0f));
@@ -392,9 +348,17 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
       d_ndf = (alpha + 2.0f) * kHalfInvPi * cosn;
       pdf_h = (alpha + 1.0f) * kHalfInvPi * cosn;
       rough = sqrtf(2.0f / (alpha + 2.0f));
+      if constexpr (kResid) {
+        sr[kBLogU2 * S] = log_u2;
+        sr[kBCosH * S] = cos_h;
+        sr[kBSinH * S] = sin_h;
+        sr[kBCphi * S] = cphi;
+        sr[kBSphi * S] = sphi;
+        sr[kBCosn * S] = cosn;
+        sr[kBRough * S] = rough;
+      }
     }
-    const V3 wh =
-        normalize(ss * (cosf(phi) * sin_h) + tt * (sinf(phi) * sin_h) + normal * cos_h);
+    const V3 wh = normalize(ss * (cphi * sin_h) + tt * (sphi * sin_h) + normal * cos_h);
     wi = -wo + (2.0f * dot(wo, wh)) * wh;  // reflect (kernel_bvh.cl:74-77)
     const float cos_i = dot(wi, normal);
     const float cos_o = dot(wo, normal);
@@ -434,6 +398,7 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   int occ = 0;
   for (int li = 0; li < p.num_lights; ++li) {
     const float* lrow = s_lights + kLightCols * li;
+    float* lr = kResid ? rs + (rl.light + li * rl.per_light) * S : nullptr;
     const V3 ldir = normalize(ld3(lrow + kLDir));
     const int ltype = (int)rintf(lrow[kLType]);
     const float intensity = lrow[kLInt];
@@ -441,6 +406,7 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
     const float cos_cut = lrow[kLCut];
     const V3 to_l = ld3(lrow + kLPos) - pos;
     const float dist = sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
+    if constexpr (kResid) lr[kLDist * S] = dist;
     const bool is_dir = ltype <= 0;
     const V3 l_unit =
         is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
@@ -462,7 +428,12 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
     if (dspec) {
       const V3 h = normalize(l_unit + wo);
       const float ndoth = fmaxf(dot(normal, h), 0.0f);
-      float spec = powf(fmaxf(ndoth, 1e-6f), fmaxf(ns, 1.0f));
+      const float xb = fmaxf(ndoth, 1e-6f);
+      float spec = powf(xb, fmaxf(ns, 1.0f));
+      if constexpr (kResid) {
+        lr[kLPow * S] = spec;
+        lr[kLLog * S] = logf(fmaxf(xb, 1e-20f));
+      }
       spec = ndotl > 0.0f ? spec : 0.0f;
       if (!blocked) spec_w += attn * intensity * spec;
     }
@@ -479,6 +450,22 @@ __device__ RayOut bounce_body(const MegaParams& p, const float* s_tris,
   r.alive = true;
   r.occ = occ;
   return r;
+}
+
+// One bounce of a ray: the closest hit, then shade. Without kCull a ray
+// that is not alive passes through.
+template <bool kCull>
+__device__ RayOut bounce_body(const MegaParams& p, const float* s_tris, const float* s_lights,
+                              const float* __restrict__ tab, V3 o, V3 d, V3 beta, bool alive,
+                              uint32_t seed, int& tests) {
+  if (!kCull && !alive) return pass_through(o, d, beta);
+  const bool cull = p.flags & F_CULL;
+  float t, u = 0.0f, v = 0.0f, inv = 0.0f;
+  const int best =
+      kCull ? closest_bundle(s_tris, p.num_tris, o, d, p.t_max, cull, alive, t, u, v, tests)
+            : closest_hit(s_tris, p.num_tris, o, d, p.t_max, cull, t, u, v, inv);
+  return shade<kCull, false>(p, s_tris, s_lights, tab, o, d, beta, alive, seed, tests, best, t,
+                             u, v, inv, nullptr, 0);
 }
 
 // Stage triangles and lights in shared memory (every thread of the block
@@ -537,19 +524,34 @@ bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
   const V3 o = ld3(cam + kCamPos);
 
   int tests = 0;
-  const RayOut r = bounce_body<true, false>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f),
-                                            in, seed, tests, nullptr);
+  const RayOut r =
+      bounce_body<true>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f), in, seed, tests);
   if (!in) return;
   store(r, i, p.num_rays, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
   seeds_out[i] = (int)seed;
   if (stats) stats[i] = tests;
 }
 
+// K2 with rows: each ray's rank among the bounce's rays that are alive and
+// have a winner, and its rows in that rank's column. Thread t of a block
+// holds the tile's t-th ray (packed or not), so a ray's rank within its
+// tile is the count of such rays before it (a ballot per warp, the warps'
+// counts in shared memory). The tile's offset is one atomicAdd of its
+// count to ``count`` (zeroed before the launch, the total after it): the
+// tile's rays take the next columns in ray order, so a warp's stores are
+// consecutive and the ranks are 0 .. count - 1. Tiles take their columns
+// in the order they finish their closest hits, so which tile holds which
+// columns can differ between runs; a ray's rows, read through its rank,
+// are the same bits. An offset in ray order over the whole grid cost
+// 0.06-0.11 ms more a launch at 1080p bounce 1 (PERF.md): a
+// decoupled look-back waits on tiles of its own wave, which run their
+// phases together, and a separate scan and copy of the rows are bound by
+// their latency.
+
 // A block takes its tile: each thread reads its ray's alive flag and
 // state, a ballot per warp counts the live rays, and the barrier that
 // stages the triangles and lights also publishes the counts. A ray that
-// is not alive writes its pass-through (bounce_body's result for it: o, d,
-// beta unchanged, no radiance, winner -1, no occlusion bits). Where
+// is not alive writes its pass-through. Where
 // packing the live rays would run the bounce on fewer warps than hold
 // them, the block queues them in ray order in shared memory and its first
 // ceil(live / 32) warps run the bounce on the queue, full but the last;
@@ -557,7 +559,11 @@ bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
 // its index and its results stored there, so its arithmetic, and its
 // bits, are the same in whichever lane runs it. A block has kTile threads
 // for a tile of kTile rays (mrt_bounce_fwd picks 128 or 512), at most 64
-// registers a thread. kResid: also the residual rows ([n, R], write_rows).
+// registers a thread.
+//
+// kResid: after the closest hit every thread of the block takes part in
+// the ranking above (a dead ray's rank is -1), and shade stores the ray's
+// rows in its rank's column of ``resid`` ([n, R], rows_of).
 template <int kTile, bool kResid>
 __global__ void __launch_bounds__(kTile, 1024 / kTile)
 bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __restrict__ tris,
@@ -565,7 +571,8 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
                   const float* __restrict__ d_in, const float* __restrict__ beta_in,
                   const float* __restrict__ alive_in, const int* __restrict__ seeds,
                   float* o_out, float* d_out, float* beta_out, float* alive_out,
-                  float* rad_out, int* idx_out, int* occ_out, float* resid) {
+                  float* rad_out, int* idx_out, int* occ_out, float* resid, int* rank,
+                  int* count) {
   extern __shared__ float smem[];
   __shared__ int s_queue[kTile];
   __shared__ int s_cnt[kTile / 32];
@@ -592,15 +599,9 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
     holding += c > 0;
   }
   if (in && !live) {
-    RayOut r;
-    r.o = o;
-    r.d = d;
-    r.beta = beta;
-    r.rad = mk(0.0f, 0.0f, 0.0f);
-    r.alive = false;
-    r.winner = -1;
-    r.occ = 0;
-    store(r, i, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+    store(pass_through(o, d, beta), i, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out,
+          occ_out);
+    if constexpr (kResid) rank[i] = -1;
   }
   int j = live ? i : -1;
   if ((n + 31) / 32 < holding) {  // pack: the same in every thread
@@ -613,12 +614,37 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
       beta = mk(beta_in[j], beta_in[R + j], beta_in[2 * R + j]);
     }
   }
-  if (j < 0) return;
   int tests = 0;
-  const RayOut r = bounce_body<false, kResid>(p, s_tris, s_lights, tab, o, d, beta, true,
-                                              (uint32_t)seeds[j], tests,
-                                              kResid ? resid + j : nullptr);
-  store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+  if constexpr (kResid) {
+    __shared__ int s_hits[kTile / 32], s_off;
+    float t = p.t_max, u = 0.0f, v = 0.0f, inv = 0.0f;
+    const int best = j >= 0 ? closest_hit(s_tris, p.num_tris, o, d, p.t_max, p.flags & F_CULL,
+                                          t, u, v, inv)
+                            : -1;
+    const bool hit = best >= 0;
+    const unsigned won = __ballot_sync(kFull, hit);
+    if (lane == 0) s_hits[warp] = __popc(won);
+    __syncthreads();
+    int local = __popc(won & ((1u << lane) - 1u)), total = 0;
+    for (int w = 0; w < kTile / 32; ++w) {
+      const int c = s_hits[w];
+      local += w < warp ? c : 0;
+      total += c;
+    }
+    if (tid == 0) s_off = atomicAdd(count, total);
+    __syncthreads();
+    if (j < 0) return;
+    rank[j] = hit ? s_off + local : -1;
+    float* rs = hit ? resid + s_off + local : nullptr;
+    const RayOut r = shade<false, true>(p, s_tris, s_lights, tab, o, d, beta, true,
+                                        (uint32_t)seeds[j], tests, best, t, u, v, inv, rs, R);
+    store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+  } else {
+    if (j < 0) return;
+    const RayOut r = bounce_body<false>(p, s_tris, s_lights, tab, o, d, beta, true,
+                                        (uint32_t)seeds[j], tests);
+    store(r, j, R, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
+  }
 }
 
 // The mega path's scene limit (ops/cuda/megakernel.py _MAX_TRIS,
@@ -647,20 +673,24 @@ int check_scene(const MegaParams& p) {
              : 0;
 }
 
+// kResid: ``count`` (the kernel's last argument) is zeroed on the stream
+// first.
 template <int kTile, bool kResid, typename... Args>
-int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, Args... args) {
+int launch_bounce_fwd(const MegaParams& p, cudaStream_t stream, int* count, Args... args) {
   const size_t smem = smem_bytes(p);
   cudaError_t e = prepare<bounce_fwd_kernel<kTile, kResid>>(smem);
   if (e != cudaSuccess) return (int)e;
+  if (kResid && (e = cudaMemsetAsync(count, 0, sizeof(int), stream)) != cudaSuccess)
+    return (int)e;
   const int grid = (p.num_rays + kTile - 1) / kTile;
-  bounce_fwd_kernel<kTile, kResid><<<grid, kTile, smem, stream>>>(p, args...);
+  bounce_fwd_kernel<kTile, kResid><<<grid, kTile, smem, stream>>>(p, args..., count);
   return (int)cudaGetLastError();
 }
 
 template <int kTile, typename... Args>
-int launch_tile(const MegaParams& p, cudaStream_t stream, Args... args) {
-  return (p.flags & F_RESID) ? launch_bounce_fwd<kTile, true>(p, stream, args...)
-                             : launch_bounce_fwd<kTile, false>(p, stream, args...);
+int launch_tile(const MegaParams& p, cudaStream_t stream, int* count, Args... args) {
+  return (p.flags & F_RESID) ? launch_bounce_fwd<kTile, true>(p, stream, count, args...)
+                             : launch_bounce_fwd<kTile, false>(p, stream, count, args...);
 }
 
 }  // namespace
@@ -688,15 +718,18 @@ extern "C" int mrt_bounce0_fwd(const MegaParams* p, const uint32_t* frame_cm, co
   return (int)cudaGetLastError();
 }
 
-// mrt_bounce_fwd's resid: [n, R] rows with F_RESID (rows_of), else null.
+// mrt_bounce_fwd with F_RESID: resid the [n, R] rows (rows_of) by rank,
+// rank [R] each ray's rank among the rays alive with a winner (-1 for the
+// others), count [1] their number; all null without it.
 extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float* tris,
                               const float* lights, const float* o_in, const float* d_in,
                               const float* beta_in, const float* alive_in, const int* seeds,
                               float* o, float* d, float* beta, float* alive, float* rad,
-                              int* idx, int* occ, float* resid, void* stream) {
+                              int* idx, int* occ, float* resid, int* rank, int* count,
+                              void* stream) {
   if (p->num_rays <= 0) return 0;
   if (check_scene(*p)) return check_scene(*p);
-  if ((p->flags & F_RESID) && !resid) return (int)cudaErrorInvalidValue;
+  if ((p->flags & F_RESID) && !(resid && rank && count)) return (int)cudaErrorInvalidValue;
   // K2's tile: 128 rays while a live ray runs at most 256 Moller-Trumbore
   // tests (the triangles, and as many again per light with shadow rays),
   // else 512. A larger tile packs its live rays into fuller warps: on
@@ -707,10 +740,10 @@ extern "C" int mrt_bounce_fwd(const MegaParams* p, const float* tab, const float
   const long tests = (long)p->num_tris * (1 + ((p->flags & F_SHADOW) ? p->num_lights : 0));
   const cudaStream_t s = (cudaStream_t)stream;
   if (tests > 256)
-    return launch_tile<512>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o, d,
-                            beta, alive, rad, idx, occ, resid);
-  return launch_tile<128>(*p, s, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds, o, d,
-                          beta, alive, rad, idx, occ, resid);
+    return launch_tile<512>(*p, s, count, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
+                            o, d, beta, alive, rad, idx, occ, resid, rank);
+  return launch_tile<128>(*p, s, count, tab, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
+                          o, d, beta, alive, rad, idx, occ, resid, rank);
 }
 
 extern "C" const char* mrt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

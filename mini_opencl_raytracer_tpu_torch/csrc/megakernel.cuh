@@ -97,9 +97,13 @@ __device__ __forceinline__ float dmin(float x, float c) {
 }
 
 // Where each known-value residual row of a ray sits (ops/known.py:layout,
-// the JAX package's emission order): row k of ray j at resid[k * R + j].
-// Row 0 is the winner's 1 / det, row 1 the inverse length of its normal,
-// then the coverage (soft edges), the pick, the ONB's inverse length and
+// the JAX package's emission order): row k of the ray of rank r at
+// resid[k * R + r], where r is the ray's rank among the rays of the bounce
+// that are alive and have a winner, in ray order (rank[j], -1 for the
+// others), so a warp of ranked rays stores and loads each row on
+// consecutive words. Row 0 is the winner's 1 / det, row 1 the inverse
+// length of its normal, then the coverage (soft edges), the pick, the
+// ONB's inverse length and
 // the diffuse block (cos phi sin t, sin phi sin t, cos t, the direction's
 // inverse length). The specular block holds (Blinn) log u2, cos_h, sin_h,
 // cos phi, sin phi, the half vector's inverse length, cos^alpha,
@@ -108,7 +112,8 @@ __device__ __forceinline__ float dmin(float x, float c) {
 // li * per_light: its distance and, with direct specular, the half
 // vector's inverse length, the Blinn-Phong power and the log of its base.
 // The kernels write and read only the rows K4 replays from
-// (megakernel.cu:write_rows); the inverse lengths stay unwritten.
+// (megakernel.cu:shade, kResid): the inverse lengths stay unwritten,
+// and a light's rows are written for the rays whose path goes on.
 struct Rows {
   int cov, pick, d_cp, d_sp, d_ct, spec, light, per_light, n;
 };
@@ -133,6 +138,14 @@ __host__ __device__ __forceinline__ Rows rows_of(int flags, int num_lights) {
   r.per_light = (flags & F_DSPEC) ? 4 : 1;
   r.n = k + num_lights * r.per_light;
   return r;
+}
+
+// Whether row k of the layout is one the kernels write (not an inverse
+// length).
+__host__ __device__ __forceinline__ bool row_written(const Rows& rl, int k, int flags) {
+  if (k == 1 || k == rl.pick + 1 || k == rl.d_ct + 1) return false;
+  if (k == rl.spec + ((flags & F_GGX) ? 6 : 5)) return false;  // the half vector's
+  return !(rl.per_light == 4 && k >= rl.light && (k - rl.light) % 4 == 1);
 }
 
 }  // namespace

@@ -94,7 +94,7 @@
 //
 // The residual variant (kResid). K2 with F_RESID stores, per ray with a
 // winner, the values of its shading's transcendentals and of what the RNG
-// draws alone decide (megakernel.cu:write_rows, ops/known.py). K4 then
+// draws alone decide (megakernel.cu:shade, ops/known.py). K4 then
 // reads, instead of computing: the lobe pick, the diffuse and specular
 // draws' terms with their cos / sin / sqrt / exp / log (sample_brdf), the
 // roughness sqrt, the winner's 1 / det, the soft-edge sigmoid, each
@@ -112,13 +112,18 @@
 // bit: the pick is a row, the ONB axis comes from the normal, the rest from
 // the replayed values. It loads 1 / det, the pick and each light's rows,
 // and 3 (diffuse) or 7 (Blinn specular) of its lobe: 8 a ray with a
-// winner on average on Cornell, where a warp's rays, queued in ray order
-// with the dead ones between them, span several lines per row. On the
-// H100 the variant is the slower one: at the main path's 1080p bounce 1 it
-// took 1.13x the recompute, and 1.08x on the same rays compacted to those
-// with a winner (chip_smoke.py phase 17; PERF.md).
+// winner on average on Cornell. The rows sit in column rank[j] (K2's
+// rank among the rays alive with a winner: a K2 tile's rays take
+// consecutive columns in ray order), and the queue holds a block's rays
+// with a winner in ray order, so a round's consecutive lanes read runs of
+// consecutive columns. Where a round's rows fit in shared memory beside
+// the rest (rows_in_smem: Cornell's 17 rows take 17 KB), each thread
+// first loads its ray's written rows there, all at once, and the adjoint
+// reads them from there (adjoint_round).
 //
 // Built with the forward kernels' flags (no fast-math, -fmad=false).
+
+#include <cuda_pipeline.h>
 
 #include "megakernel.cuh"
 
@@ -151,7 +156,8 @@ struct BwdIO {
   const int* pixel_ids;
   const float *o, *d, *beta, *alive;
   const int *seeds, *winner, *occ;
-  const float* resid;  // K4 with F_RESID: [n, R] known-value rows (rows_of)
+  const float* resid;  // K4 with F_RESID: [n, R] known-value rows by rank (rows_of)
+  const int* rank;     // K4 with F_RESID: [R] each ray's column of resid (K2's rank)
   const float *co, *cd, *cb, *cr;
   float *d_o, *d_d, *d_beta;
   float* part;  // [gridDim.x, part_cols] block partials
@@ -170,6 +176,24 @@ struct Smem {
 };
 
 __device__ __forceinline__ V3 zero3() { return mk(0.0f, 0.0f, 0.0f); }
+
+// K4 with rows: a ray's known-value rows (rows_of's layout), row k at
+// base[k * stride + col]: column col = threadIdx.x of the block's staged
+// rows, or column col = its rank of the [n, R] rows K2 wrote where a
+// round's do not fit in shared memory (rows_in_smem). base and stride are
+// the same in every thread; col is what the ray holds where the recompute
+// holds its seed.
+struct RowsIn {
+  const float* base;
+  int stride, col;
+  __device__ __forceinline__ float operator()(int k) const {
+    return base[(size_t)k * stride + col];
+  }
+};
+
+// Shared memory a block may take for two blocks to fit on an SM (228 KB,
+// less 1 KB the system keeps a block).
+constexpr size_t kSmemPerBlock = (228 - 2) * 1024 / 2;
 
 // A value the compiler must treat as new: the replays below are computed
 // again instead of held in registers across the light loop.
@@ -224,14 +248,14 @@ struct Hit {
 // kResid: 1 / det and the coverage from the ray's rows ``rs``.
 template <bool kResid>
 __device__ __forceinline__ Hit winner_point(const MegaParams& p, const float* row, V3 o, V3 d,
-                                            const float* rs) {
+                                            RowsIn rs) {
   Hit h;
   const V3 v0 = ld3(row + kV0), e1 = ld3(row + kE1), e2 = ld3(row + kE2);
   h.pvec = cross(d, e2);
   h.det = dot(e1, h.pvec);
   h.dvalid = (p.flags & F_CULL) ? h.det > kDetEps : fabsf(h.det) > kDetEps;
   if constexpr (kResid)
-    h.inv = h.dvalid ? rs[kInvDet * (size_t)p.num_rays] : 0.0f;
+    h.inv = h.dvalid ? rs(kInvDet) : 0.0f;
   else
     h.inv = h.dvalid ? 1.0f / h.det : 0.0f;
   h.tvec = o - v0;
@@ -248,7 +272,7 @@ __device__ __forceinline__ Hit winner_point(const MegaParams& p, const float* ro
   h.cov = 1.0f;
   if (p.flags & F_SOFT) {
     if constexpr (kResid) {
-      h.cov = rs[rows_of(p.flags, p.num_lights).cov * (size_t)p.num_rays];
+      h.cov = rs(rows_of(p.flags, p.num_lights).cov);
     } else {
       const float margin = fminf(fminf(h.u, h.v), 1.0f - h.u - h.v);
       h.cov = 1.0f / (1.0f + expf(-(margin * p.inv_soft_sigma)));
@@ -272,13 +296,12 @@ struct Brdf {
 // (seed unused).
 template <bool kResid>
 __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, V3 normal, V3 wo,
-                                            V3 kd, V3 ks, float ns, const float* rs) {
+                                            V3 kd, V3 ks, float ns, RowsIn rs) {
   Brdf b = {};
-  const size_t R = p.num_rays;
   const Rows rl = rows_of(p.flags, p.num_lights);
-  const float* sr = kResid ? rs + rl.spec * R : nullptr;
+  auto sr = [&](int k) { return rs(rl.spec + k); };  // the specular block
   if constexpr (kResid)
-    b.pick_spec = rs[rl.pick * R] > 0.5f;
+    b.pick_spec = rs(rl.pick) > 0.5f;
   else
     b.pick_spec = uniform_cm(seed, p.cms[0]) > p.spec_threshold;
   const bool use_y = fabsf(normal.x) > 1e-3f;
@@ -288,9 +311,9 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
   b.ss = cross(normal, b.tt);
   if (!b.pick_spec) {
     if constexpr (kResid) {
-      b.cp = rs[rl.d_cp * R];
-      b.sp = rs[rl.d_sp * R];
-      b.cos_t = rs[rl.d_ct * R];
+      b.cp = rs(rl.d_cp);
+      b.sp = rs(rl.d_sp);
+      b.cos_t = rs(rl.d_ct);
     } else {
       const float du1 = uniform_cm(seed, p.cms[1]);
       const float du2 = uniform_cm(seed, p.cms[2]);
@@ -311,8 +334,8 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
   }
   float su2 = 0.0f;
   if constexpr (kResid) {
-    b.cphi = sr[((p.flags & F_GGX) ? kGCphi : kBCphi) * R];
-    b.sphi = sr[((p.flags & F_GGX) ? kGSphi : kBSphi) * R];
+    b.cphi = sr((p.flags & F_GGX) ? kGCphi : kBCphi);
+    b.sphi = sr((p.flags & F_GGX) ? kGSphi : kBSphi);
   } else {
     const float su1 = uniform_cm(seed, p.cms[3]);
     su2 = uniform_cm(seed, p.cms[4]);
@@ -322,29 +345,29 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
   }
   b.alpha = fmaxf(ns, 0.0f);
   if (p.flags & F_GGX) {
-    b.rough = kResid ? sr[kGRough * R] : sqrtf(2.0f / (b.alpha + 2.0f));
+    b.rough = kResid ? sr(kGRough) : sqrtf(2.0f / (b.alpha + 2.0f));
     b.a_g = b.rough * b.rough;
     b.a2 = fmaxf(b.a_g * b.a_g, 1e-12f);
-    b.u2c = kResid ? sr[kGU2c * R] : clampf(su2, 0.0f, 1.0f - 1e-7f);
+    b.u2c = kResid ? sr(kGU2c) : clampf(su2, 0.0f, 1.0f - 1e-7f);
     b.den = 1.0f + (b.a2 - 1.0f) * b.u2c;
     b.cos_h2 = (1.0f - b.u2c) / b.den;
-    b.cos_h = kResid ? sr[kGCosH * R] : sqrtf(clampf(b.cos_h2, 0.0f, 1.0f));
+    b.cos_h = kResid ? sr(kGCosH) : sqrtf(clampf(b.cos_h2, 0.0f, 1.0f));
     b.sh2 = fmaxf(1.0f - b.cos_h2, 0.0f);
-    b.sin_h = kResid ? sr[kGSinH * R] : sqrtf(b.sh2);
+    b.sin_h = kResid ? sr(kGSinH) : sqrtf(b.sh2);
     b.dd = b.cos_h2 * (b.a2 - 1.0f) + 1.0f;
     b.ddm = fmaxf(b.dd * b.dd, 1e-12f);
     b.d_ndf = b.a2 * kInvPi / b.ddm;
     b.pdf_h = b.d_ndf * b.cos_h;
   } else {
-    b.log_u2 = kResid ? sr[kBLogU2 * R] : logf(clampf(su2, 1e-12f, 1.0f));
+    b.log_u2 = kResid ? sr(kBLogU2) : logf(clampf(su2, 1e-12f, 1.0f));
     b.a1 = b.alpha + 1.0f;
-    b.cos_h = kResid ? sr[kBCosH * R] : expf(b.log_u2 / b.a1);
+    b.cos_h = kResid ? sr(kBCosH) : expf(b.log_u2 / b.a1);
     b.sh2 = fmaxf(1.0f - b.cos_h * b.cos_h, 0.0f);
-    b.sin_h = kResid ? sr[kBSinH * R] : sqrtf(b.sh2);
-    b.cosn = kResid ? sr[kBCosn * R] : expf(b.log_u2 * (b.alpha / b.a1));
+    b.sin_h = kResid ? sr(kBSinH) : sqrtf(b.sh2);
+    b.cosn = kResid ? sr(kBCosn) : expf(b.log_u2 * (b.alpha / b.a1));
     b.d_ndf = (b.alpha + 2.0f) * kHalfInvPi * b.cosn;
     b.pdf_h = (b.alpha + 1.0f) * kHalfInvPi * b.cosn;
-    b.rough = kResid ? sr[kBRough * R] : sqrtf(2.0f / (b.alpha + 2.0f));
+    b.rough = kResid ? sr(kBRough) : sqrtf(2.0f / (b.alpha + 2.0f));
   }
   b.cp = b.cphi * b.sin_h;
   b.sp = b.sphi * b.sin_h;
@@ -388,13 +411,13 @@ __device__ __forceinline__ Brdf sample_brdf(const MegaParams& p, uint32_t seed, 
 // Returns d(o, d, beta); fills row with the winner row's 28 gradient
 // columns when the ray is alive and has a winner; adds each light's 10
 // gradient columns, summed over the warp, to lg[li * 10 + k] (lane 0).
-// kResid: the ray's known-value rows start at ``rs`` (seed unused).
+// kResid: the ray's known-value rows ``rs`` (seed unused).
 template <bool kResid>
 __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_lights,
                                             const float* __restrict__ tab, V3 o, V3 d, V3 beta,
                                             bool alive, uint32_t seed, int winner, int occ,
                                             const Cot& c, V3& g_o, V3& g_d, V3& g_beta,
-                                            float (&row)[kRowGrads], float* lg, const float* rs) {
+                                            float (&row)[kRowGrads], float* lg, RowsIn rs) {
   const bool soft = p.flags & F_SOFT;
   const bool dspec = p.flags & F_DSPEC;
   const bool shadow = p.flags & F_SHADOW;
@@ -402,10 +425,9 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
   const bool live = alive && winner >= 0;
   const float* trow = tab + (size_t)(live ? winner : 0) * kTabCols;
   const V3 wo = -d;
-  const size_t R = p.num_rays;
   const Rows rl = rows_of(p.flags, p.num_lights);
-  // Light li's rows (kResid).
-  auto lrows = [&](int li) { return rs + (rl.light + li * rl.per_light) * R; };
+  // Row k of light li (kResid).
+  auto lrow_of = [&](int li, int k) { return rs(rl.light + li * rl.per_light + k); };
 
   // ------------------------------------------------- replay (what the head
   // of the adjoint and the light loop read; the rest is replayed below)
@@ -440,7 +462,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       const V3 ldir = normalize(ld3(lrow + kLDir));
       const int ltype = (int)rintf(lrow[kLType]);
       const V3 to_l = ld3(lrow + kLPos) - pos;
-      const float dist = kResid ? lrows(li)[kLDist * R] : sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
+      const float dist = kResid ? lrow_of(li, kLDist) : sqrtf(fmaxf(dot(to_l, to_l), 1e-12f));
       const bool is_dir = ltype <= 0;
       const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
       const float ndl = fmaxf(dot(normal, l_unit), 0.0f);
@@ -454,7 +476,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       if (dspec) {
         const V3 h = normalize(l_unit + wo);
         const float ndoth = fmaxf(dot(normal, h), 0.0f);
-        float spec = kResid ? lrows(li)[kLPow * R] : powf(fmaxf(ndoth, 1e-6f), fmaxf(ns, 1.0f));
+        float spec = kResid ? lrow_of(li, kLPow) : powf(fmaxf(ndoth, 1e-6f), fmaxf(ns, 1.0f));
         spec = ndl > 0.0f ? spec : 0.0f;
         spec_w += attn * lrow[kLInt] * spec;
       }
@@ -522,7 +544,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
       const float cos_cut = lrow[kLCut];
       const V3 to_l = ld3(lrow + kLPos) - pos;
       const float dq = dot(to_l, to_l);
-      const float dist = kResid ? lrows(li)[kLDist * R] : sqrtf(fmaxf(dq, 1e-12f));
+      const float dist = kResid ? lrow_of(li, kLDist) : sqrtf(fmaxf(dq, 1e-12f));
       const bool is_dir = ltype <= 0;
       const V3 l_unit = is_dir ? -ldir : mk(to_l.x / dist, to_l.y / dist, to_l.z / dist);
       const float nd = dot(normal, l_unit);
@@ -549,7 +571,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
         const float ndoth = fmaxf(nh, 0.0f);
         const float xb = fmaxf(ndoth, 1e-6f);
         const float ex = fmaxf(ns, 1.0f);
-        const float spec_p = kResid ? lrows(li)[kLPow * R] : powf(xb, ex);
+        const float spec_p = kResid ? lrow_of(li, kLPow) : powf(xb, ex);
         const float spec = ndl > 0.0f ? spec_p : 0.0f;
         g_ai += g_spec_w * spec;
         if (ndl > 0.0f) {
@@ -557,7 +579,7 @@ __device__ __forceinline__ void ray_adjoint(const MegaParams& p, const float* s_
           // d pow / d xb: ex y / xb from the row (JAX's _k_pow), else ex pow(xb, ex - 1).
           const float g_xb = kResid ? g_spec * ((ex * spec_p) / fmaxf(xb, 1e-20f))
                                     : g_spec * (ex * powf(xb, ex - 1.0f));
-          const float log_xb = kResid ? lrows(li)[kLLog * R] : logf(xb);
+          const float log_xb = kResid ? lrow_of(li, kLLog) : logf(xb);
           g_ns += dmax(ns, 1.0f) * (g_spec * (spec_p * log_xb));
           const float g_nh = dmax(nh, 0.0f) * dmax(ndoth, 1e-6f) * g_xb;
           g_normal = g_normal + h * g_nh;
@@ -926,12 +948,26 @@ __device__ __forceinline__ void flush_cam(Smem& s, float (&cg)[kCamGrads]) {
   }
 }
 
+// K4 with rows: whether a round's rows (n of them for each of kBlock rays)
+// fit in shared memory beside the rest of a block's at two blocks an SM.
+__host__ __device__ __forceinline__ bool rows_in_smem(const MegaParams& p, bool smem_tab) {
+  const size_t tab = smem_tab ? (size_t)p.num_tris * kTabCols * sizeof(float) : 0;
+  const size_t rows = (size_t)rows_of(p.flags, p.num_lights).n * kBlock * sizeof(float);
+  return sizeof(Smem) + tab + rows <= kSmemPerBlock;
+}
+
 // One round: the adjoint of the n <= kBlock rays at the head of the queue
 // (thread t takes entry t), their table rows summed into the block's
 // partial, their light and camera gradients into the warps' rows.
+// kResid: ``s_rows`` (null where they do not fit) holds column t of the
+// round's rows for thread t: the thread copies its ray's written rows
+// there through its rank with asynchronous copies (cp.async: no register
+// holds them, and all are in flight at once; a loop of loads and stores
+// waited on each load in turn, 13 latencies a round on Cornell), before the
+// adjoint reads them one by one.
 template <bool kFirst, bool kResid>
 __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& io, Smem& s,
-                                              float* acc, int head, int n) {
+                                              float* acc, int head, int n, float* s_rows) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const int R = p.num_rays;
   const int j = tid < n ? s.queue[(head + tid) % kQueue] : -1;
@@ -954,22 +990,37 @@ __device__ __forceinline__ void adjoint_round(const MegaParams& p, const BwdIO& 
       Raygen r = {};
       if (in) r = raygen(p, io.cam, io.pixel_ids[j], *io.frame_cm);
       ray_adjoint<false>(p, s.lights, io.tab, r.o, r.d, mk(1.0f, 1.0f, 1.0f), in, r.seed, win,
-                         occ, c, g_o, g_d, g_beta, row, lg, nullptr);
+                         occ, c, g_o, g_d, g_beta, row, lg, RowsIn{nullptr, 0, 0});
       if (in) raygen_adj(r, g_o, g_d, cg);
       w = in ? win : -1;
     } else {
       V3 o = zero3(), d = zero3(), beta = zero3();
       bool alive = false;
       uint32_t seed = 0;
+      RowsIn rs = {io.resid, R, 0};
       if (in) {
         o = ld_col(io.o, j, R);
         d = ld_col(io.d, j, R);
         beta = ld_col(io.beta, j, R);
         alive = io.alive[j] > 0.0f;
-        if (!kResid) seed = (uint32_t)io.seeds[j];  // the variant reads no seed
+        if (kResid) {  // the variant reads no seed
+          rs.col = io.rank[j];
+          if (s_rows) {  // asynchronous copies: every row's load in flight at once
+            const Rows rl = rows_of(p.flags, p.num_lights);
+            for (int k = 0; k < rl.n; ++k)
+              if (row_written(rl, k, p.flags))
+                __pipeline_memcpy_async(s_rows + k * kBlock + tid,
+                                        &rs.base[(size_t)k * R + rs.col], sizeof(float));
+            __pipeline_commit();
+            __pipeline_wait_prior(0);
+            rs = {s_rows, kBlock, tid};
+          }
+        } else {
+          seed = (uint32_t)io.seeds[j];
+        }
       }
       ray_adjoint<kResid>(p, s.lights, io.tab, o, d, beta, alive, seed, win, occ, c, g_o, g_d,
-                          g_beta, row, lg, kResid && in ? io.resid + j : nullptr);
+                          g_beta, row, lg, rs);
       if (in) {
         st_col(io.d_o, j, R, g_o);
         st_col(io.d_d, j, R, g_d);
@@ -1006,6 +1057,10 @@ __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
   const int n_tab = p.num_tris * kTabCols;
   float* part = io.part + (size_t)blockIdx.x * part_cols(p, kFirst);
   float* acc = kSmemTab ? reinterpret_cast<float*>(smem_raw + sizeof(Smem)) : part;
+  float* s_rows = kResid && rows_in_smem(p, kSmemTab)
+                      ? reinterpret_cast<float*>(smem_raw + sizeof(Smem)) +
+                            (kSmemTab ? n_tab : 0)
+                      : nullptr;
   for (int k = tid; k < L * kLightCols; k += kBlock) s.lights[k] = io.lights[k];
   for (int k = tid; k < kWarps * kMaxLights * kLightGrads; k += kBlock) s.lg[k] = 0.0f;
   for (int k = tid; k < kWarps * kCamGrads; k += kBlock) s.cg[k] = 0.0f;
@@ -1065,7 +1120,7 @@ __device__ __forceinline__ void bwd_body(const MegaParams& p, const BwdIO& io) {
     for (;;) {
       const int n = count >= kBlock ? kBlock : last ? count : 0;
       if (n == 0) break;
-      adjoint_round<kFirst, kResid>(p, io, s, acc, head, n);
+      adjoint_round<kFirst, kResid>(p, io, s, acc, head, n, s_rows);
       head += n;
       count -= n;
     }
@@ -1137,16 +1192,21 @@ using BwdKernel = void(MegaParams, BwdIO);
 template <BwdKernel* kKernel>
 cudaError_t launch_bwd(const MegaParams& p, const BwdIO& io, int grid, bool smem_tab,
                        cudaStream_t st) {
-  static bool ready = false;  // once per kernel: allow the table in shared memory
+  // Once per kernel: allow the table, and K4 with rows its staged rows, in
+  // shared memory.
+  static bool ready = false;
+  const bool resid = p.flags & F_RESID;
   if (!ready) {
-    const int most = (int)(sizeof(Smem) + (size_t)kSmemRows * kTabCols * sizeof(float));
+    size_t most = sizeof(Smem) + (size_t)kSmemRows * kTabCols * sizeof(float);
+    if (resid && most < kSmemPerBlock) most = kSmemPerBlock;
     const cudaError_t e =
-        cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+        cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  const size_t bytes =
-      sizeof(Smem) + (smem_tab ? (size_t)p.num_tris * kTabCols * sizeof(float) : 0);
+  size_t bytes = sizeof(Smem) + (smem_tab ? (size_t)p.num_tris * kTabCols * sizeof(float) : 0);
+  if (resid && rows_in_smem(p, smem_tab))
+    bytes += (size_t)rows_of(p.flags, p.num_lights).n * kBlock * sizeof(float);
   kKernel<<<grid, kBlock, bytes, st>>>(p, io);
   return cudaGetLastError();
 }
@@ -1176,8 +1236,8 @@ int check_args(const MegaParams* p, int grid, int smem_tab) {
 // each block's table partial in shared memory (T_pad <= kSmemRows). Each
 // launches two kernels on the given stream, does not synchronise, and
 // returns the first cudaError_t that is not cudaSuccess. mrt_bounce_bwd's
-// resid: the [n, R] rows K2 wrote, with F_RESID (then seeds may be null),
-// else null.
+// resid and rank: the [n, R] rows K2 wrote and each ray's column of them,
+// with F_RESID (then seeds may be null), else null.
 extern "C" int mrt_bounce0_bwd(const MegaParams* p, int grid, int smem_table,
                                const uint32_t* frame_cm, const float* tab, const float* lights,
                                const float* cam, const int* pixel_ids, const int* winner,
@@ -1216,12 +1276,13 @@ extern "C" int mrt_bounce_bwd(const MegaParams* p, int grid, int smem_table,
                               const int* seeds, const int* winner, const int* occ,
                               const float* co, const float* cd, const float* cb, const float* cr,
                               float* part, float* d_o, float* d_d, float* d_beta, float* d_tab,
-                              float* d_lights, const float* resid, void* stream) {
+                              float* d_lights, const float* resid, const int* rank,
+                              void* stream) {
   if (p->num_rays <= 0) return 0;
   const int bad = check_args(p, grid, smem_table);
   if (bad) return bad;
   const bool res = p->flags & F_RESID;
-  if (res ? !resid : !seeds) return (int)cudaErrorInvalidValue;
+  if (res ? !(resid && rank) : !seeds) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   BwdIO io = {};
   io.tab = tab;
@@ -1241,6 +1302,7 @@ extern "C" int mrt_bounce_bwd(const MegaParams* p, int grid, int smem_table,
   io.d_d = d_d;
   io.d_beta = d_beta;
   io.resid = resid;
+  io.rank = rank;
   io.part = part;
   const cudaError_t e =
       res ? (smem_table ? launch_bwd<bounce_bwd_kernel<true, true>>(*p, io, grid, true, st)

@@ -38,16 +38,16 @@ _SIGNATURES = {
     #  o, d, beta, alive, rad, idx, occ, seeds, stats, stream)
     "mrt_bounce0_fwd": ([_P] * 17, _I),
     # (params, table, tris, lights, o_in, d_in, beta_in, alive_in, seeds,
-    #  o, d, beta, alive, rad, idx, occ, resid, stream)
-    "mrt_bounce_fwd": ([_P] * 18, _I),
+    #  o, d, beta, alive, rad, idx, occ, resid, rank, count, stream)
+    "mrt_bounce_fwd": ([_P] * 20, _I),
     # (params, grid, smem_table, frame_cm, table, lights, cam, pixel_ids,
     #  winner, occ, co, cd, cbeta, crad, part, d_table, d_lights, d_cam,
     #  stream)
     "mrt_bounce0_bwd": ([_P] + [_I] * 2 + [_P] * 16, _I),
     # (params, grid, smem_table, table, lights, o, d, beta, alive, seeds,
     #  winner, occ, co, cd, cbeta, crad, part, d_o, d_d, d_beta, d_table,
-    #  d_lights, resid, stream)
-    "mrt_bounce_bwd": ([_P] + [_I] * 2 + [_P] * 21, _I),
+    #  d_lights, resid, rank, stream)
+    "mrt_bounce_bwd": ([_P] + [_I] * 2 + [_P] * 22, _I),
     # csrc/panel.cu: (R, T, cull, any, tris, o, d, t_init, t_out, idx,
     #  stats, stream)
     "mrt_panel": ([_I] * 4 + [_P] * 8, _I),

@@ -20,13 +20,17 @@ Four kernels, written by hand in ``csrc/``:
 ``bounce_fwd`` and ``bounce_bwd`` each have a residual variant, the JAX
 kernels' under ``cfg.bwd_residuals`` (``_run_bounce_fwd(save_resid=True)``
 and ``_run_bounce_bwd`` with ``resid``): ``bounce_fwd(save_resid=True)``
-also returns the known-value rows [n, R] (ops/known.py's layout) of every
-ray that is alive and has a winner, and ``bounce_bwd(resid=rows)`` reads
-them instead of recomputing the shading's transcendentals and the RNG
-draws. The kernels write only the rows K4 reads (``rows_read``); the
-other rows, and every row of the other rays, are left undefined. ``_Bounce`` takes that path
-when ``cfg.bwd_residuals``. The plain versions record and replay the same
-rows through ops/known.py.
+also returns the known-value rows (a ``known.Resid``: rows [n, R] in
+ops/known.py's layout, one column for each ray that is alive and has a
+winner, at its rank among them; the rank array; their count; the
+kernel's tiles take their columns in the order they finish, the plain
+version ranks in ray order) and ``bounce_bwd(resid=...)`` reads them,
+each ray's through its rank, instead of recomputing the shading's
+transcendentals and the RNG draws. The kernels write only the rows K4
+reads (``rows_read``); the other rows and the columns from the count on
+are left undefined. ``_Bounce`` takes that path when
+``cfg.bwd_residuals``. The plain versions record and replay the same
+rows (in ray order's columns) through ops/known.py.
 
 Each has a plain PyTorch version here: the forward ones composed from
 ops/camera, ops/intersect, ops/shading, ops/brdf, ops/lights and
@@ -77,18 +81,19 @@ LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0
 
 def rows_read(cfg: RenderConfig, num_lights: int) -> Dict[str, List[int]]:
     """The known-value rows (ops/known.layout) that K2 writes and K4 reads
-    (csrc/megakernel.cu:write_rows), by the rays they belong to: "all" for
-    every ray alive with a winner (1 / det, the coverage, the pick, each
-    light's distance and, with direct specular, its power and the log of its
-    base), "diffuse" / "specular" for those whose pick row is 0 / 1 (the
-    picked lobe's draw terms). The inverse lengths are not among them."""
+    (csrc/megakernel.cu:shade), by the rays they belong to: "all" for
+    every ray alive with a winner (1 / det, the coverage, the pick),
+    "diffuse" / "specular" for those whose pick row is 0 / 1 (the picked
+    lobe's draw terms), "lights" for those whose path goes on (alive after
+    the bounce: each light's distance and, with direct specular, its power
+    and the log of its base). The inverse lengths are not among them."""
     ix = known.layout(cfg, num_lights)
     spec = (("rough", "u2c", "cos_h", "sin_h", "s_cp", "s_sp") if cfg.specular_model == "ggx"
             else ("log_u2", "cos_h", "sin_h", "s_cp", "s_sp", "cosn", "rough"))
     lights = [f"{n}{li}" for li in range(num_lights) for n in ("dist", "pow", "logb")]
     rows = lambda names: [ix[n] for n in names if n in ix]
-    return {"all": rows(["inv_det", "cov", "pick"] + lights),
-            "diffuse": rows(("d_cp", "d_sp", "d_ct")), "specular": rows(spec)}
+    return {"all": rows(("inv_det", "cov", "pick")), "diffuse": rows(("d_cp", "d_sp", "d_ct")),
+            "specular": rows(spec), "lights": rows(lights)}
 
 
 # Scene limit of the mega path, kept equal to the JAX package's for
@@ -246,7 +251,7 @@ def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
                   bounce: int, cfg: RenderConfig, save_resid: bool = False):
     """One bounce on [R, 3] ray state with the mega tables; returns the
     kernel's outputs in its [3, R] / [R] layout, and with ``save_resid``
-    the known-value rows [n, R] of every ray after them."""
+    the known-value rows (a known.Resid) after them."""
     v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
     best_t, best_idx = closest_hit_edges(o, d, v0, e1, e2, cfg.t_max,
                                          cfg.backface_cull, _PLAIN_CHUNK)
@@ -265,7 +270,7 @@ def _bounce_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
     out = (o_n.T.contiguous(), d_n.T.contiguous(), b_n.T.contiguous(),
            alive_n.to(torch.float32), rad.T.contiguous(),
            winner.to(torch.int32), occ.to(torch.int32))
-    return out + (kn.stacked().contiguous(),) if save_resid else out
+    return out + (kn.packed(winner >= 0),) if save_resid else out
 
 
 def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame,
@@ -289,8 +294,9 @@ def bounce0_fwd_plain(table_rows, tris, lights, camv, pixel_ids, frame,
 def bounce_fwd_plain(table_rows, tris, lights, o, d, beta, alive, seeds,
                      bounce: int, cfg: RenderConfig, save_resid: bool = False):
     """Plain version of one bounce from the carried [3, R] ray state;
-    ``save_resid`` appends the known-value rows [n, R] (every ray's: the
-    kernel writes those of rays that are alive and have a winner)."""
+    ``save_resid`` appends the known-value rows (a known.Resid: every row of
+    each ray that is alive and has a winner, where the kernel writes those
+    that K4 reads)."""
     return _bounce_plain(table_rows, tris, lights, o.T, d.T, beta.T,
                          alive > 0.0, rng.from_i32_bits(seeds), bounce, cfg,
                          save_resid=save_resid)
@@ -300,10 +306,10 @@ def _replay(table_rows, lights, o, d, beta, alive, seeds, winner, occ,
             bounce: int, cfg: RenderConfig, resid=None):
     """One bounce with the forward's winners and occlusion bits frozen:
     no intersection, [R, 3] state in, (o', d', beta', radiance) out.
-    ``resid``: the forward's known-value rows, substituted at each site
-    (the seeds are then not read)."""
+    ``resid``: the forward's known-value rows (a known.Resid), substituted
+    at each site (the seeds are then not read)."""
     idx = winner.to(torch.int64)
-    kn = None if resid is None else known.Known(cfg, lights.shape[0], rows=resid)
+    kn = None if resid is None else known.Known(cfg, lights.shape[0], resid=resid)
     o_n, d_n, b_n, rad, _, _ = _shade_rows(table_rows, lights, o, d, beta,
                                            alive, seeds, idx, idx >= 0,
                                            bounce, cfg, occ=occ, kn=kn)
@@ -522,9 +528,11 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
     """One fused bounce from the carried state; ``bounce`` selects the
     RNG draw sites. Returns (o, d, beta, alive, radiance, winner,
     occ_bits); the radiance is this bounce's contribution alone. With
-    ``save_resid`` also the known-value rows [known.num_rows, R] float32 (the
-    kernel writes the rows of rays that are alive and have a winner and
-    leaves the others undefined)."""
+    ``save_resid`` also the known-value rows, a known.Resid: rows
+    [known.num_rows, R] float32 by rank among the rays that are alive and
+    have a winner (the kernel writes the rows K4 reads, ``rows_read``, and
+    leaves the others and the columns from the count on undefined), rank
+    [R] int32 and count [1] int32, all on the device."""
     device = o.device
     R = alive.shape[0]
     _check_common(table_rows, tris, lights, cfg, device,
@@ -540,14 +548,18 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
     if device.type != "cuda":
         raise ValueError(f"bounce_fwd runs on cpu or cuda, not {device}")
     out = _empty_state(R, device)
-    rows = (torch.empty((known.num_rows(cfg, lights.shape[0]), R), dtype=torch.float32,
-                        device=device) if save_resid else None)
+    resid = (None, None, None)
+    if save_resid:
+        i32 = dict(dtype=torch.int32, device=device)
+        n = known.num_rows(cfg, lights.shape[0])
+        resid = known.Resid(torch.empty((n, R), dtype=torch.float32, device=device),
+                            torch.empty((R,), **i32), (torch.empty if R else torch.zeros)(1, **i32))
     if R:
         params = _params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid)
         _launch("bounce_fwd_resid" if save_resid else "bounce_fwd",
                 build.library().mrt_bounce_fwd, device, params,
-                (table_rows, tris, lights, o, d, beta, alive, seeds) + out + (rows,))
-    return out + (rows,) if save_resid else out
+                (table_rows, tris, lights, o, d, beta, alive, seeds) + out + tuple(resid))
+    return out + (resid,) if save_resid else out
 
 
 class BwdPlan(NamedTuple):
@@ -623,8 +635,8 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
     """VJP of ``bounce_fwd`` with its winners and occlusion bits frozen.
     Returns (d_o, d_d, d_beta [3, R], d_table [T_pad, 32],
     d_lights [L, 16]); the alive mask and the seeds carry no gradient.
-    ``resid``: the rows of ``bounce_fwd(save_resid=True)``, read instead of
-    recomputing (the kernel then does not read ``seeds``)."""
+    ``resid``: the known.Resid of ``bounce_fwd(save_resid=True)``, read
+    instead of recomputing (the kernel then does not read ``seeds``)."""
     device = o.device
     R = alive.shape[0]
     T_pad = _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot,
@@ -635,7 +647,10 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
     _check(alive, "alive", torch.float32, (R,), device)
     _check(seeds, "seeds", torch.int32, (R,), device)
     if resid is not None:
-        _check(resid, "resid", torch.float32, (known.num_rows(cfg, lights.shape[0]), R), device)
+        _check(resid.rows, "resid.rows", torch.float32,
+               (known.num_rows(cfg, lights.shape[0]), R), device)
+        _check(resid.rank, "resid.rank", torch.int32, (R,), device)
+        _check(resid.count, "resid.count", torch.int32, (1,), device)
     if device.type == "cpu":
         return bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds,
                                 winner, occ, cot, bounce, cfg, resid=resid)
@@ -654,7 +669,7 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
                     _params(cfg, R, T_pad, L, bounce, resid=res), plan,
                     (table_rows, lights, o, d, beta, alive, None if res else seeds,
                      winner, occ) + tuple(cot) + (out,),
-                    ptrs=(resid.data_ptr() if res else None,))
+                    ptrs=(resid.rows.data_ptr(), resid.rank.data_ptr()) if res else (None, None))
     return out
 
 
@@ -706,23 +721,24 @@ class _Bounce(torch.autograd.Function):
         out = bounce_fwd(table_rows.detach(), tris.detach(), lights.detach(),
                          o.detach(), d.detach(), beta.detach(), alive, seeds,
                          bounce, cfg, save_resid=cfg.bwd_residuals)
-        rows = out[7] if cfg.bwd_residuals else None
+        resid = out[7] if cfg.bwd_residuals else (None, None, None)
         out = out[:7]
         _, _, _, alive_n, _, winner, occ = out
         ctx.save_for_backward(table_rows, lights, o, d, beta, alive, seeds,
-                              winner, occ, rows)
+                              winner, occ, *resid)
         ctx.bounce, ctx.cfg = bounce, cfg
         ctx.mark_non_differentiable(alive_n, winner, occ)
         return out
 
     @staticmethod
     def backward(ctx, g_o, g_d, g_beta, _g_alive, g_rad, _g_w, _g_occ):
-        table_rows, lights, o, d, beta, alive, seeds, winner, occ, rows = \
+        table_rows, lights, o, d, beta, alive, seeds, winner, occ, *resid = \
             ctx.saved_tensors
         d_o, d_d, d_beta, d_tab, d_lv = bounce_bwd(
             table_rows.detach(), lights.detach(), o.detach(), d.detach(),
             beta.detach(), alive, seeds, winner, occ,
-            _cot((g_o, g_d, g_beta, g_rad)), ctx.bounce, ctx.cfg, resid=rows)
+            _cot((g_o, g_d, g_beta, g_rad)), ctx.bounce, ctx.cfg,
+            resid=known.Resid(*resid) if ctx.cfg.bwd_residuals else None)
         return d_tab, d_lv, d_o, d_d, d_beta, None, None, None, None, None
 
 

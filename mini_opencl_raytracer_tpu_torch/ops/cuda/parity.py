@@ -8,10 +8,13 @@ kernels' any-hit occlusion exactly equal. Knife-edge decisions
 (a ray on a shared edge, a sample on a validity threshold) may flip under
 different float rounding; those flips are the gate's only allowed error.
 
-Residual variants (cfg.bwd_residuals): K2's known-value rows against the
-plain version's on the rows K4 reads (megakernel.rows_read) and the live
-rays (alive with a winner; the other rows and rays are undefined), under
-the forward gate, with whether they are bitwise equal; K2's other outputs
+Residual variants (cfg.bwd_residuals): K2 ranks the plain version's rays
+(its ranks 0 .. count - 1, in its own order of tiles), and its
+known-value rows, read back through its rank array, against the plain
+version's read through theirs, on the rows K4 reads
+(megakernel.rows_read) and the rays they belong to (the other rows and
+columns are undefined), under the forward gate, with whether they are
+bitwise equal; K2's other outputs
 bitwise equal to those of K2 without rows; K4 with rows bitwise equal to
 K4 without, except with direct specular, where the power's derivative is
 taken from its row (csrc/megakernel_bwd.cu) and the two are held in the
@@ -468,12 +471,27 @@ RESID_OPTIONS = {"blinn": ({}, 17), "ggx": (dict(specular_model="ggx"), 16),
                  "soft edge": (dict(soft_edge_sigma=0.05), 18)}
 
 
+# The states the residual variants run on: K2_CASES ("every ray dead"
+# ranks no ray) and one where every ray is ranked.
+ALL_RANKED = "every ray alive with a winner"
+RESID_CASES = K2_CASES + (ALL_RANKED,)
+
+
 def resid_case(name: str, option: str, device, width: int = 128, height: int = 72):
-    """(scene, cfg, state, bounce) of K2_CASES' ``name`` with the residual
-    option ``option`` (RESID_OPTIONS) added to its config."""
-    scene, cfg, state, bounce = k2_case(name, device, width, height)
-    return (scene, dataclasses.replace(cfg, bwd_residuals=True, **RESID_OPTIONS[option][0]),
-            state, bounce)
+    """(scene, cfg, state, bounce) of RESID_CASES' ``name`` with the
+    residual option ``option`` (RESID_OPTIONS) added to its config.
+    ALL_RANKED is "every ray alive"'s state cut to the rays that have a
+    winner at its bounce (by the plain version)."""
+    from . import megakernel as mk
+    scene, cfg, state, bounce = k2_case("every ray alive" if name == ALL_RANKED else name,
+                                        device, width, height)
+    cfg = dataclasses.replace(cfg, bwd_residuals=True, **RESID_OPTIONS[option][0])
+    if name == ALL_RANKED:
+        table, tris, lv = mk._tables(scene, cfg, None)
+        keep = (mk.bounce_fwd_plain(table, tris, lv, *state, bounce, cfg)[5] >= 0).nonzero()[:, 0]
+        state = (tuple(x[:, keep].contiguous() for x in state[:3])
+                 + tuple(x[keep].contiguous() for x in state[3:]))
+    return scene, cfg, state, bounce
 
 
 def live_rays(alive: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
@@ -481,29 +499,46 @@ def live_rays(alive: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
     return (alive > 0.0) & (winner >= 0)
 
 
-def check_resid_rows(label: str, k_rows: torch.Tensor, p_rows: torch.Tensor,
-                     alive: torch.Tensor, winner: torch.Tensor, cfg, num_lights: int) -> dict:
-    """K2's rows against the plain version's, under the forward gate row by
-    row, on the rows the kernels write (megakernel.rows_read): the shared
-    rows on the live rays, each lobe's on the live rays whose plain pick
-    is that lobe. Returns the worst row's stats, ``bitwise`` (every
-    compared value equal), ``live`` and ``max_abs_err``."""
+def check_resid_rows(label: str, k: "known.Resid", p: "known.Resid", alive_next: torch.Tensor,
+                     cfg, num_lights: int) -> dict:
+    """K2's rows (a known.Resid) against the plain version's: the same
+    rays ranked (alive with a winner), the same count, the kernel's ranks
+    0 .. count - 1 each once (its tiles may take their columns in another
+    order than the plain version's ray order); then under the forward gate
+    row by row, read back through each one's rank array, the rows the
+    kernels write (megakernel.rows_read): the shared rows on the ranked
+    rays, each lobe's on those whose plain pick is that lobe, the lights'
+    on those whose path goes on (``alive_next``). Returns the worst row's
+    stats, ``bitwise`` (every compared value equal), ``live`` and
+    ``max_abs_err``."""
     from .megakernel import rows_read
-    if k_rows.shape != p_rows.shape:
-        raise AssertionError(f"{label}: rows {tuple(k_rows.shape)} vs {tuple(p_rows.shape)}")
+    if k.rows.shape != p.rows.shape:
+        raise AssertionError(f"{label}: rows {tuple(k.rows.shape)} vs {tuple(p.rows.shape)}")
+    live = p.rank >= 0
+    n = int(p.count.item())
+    if int(live.sum().item()) != n:
+        raise AssertionError(f"{label}: {int(live.sum().item())} ranked rays, count {n}")
+    ranks = torch.sort(k.rank[live].long()).values
+    if not (torch.equal(k.rank >= 0, live) and int(k.count.item()) == n
+            and torch.equal(ranks, torch.arange(n, device=ranks.device))):
+        bad = int(((k.rank >= 0) != live).sum().item())
+        raise AssertionError(f"{label}: the kernel ranks {bad} other rays, count "
+                             f"{k.count.item()} vs {n}, or its ranks are not 0 .. count - 1")
     read = rows_read(cfg, num_lights)
-    live = live_rays(alive, winner)
-    spec = p_rows[known.layout(cfg, num_lights)["pick"]] > 0.5
-    rays = {"all": live, "diffuse": live & ~spec, "specular": live & spec}
+    col = lambda r: torch.where(live, r, torch.zeros_like(r)).long()
+    kc, pc = col(k.rank), col(p.rank)
+    spec = p.rows[known.layout(cfg, num_lights)["pick"]][pc] > 0.5
+    rays = {"all": live, "diffuse": live & ~spec, "specular": live & spec,
+            "lights": live & (alive_next > 0.0)}
     worst = {"max": 0.0, "mean": 0.0, "frac": 0.0}
     bitwise = True
     for part, idx in read.items():
         for r in idx:
-            k, p = k_rows[r, rays[part]], p_rows[r, rays[part]]
-            if k.numel():
-                st = check_float(f"{label}.row{r}", k, p)
+            a, b = k.rows[r][kc][rays[part]], p.rows[r][pc][rays[part]]
+            if a.numel():
+                st = check_float(f"{label}.row{r}", a, b)
                 worst = {n: max(worst[n], st[n]) for n in worst}
-                bitwise = bitwise and bool(torch.equal(k, p))
+                bitwise = bitwise and bool(torch.equal(a, b))
     return dict(worst, bitwise=bitwise, live=int(live.sum().item()), max_abs_err=worst["max"])
 
 

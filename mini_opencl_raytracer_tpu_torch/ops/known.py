@@ -21,11 +21,21 @@ written twice (the ONB, which both lobes build) holds one value. Each
 helper takes ``kn``: None computes the plain expression exactly as before
 (the default path's arithmetic is this one), a ``Known`` that is writing
 records the value, one that is reading substitutes it.
+
+The rows of a bounce (``Resid``) are kept only for the rays that are alive
+and have a winner, the rays whose shading the backward replays: column r
+of ``rows`` [n, R] holds the rows of the ray of rank r among them
+(``rank`` [R], -1 for the other rays; ``count`` [1] how many, the ranks
+0 .. count - 1). ``Known.packed`` ranks the plain version's rays in ray
+order. The bounce kernel (csrc/megakernel.cu, K2 with rows) ranks each
+tile's rays in ray order and gives its tiles their columns in the order
+they finish, so its ranks may be another numbering of the same rays; a
+ray's rows, read through its rank, are the same either way.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -59,32 +69,69 @@ def num_rows(cfg, num_lights: int) -> int:
     return len(layout(cfg, num_lights))
 
 
-class Known:
-    """The rows of one bounce: writing (``rows`` None) collects each
-    site's value; reading (``rows`` [n, R]) hands them back by name."""
+class Resid(NamedTuple):
+    """The known-value rows of one bounce, by rank (module docstring):
+    ``rows`` [n, R] float32 (columns from ``count`` on undefined), ``rank``
+    [R] int32, ``count`` [1] int32, all on the bounce's device."""
 
-    def __init__(self, cfg, num_lights: int, rows: Optional[torch.Tensor] = None):
+    rows: torch.Tensor
+    rank: torch.Tensor
+    count: torch.Tensor
+
+
+# What a reader hands the rays without rows (not alive, or no winner): the
+# replay masks their shading out, and 1.0 keeps every value it computes for
+# them finite (a distance, an inverse length, a pdf), so their gradients
+# stay exact zeros.
+_NO_ROW = 1.0
+
+
+class Known:
+    """The rows of one bounce: writing (``resid`` None) collects each
+    site's value for every ray; reading (a ``Resid``) hands them back by
+    name, each ray's from its rank's column."""
+
+    def __init__(self, cfg, num_lights: int, resid: Optional[Resid] = None):
         self.index = layout(cfg, num_lights)
         self.values: Dict[str, torch.Tensor] = {}
-        self._rows = rows
+        self._resid = resid
+        if resid is not None:
+            self._ranked = resid.rank >= 0
+            self._col = torch.where(self._ranked, resid.rank,
+                                    torch.zeros_like(resid.rank)).to(torch.int64)
 
     @property
     def writing(self) -> bool:
-        return self._rows is None
+        return self._resid is None
 
     def emit(self, name: str, v: torch.Tensor) -> torch.Tensor:
         self.values[name] = v.detach()
         return v
 
     def take(self, name: str) -> torch.Tensor:
-        return self._rows[self.index[name]]
+        v = self._resid.rows[self.index[name]][self._col]
+        return torch.where(self._ranked, v, torch.full_like(v, _NO_ROW))
 
     def stacked(self) -> torch.Tensor:
-        """[n, R] float32: the written rows in layout order."""
+        """[n, R] float32: the written rows of every ray, in layout order."""
         missing = set(self.index) - set(self.values)
         if missing:
             raise AssertionError(f"residual rows not written: {sorted(missing)}")
         return torch.stack([self.values[n].to(torch.float32) for n in self.index])
+
+    def packed(self, live: torch.Tensor) -> Resid:
+        """The written rows of the rays ``live`` [R] bool, each in the
+        column of its rank among them in ray order; the columns from
+        ``count`` on are zero. No value goes through the host."""
+        rows = self.stacked()
+        R = live.shape[0]
+        rank = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+        rank = torch.where(live, rank, torch.full_like(rank, -1))
+        # Rays without a rank go to a spare last column, which is dropped.
+        col = torch.where(live, rank, torch.full_like(rank, R)).to(torch.int64)
+        out = rows.new_zeros((rows.shape[0], R + 1)).index_copy_(1, col, rows)
+        count = live.sum(dtype=torch.int32).reshape(1)
+        return Resid(out[:, :R].contiguous(), rank, count)
 
 
 def lin(x: torch.Tensor, y0: torch.Tensor, dy0: torch.Tensor) -> torch.Tensor:

@@ -959,70 +959,90 @@ def test_compiled_parallel_equals_eager_on_card(entry):
 @pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
 def test_resid_options_have_their_rows(option):
     """Each residual option's row count on Cornell (one light) is the
-    layout's, and every K2 case keeps live rays in that option (CPU)."""
+    layout's, every K2 case keeps live rays in that option, and the
+    all-ranked case ranks every ray (CPU)."""
     kw, n = parity.RESID_OPTIONS[option]
     assert known.num_rows(P.RenderConfig(**kw), 1) == n
-    scene, cfg, state, b = parity.resid_case("10% alive", option, "cpu", 64, 36)
-    assert cfg.bwd_residuals and all(getattr(cfg, k) == v for k, v in kw.items())
-    table, tris, lv = pmk._tables(scene, cfg, None)
-    out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
-    assert out[7].shape == (n, state[3].shape[0])
-    assert parity.live_rays(state[3], out[5]).sum() > 0
+    for name in ("10% alive", parity.ALL_RANKED):
+        scene, cfg, state, b = parity.resid_case(name, option, "cpu", 64, 36)
+        assert cfg.bwd_residuals and all(getattr(cfg, k) == v for k, v in kw.items())
+        table, tris, lv = pmk._tables(scene, cfg, None)
+        out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
+        R = state[3].shape[0]
+        assert out[7].rows.shape == (n, R)
+        live = parity.live_rays(state[3], out[5])
+        assert live.sum() > 0 and out[7].count.item() == live.sum()
+        if name == parity.ALL_RANKED:
+            assert torch.equal(out[7].rank, torch.arange(R, dtype=torch.int32))
 
 
 # The rows K2 writes and K4 reads on Cornell's one light, per residual
-# option: (every live ray's, a diffuse ray's, a specular ray's).
-ROWS_READ = {"blinn": (3, 3, 7), "ggx": (3, 3, 6), "shadow rays": (3, 3, 7),
-             "direct specular": (5, 3, 7), "soft edge": (4, 3, 7)}
+# option: (every live ray's, a diffuse ray's, a specular ray's, a ray's
+# whose path goes on).
+ROWS_READ = {"blinn": (2, 3, 7, 1), "ggx": (2, 3, 6, 1), "shadow rays": (2, 3, 7, 1),
+             "direct specular": (2, 3, 7, 3), "soft edge": (3, 3, 7, 1)}
 
 
 @pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
 def test_resid_rows_compared_are_those_read(option):
     """megakernel.rows_read names distinct rows of the layout, as many as
     K4 reads in each option, and parity.check_resid_rows holds exactly
-    those: the unread rows, the other lobe's rows and the rays without a
-    winner may hold anything, while a changed read row of a live ray of
-    its lobe fails the gate (CPU, the plain rows)."""
+    those, read back through the rank array: the unread rows, the other
+    lobe's rows, the lights' rows of paths that end and the columns past
+    the count may hold anything, while a changed read row of a ray of its
+    class, or a changed rank, fails the gate (CPU, the plain rows)."""
     scene, cfg, state, b = parity.resid_case("10% alive", option, "cpu", 64, 36)
     table, tris, lv = pmk._tables(scene, cfg, None)
     out = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
-    rows, alive, winner = out[7], state[3], out[5]
+    resid, alive_next = out[7], out[3]
+    rows, rank, count = resid
     read = pmk.rows_read(cfg, 1)
-    assert tuple(len(read[k]) for k in ("all", "diffuse", "specular")) == ROWS_READ[option]
-    flat = read["all"] + read["diffuse"] + read["specular"]
+    assert tuple(len(read[k]) for k in ("all", "diffuse", "specular", "lights")) == \
+        ROWS_READ[option]
+    flat = sum(read.values(), [])
     assert len(set(flat)) == len(flat) and max(flat) < rows.shape[0]
-    live = parity.live_rays(alive, winner)
-    spec = rows[known.layout(cfg, 1)["pick"]] > 0.5
-    assert (live & spec).any() and (live & ~spec).any()
+    live = rank >= 0
+    n = int(count.item())
+    col = rank[live].long()   # the live rays' columns, in ray order
+    spec = rows[known.layout(cfg, 1)["pick"], col] > 0.5
+    on = alive_next[live] > 0
+    assert spec.any() and (~spec).any() and on.any()
     junk = rows.clone()
     junk[[r for r in range(rows.shape[0]) if r not in flat]] = float("nan")
-    for r in read["diffuse"]:
-        junk[r, spec] = float("nan")
-    for r in read["specular"]:
-        junk[r, ~spec] = float("nan")
-    junk[:, ~live] = float("nan")
-    assert parity.check_resid_rows(option, junk, rows, alive, winner, cfg, 1)["bitwise"]
-    for part, rays in (("all", live), ("diffuse", live & ~spec), ("specular", live & spec)):
+    for part, rays in (("diffuse", spec), ("specular", ~spec), ("lights", ~on)):
+        for r in read[part]:
+            junk[r, col[rays]] = float("nan")
+    junk[:, n:] = float("nan")
+    assert parity.check_resid_rows(option, resid._replace(rows=junk), resid, alive_next, cfg,
+                                   1)["bitwise"]
+    for part, rays in (("all", slice(None)), ("diffuse", ~spec), ("specular", spec),
+                       ("lights", on)):
         bad = rows.clone()
-        bad[read[part][-1], rays.nonzero()[0, 0]] += 1.0
+        bad[read[part][-1], col[rays][0]] += 1.0
         with pytest.raises(AssertionError):
-            parity.check_resid_rows(option, bad, rows, alive, winner, cfg, 1)
+            parity.check_resid_rows(option, resid._replace(rows=bad), resid, alive_next, cfg, 1)
+    moved = rank.clone()
+    moved[live.nonzero()[:2, 0]] = moved[live.nonzero()[:2, 0]].flip(0)
+    with pytest.raises(AssertionError):
+        parity.check_resid_rows(option, resid._replace(rank=moved), resid, alive_next, cfg, 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("option", list(parity.RESID_OPTIONS))
 def test_resid_kernels_match_plain_on_card(option):
     """K2 with rows: its outputs bitwise its twin's without rows and its
-    plain version's, the rows K4 reads of the live rays in the forward gate
-    of the plain version's. K4 with rows: bitwise K4 without (in the gradient gate
-    with direct specular), in the gradient gate of its plain version (the
-    replay on the plain rows). On K2_CASES' states; launches counted under
-    the variants' names."""
+    plain version's, its ranks 0 .. count - 1 on the rays the plain
+    version ranks, the rows K4 reads, read back through each one's ranks,
+    bitwise the plain version's. K4 with rows: bitwise K4 without (in the gradient
+    gate with direct specular), in the gradient gate of its plain version
+    (the replay on the plain rows). On parity.RESID_CASES' states (K2_CASES
+    and one where every ray is ranked); launches counted under the
+    variants' names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    for name in parity.K2_CASES:
+    for name in parity.RESID_CASES:
         scene, cfg, state, b = parity.resid_case(name, option, dev)
         table, tris, lv = pmk._tables(scene, cfg, None)
         n0 = dict(pmk.LAUNCHES)
@@ -1034,7 +1054,8 @@ def test_resid_kernels_match_plain_on_card(option):
         assert pmk.LAUNCHES["bounce_fwd"] == n0["bounce_fwd"] + 1
         assert all(torch.equal(x, y) for x, y in zip(kr[:7], kc)), name
         parity.check_bitwise(name, kr[:7], pl[:7])
-        parity.check_resid_rows(name, kr[7], pl[7], state[3], kr[5], cfg, lv.shape[0])
+        rows = parity.check_resid_rows(name, kr[7], pl[7], kr[3], cfg, lv.shape[0])
+        assert rows["bitwise"], name
         cot = parity.cotangents(kc[2], gen)
         args = (table, lv, *state, kc[5], kc[6], cot, b, cfg)
         g_r = pmk.bounce_bwd(*args, resid=kr[7])

@@ -4,9 +4,16 @@ the JAX package's, on the CPU.
 * Rows: ``bounce_fwd(save_resid=True)`` on CPU tensors (the plain version,
   ops/known.py) against JAX ``_run_bounce_fwd(save_resid=True)`` (Pallas in
   interpret mode), row by row on the live rays (alive with a winner, the
-  JAX kernel's ``live``), in the four cases of tests/test_torch_megakernel.py
-  (Blinn; two lights with shadow rays and direct specular; GGX; soft
-  edges), 32x32 rays. ``known.num_rows`` against ``_num_resid_rows``.
+  JAX kernel's ``live``; the port's read back through its rank array), in
+  the four cases of tests/test_torch_megakernel.py (Blinn; two lights with
+  shadow rays and direct specular; GGX; soft edges), 32x32 rays.
+  ``known.num_rows`` against ``_num_resid_rows``.
+* The rank-indexed layout (``known.Resid``: a column per ray alive with a
+  winner, at its rank in ray order) against the ray-indexed one it
+  replaced (every ray's rows at its own index, rank = 0 .. R - 1): the
+  same rows bitwise, the rank a prefix count, and the replay's gradients
+  bitwise those of the ray-indexed rows, at bounces 1-2 of Cornell 32x32
+  x 3 and of a triangle soup with shadow rays and direct specular.
 * Per kernel: ``bounce_bwd(resid=rows)`` (the plain replay with the rows
   substituted) against JAX ``_run_bounce_bwd`` with its rows, in the same
   cases, and against the port's own recompute.
@@ -41,7 +48,7 @@ import mini_opencl_raytracer_tpu_torch as P
 from mini_opencl_raytracer_tpu_torch import grad as pgrad
 from mini_opencl_raytracer_tpu_torch.ops import known
 from mini_opencl_raytracer_tpu_torch.ops import rng as trng
-from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
+from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk, parity
 from test_torch_grad import _assert_close, _compare_trees, _cotangents, flush_denormals  # noqa: F401
 from test_torch_megakernel import (BOUNCE, CASES, FRAME, H, R, W, _arrays,
                                    _flat_to_panels, _panels_to_flat, _two_lights)
@@ -128,12 +135,17 @@ def test_resid_rows_plain_match_jax(case):
     ref = _fwd(case, False)
     for a, b in zip(out[:7], ref):
         assert torch.equal(a, b)
-    rows = out[7].numpy()
+    resid = out[7]
     j1 = case["j1"]
     jrows = j1[7]
-    assert rows.shape == jrows.shape == (known.num_rows(case["cfg"], case["port"]["lv"].shape[0]), R)
+    assert resid.rows.shape == jrows.shape == (
+        known.num_rows(case["cfg"], case["port"]["lv"].shape[0]), R)
     live = (case["alive_in"] > 0) & (j1[5] >= 0)
     assert live.mean() > 0.3
+    rank = resid.rank.numpy()
+    assert np.array_equal(rank >= 0, live) and resid.count.item() == live.sum()
+    rows = np.zeros_like(jrows)   # the port's rows back at the rays' own index
+    rows[:, live] = resid.rows.numpy()[:, rank[live]]
     lay = known.layout(case["cfg"], case["port"]["lv"].shape[0])
     cos_h, sin_h = rows[lay["cos_h"]], rows[lay["sin_h"]]
     steep = live & (np.abs(1.0 - cos_h) < 1e-3)   # sin_h by cancellation (docstring)
@@ -180,13 +192,20 @@ def test_wrapper_checks_resid():
     f0 = pmk.bounce0_fwd(table, tris, lv, camv, pid, 0, cfg)
     state = (f0[0], f0[1], f0[2], f0[3], f0[7])
     f1 = pmk.bounce_fwd(table, tris, lv, *state, 1, cfg, save_resid=True)
-    assert f1[7].shape == (17, 64) and f1[7].dtype == torch.float32
+    rows, rank, count = f1[7]
+    assert rows.shape == (17, 64) and rows.dtype == torch.float32
+    assert rank.shape == (64,) and rank.dtype == count.dtype == torch.int32
+    assert count.shape == (1,)
     cot = (f0[0], f0[1], f0[2], f0[0])
     args = (table, lv, *state, f1[5], f1[6], cot, 1, cfg)
     with pytest.raises(ValueError):
-        pmk.bounce_bwd(*args, resid=f1[7][:16].contiguous())
+        pmk.bounce_bwd(*args, resid=f1[7]._replace(rows=rows[:16].contiguous()))
     with pytest.raises(TypeError):
-        pmk.bounce_bwd(*args, resid=f1[7].double())
+        pmk.bounce_bwd(*args, resid=f1[7]._replace(rows=rows.double()))
+    with pytest.raises(TypeError):
+        pmk.bounce_bwd(*args, resid=f1[7]._replace(rank=rank.long()))
+    with pytest.raises(ValueError):
+        pmk.bounce_bwd(*args, resid=f1[7]._replace(count=count.repeat(2)))
 
 
 SLICE = {"defaults": {}, "ggx": {"specular_model": "ggx"}, "shadow": {"shadow_rays": True}}
@@ -220,3 +239,64 @@ def test_slice_grads_resid(scenes, name):
     _compare_trees(gs_r, g_j, nonfinite_leaves=("materials.roughness",))
     _compare_trees(gc_r, c_j)
     assert np.abs(gs_r.materials.diffuse.numpy()).max() > 0
+
+
+# The rank-indexed layout against the ray-indexed one, on the CPU plain
+# version: (scene, config) of each case, rendered at 32x32 x 3.
+LAYOUT = {"cornell": (lambda: P.cornell_scene(device="cpu"), {}),
+          "soup, shadow rays, direct specular": (
+              lambda: parity.soup_scene("cpu", 512),
+              {"shadow_rays": True, "direct_specular": True})}
+
+
+@pytest.mark.parametrize("name", list(LAYOUT))
+def test_rank_layout_replays_ray_layout(name, monkeypatch):
+    """At bounces 1 and 2: the packed rows of the rays alive with a winner
+    are bitwise their ray-indexed rows (every row), in the column of their
+    rank, a prefix count in ray order; the columns past the count are
+    zero; the replay through the ranks gives bitwise the gradients of the
+    replay on the ray-indexed rows (rank = 0 .. R - 1, the layout before
+    ranks), and both stay in the modes' gate of the recompute."""
+    make, kw = LAYOUT[name]
+    scene = make()
+    cfg = P.RenderConfig(width=32, height=32, bounces=3, bwd_residuals=True, **kw)
+    table, tris, lv = pmk._tables(scene, cfg, None)
+    camv = pmk.camera_vector(P.Camera.default(device="cpu"))
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int32)
+    f0 = pmk.bounce0_fwd(table, tris, lv, camv, pid, FRAME, cfg)
+    state, seeds = f0[:4], f0[7]
+    by_ray = {}
+    pack = known.Known.packed
+
+    def spy(kn, live):   # the ray-indexed rows the packed ones come from
+        by_ray["rows"] = kn.stacked()
+        return pack(kn, live)
+
+    monkeypatch.setattr(known.Known, "packed", spy)
+    gen = np.random.default_rng(5)
+    for b in (1, 2):
+        out = pmk.bounce_fwd(table, tris, lv, *state, seeds, b, cfg, save_resid=True)
+        resid, rows = out[7], by_ray["rows"]
+        live = (state[3] > 0) & (out[5] >= 0)
+        n = int(live.sum())
+        assert 0 < n < live.numel()
+        assert torch.equal(resid.rank[live], torch.arange(n, dtype=torch.int32))
+        assert bool((resid.rank[~live] == -1).all()) and resid.count.item() == n
+        assert torch.equal(resid.rows[:, resid.rank[live].long()], rows[:, live])
+        assert not resid.rows[:, n:].any()
+        R = live.numel()
+        every = known.Resid(rows, torch.arange(R, dtype=torch.int32),
+                            torch.full((1,), R, dtype=torch.int32))
+        cot = tuple(torch.from_numpy(gen.normal(size=(3, R)).astype(np.float32))
+                    for _ in range(4))
+        args = (table, lv, *state, seeds, out[5], out[6], cot, b, cfg)
+        got = pmk.bounce_bwd(*args, resid=resid)
+        ref = pmk.bounce_bwd(*args, resid=every)
+        rec = pmk.bounce_bwd(*args)
+        for g, r, c, what in zip(got, ref, rec, parity.BOUNCE_GRADS):
+            assert torch.equal(g, r), what
+            assert bool(torch.isfinite(g).all()), what
+            scale = max(c.abs().max().item(), 1e-6)
+            np.testing.assert_allclose(g.numpy() / scale, c.numpy() / scale, atol=MODES_ATOL,
+                                       err_msg=what)
+        state = out[:4]
