@@ -1,0 +1,4 @@
+"""Device: 100 x (1 - busy / wall) over the traced window, in the train
+cells."""
+
+from portbench.harness.readers import device_idle_pct as read  # noqa: F401
