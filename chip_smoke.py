@@ -2701,8 +2701,7 @@ def main() -> int:
 
         ms3u = events_ms(run3u, frames)
     expect = {"clustered_closest": frames * cfg3.bounces, "clustered_any": 0}
-    log(f"[11 path A] config 3 (bunny 512x512x2, SAH accel, 4 frames): launches {path_a}; "
-        f"last launch {cl.SHAPES['clustered_closest']}")
+    log(f"[11 path A] config 3 (bunny 512x512x2, SAH accel, 4 frames): launches {path_a}")
     if path_a != expect:
         raise AssertionError(f"clustered launches {path_a}, expected {expect}")
     launches["clustered"] = sum(path_a.values())

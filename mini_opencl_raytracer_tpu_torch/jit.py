@@ -55,6 +55,24 @@ capture, such as the NCCL watchdog's event queries, can abort it. The collective
 byte counts (``comm.BYTES``) are counted like the launches: the capture's
 are undone, and each replay adds them. A capture that fails raises;
 nothing runs eagerly in place of a graph.
+
+Spans and counts. While a profiler records (``torch.profiler.profile``),
+a compiled call opens host ranges in its trace, on the clock of the
+device's events: ``mrt.jit.call`` around every call outside
+``disable_jit()``, and inside it ``mrt.jit.key`` (the key of the call),
+then on a replay ``mrt.jit.copy_in`` (the leaves copied into the static
+inputs), ``mrt.jit.launch`` (the graph's replay) and ``mrt.jit.outputs``
+(the counts added, the outputs cloned); on a key's first call
+``mrt.jit.warmup`` (the eager run that is returned) and
+``mrt.jit.capture``; and ``mrt.jit.eager`` around a call that is not
+captured. With no profiler recording a span is one shared no-op context.
+``COUNTS`` is always kept and survives ``clear()``: ``replays``,
+``copy_in_bytes`` and ``copy_in_leaves`` (added per replay), ``warmups`` /
+``warmup_s`` and ``captures`` / ``capture_s`` (host seconds, the device
+synchronised on both sides of each, on a key's first call only), and
+``eager``, the calls that ran without a graph (on the CPU, or on CUDA
+over a gloo group). The benchmark (``portbench/metrics/jit_*``) reads the
+spans from its trace and ``COUNTS`` after its window.
 """
 
 from __future__ import annotations
@@ -65,9 +83,11 @@ import dataclasses
 import functools
 import inspect
 import sys
+import time
 from typing import Any, Callable, Iterator, List, Tuple
 
 import torch
+import torch.autograd.profiler as _profiler
 from torch.distributed.device_mesh import DeviceMesh
 
 from .models.scene import Lights
@@ -83,6 +103,25 @@ _CONST = "const"
 _ANNOUNCED = set()
 # Whether disable_jit() is in force.
 _disabled = False
+# Work of the compiled calls, always counted (see the module note).
+COUNTS = {"replays": 0, "copy_in_bytes": 0, "copy_in_leaves": 0, "warmups": 0,
+          "warmup_s": 0.0, "captures": 0, "capture_s": 0.0, "eager": 0}
+# The lightest host range of the profiler's trace that this torch has.
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
+_OFF = contextlib.nullcontext()
+
+
+def _span(name: str):
+    """A range named ``name`` in the trace of the profiler that records,
+    or, with none recording, the shared no-op context."""
+    if _profiler._is_profiler_enabled:
+        return _RANGE(name)
+    return _OFF
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for ``device``'s work (around a key's warm-up and capture)."""
+    torch.cuda.synchronize(device)
 
 
 def flatten(tree) -> Tuple[List[torch.Tensor], Any]:
@@ -183,15 +222,22 @@ class _Program:
         self.counts = [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
                        for a, b in zip(after, before)]
         self.out_leaves, self.out_def = flatten(out)
+        self.in_bytes = sum(t.nbytes for t in self.inputs)
 
     def replay(self, leaves):
-        for static, x in zip(self.inputs, leaves):
-            static.copy_(x)
-        self.graph.replay()
-        for counts, added in zip(_COUNTS, self.counts):
-            for k, v in added.items():
-                counts[k] += v
-        return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
+        with _span("mrt.jit.copy_in"):
+            for static, x in zip(self.inputs, leaves):
+                static.copy_(x)
+        with _span("mrt.jit.launch"):
+            self.graph.replay()
+        with _span("mrt.jit.outputs"):
+            COUNTS["replays"] += 1
+            COUNTS["copy_in_bytes"] += self.in_bytes
+            COUNTS["copy_in_leaves"] += len(self.inputs)
+            for counts, added in zip(_COUNTS, self.counts):
+                for k, v in added.items():
+                    counts[k] += v
+            return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
 
 
 class Compiled:
@@ -256,23 +302,39 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         if _disabled:
             return self.fn(*args, **kwargs)
-        key, leaves, types, device = self.key(*args, **kwargs)
-        if not self.captures(key):
-            self._announce(key)
-            return self.fn(*args, **kwargs)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-            raise ValueError(f"{self.__qualname__}: an argument requires grad, and a "
-                             "compiled call is not differentiable from outside; take the "
-                             "gradient inside the function (jit of a value-and-grad "
-                             "function)")
-        program = self._programs.get(key)
-        if program is not None:
-            return program.replay(leaves)
-        out = self.fn(*args, **kwargs)    # the warm-up, returned
-        static = dict(key[0])
-        mode = "thread_local" if key[6] else "global"
-        self._programs[key] = _Program(self, static, key[1], leaves, types, device, mode)
-        return out
+        with _span("mrt.jit.call"):
+            with _span("mrt.jit.key"):
+                key, leaves, types, device = self.key(*args, **kwargs)
+            if not self.captures(key):
+                self._announce(key)
+                COUNTS["eager"] += 1
+                with _span("mrt.jit.eager"):
+                    return self.fn(*args, **kwargs)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+                raise ValueError(f"{self.__qualname__}: an argument requires grad, and a "
+                                 "compiled call is not differentiable from outside; take "
+                                 "the gradient inside the function (jit of a "
+                                 "value-and-grad function)")
+            program = self._programs.get(key)
+            if program is not None:
+                return program.replay(leaves)
+            _sync(device)
+            t0 = time.perf_counter()
+            with _span("mrt.jit.warmup"):
+                out = self.fn(*args, **kwargs)    # the warm-up, returned
+                _sync(device)
+            t1 = time.perf_counter()
+            COUNTS["warmups"] += 1
+            COUNTS["warmup_s"] += t1 - t0
+            with _span("mrt.jit.capture"):
+                mode = "thread_local" if key[6] else "global"
+                program = _Program(self, dict(key[0]), key[1], leaves, types, device, mode)
+                _sync(device)
+            t2 = time.perf_counter()
+            self._programs[key] = program
+            COUNTS["captures"] += 1
+            COUNTS["capture_s"] += t2 - t1
+            return out
 
     def clear(self) -> None:
         """Drop every captured graph (and its memory pool)."""

@@ -20,7 +20,7 @@ package's ``ops/pallas/clustered.py:_clustered_kernel``.
 wrappers ``clustered_closest`` and ``clustered_any`` run the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA
 device; there is no fallback between the two. ``LAUNCHES`` counts kernel
-launches and ``SHAPES`` keeps each wrapper's last launch shape.
+launches.
 
 Tie rule (kernel and plain version): among equal t the lowest original
 triangle id wins, so the result does not depend on the order in which the
@@ -48,7 +48,6 @@ from . import build
 from .megakernel import _check
 
 LAUNCHES = {"clustered_closest": 0, "clustered_any": 0}
-SHAPES = {}
 
 # Triangles per cluster and clusters per super; children per tree node,
 # the depth of the kernel's traversal stack and the lanes that walk one
@@ -479,7 +478,6 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
                 stream)
         build.check(err, name)
         LAUNCHES[name] += 1
-        SHAPES[name] = {"rays": R, "slots": T_pad, "supers": cg.num_supers}
     return t_out, slot, rows
 
 

@@ -1,0 +1,6 @@
+"""Compiled programs: host seconds of the keys' eager warm-up runs, the
+device synchronised on both sides, from the program's ``jit.COUNTS``."""
+
+from portbench.harness.spans import first_call_s
+
+read = first_call_s("warmup")

@@ -23,6 +23,13 @@ the backend name set to "nccl", a CUDA device put into the key and a
 stand-in for the graph (its capture runs the function, its replay
 nothing), three replays of ``render_sample_dp`` and ``train_step_dp`` add
 three eager calls' collective bytes (``comm.BYTES``).
+
+The spans and counts of a compiled call, with the same stand-in: under
+a CPU-only ``torch.profiler``, a warm-up and a capture, then three
+replays, each ``mrt.jit.call`` holding its key, copy-in, launch and
+outputs in that order; with no profiler no range is built; ``COUNTS``
+adds the warm-up, the capture, the replays and their input bytes, counts
+calls on the CPU as eager, and survives ``clear()``.
 """
 
 import contextlib
@@ -343,6 +350,7 @@ def _as_if_on_cuda(monkeypatch, backend: str):
 
     monkeypatch.setattr(pjit.Compiled, "key", key)
     monkeypatch.setattr(pjit, "_capture", capture)
+    monkeypatch.setattr(pjit, "_sync", lambda device: None)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
     return modes
 
@@ -437,3 +445,116 @@ def test_disable_jit_runs_eagerly(mesh11, monkeypatch):
     assert len(calls) == 2 and not prog._programs
     prog(torch.ones(3), mesh11)
     assert len(calls) == 4 and len(prog._programs) == 1
+
+
+def _jit_spans(prof):
+    """(name, start ns, end ns) of the trace's mrt.jit.* host ranges, in
+    order of start."""
+    rows = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events() if e.name().startswith("mrt.jit.")]
+    return sorted(rows, key=lambda r: (r[1], -r[2]))
+
+
+def _scaled(x, idx):
+    """A compiled function of no group, so the backend that _as_if_on_cuda
+    sets plays no part ("gloo": the profiler reads it at its start, and
+    asks NCCL for its version under "nccl")."""
+    return x * 2.0 + 1.0, idx + 1
+
+
+def _deltas(before):
+    return {k: pjit.COUNTS[k] - v for k, v in before.items()}
+
+
+def test_spans_nest_in_order(monkeypatch):
+    """A key's first call: warm-up then capture inside mrt.jit.call, the
+    device synchronised before the warm-up, after it and after the
+    capture; each replay: key, copy-in, launch and outputs inside its
+    call, in that order, and no synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+    _as_if_on_cuda(monkeypatch, "gloo")
+    syncs = []
+    monkeypatch.setattr(pjit, "_sync", lambda device: syncs.append(str(device)))
+    prog = pjit.jit(_scaled)
+    x, idx = torch.arange(5.0), torch.arange(3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prog(x, idx)
+        assert syncs == ["cuda:0"] * 3
+        for _ in range(3):
+            prog(x, idx)
+    assert syncs == ["cuda:0"] * 3
+    spans = _jit_spans(prof)
+    replay = ["mrt.jit.call", "mrt.jit.key", "mrt.jit.copy_in", "mrt.jit.launch",
+              "mrt.jit.outputs"]
+    assert [n for n, _, _ in spans] == (["mrt.jit.call", "mrt.jit.key", "mrt.jit.warmup",
+                                         "mrt.jit.capture"] + replay * 3)
+    calls = [i for i, (n, _, _) in enumerate(spans) if n == "mrt.jit.call"]
+    for i, j in zip(calls, calls[1:] + [len(spans)]):
+        _, a, b = spans[i]
+        kids = spans[i + 1:j]
+        assert all(a <= ka <= kb <= b for _, ka, kb in kids)
+        assert all(kids[k][2] <= kids[k + 1][1] for k in range(len(kids) - 1))
+    assert spans[calls[0]][2] <= spans[calls[1]][1]
+
+
+def test_no_profiler_builds_no_range(monkeypatch):
+    """With no profiler recording, a span is the one shared no-op context
+    and the range class is never called, on a capture, a replay or an
+    eager call."""
+    def refuse(name):
+        raise AssertionError(f"range {name} built with no profiler")
+
+    monkeypatch.setattr(pjit, "_RANGE", refuse)
+    assert pjit._span("mrt.jit.call") is pjit._span("mrt.jit.key") is pjit._OFF
+    x, idx = torch.arange(5.0), torch.arange(3)
+    eager = pjit.jit(_scaled)
+    assert torch.equal(eager(x, idx)[0], x * 2.0 + 1.0)
+    _as_if_on_cuda(monkeypatch, "gloo")
+    prog = pjit.jit(_scaled)
+    for _ in range(3):
+        assert torch.equal(prog(x, idx)[1], idx + 1)
+
+
+def test_counts_of_warmup_capture_and_replays(monkeypatch):
+    """COUNTS: one warm-up and one capture with their seconds, three
+    replays that each copy both leaves' bytes in, no eager call; calls on
+    the CPU count as eager, under a mrt.jit.eager span, and calls inside
+    disable_jit() count nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    x, idx = torch.arange(5.0), torch.arange(3)
+    before = dict(pjit.COUNTS)
+    cpu = pjit.jit(_scaled)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cpu(x, idx)
+        cpu(x, idx)
+    with pjit.disable_jit():
+        cpu(x, idx)
+    assert _deltas(before) == dict.fromkeys(before, 0) | {"eager": 2}
+    assert [n for n, _, _ in _jit_spans(prof)] == ["mrt.jit.call", "mrt.jit.key",
+                                                    "mrt.jit.eager"] * 2
+    _as_if_on_cuda(monkeypatch, "gloo")
+    before = dict(pjit.COUNTS)
+    prog = pjit.jit(_scaled)
+    for _ in range(4):
+        prog(x, idx)
+    got = _deltas(before)
+    assert got["warmup_s"] > 0 and got["capture_s"] > 0
+    assert {k: v for k, v in got.items() if not k.endswith("_s")} == {
+        "replays": 3, "copy_in_bytes": 3 * (x.nbytes + idx.nbytes), "copy_in_leaves": 6,
+        "warmups": 1, "captures": 1, "eager": 0}
+
+
+def test_counts_survive_clear(monkeypatch):
+    """clear() drops the graphs and keeps COUNTS; the next call warms up
+    and captures again."""
+    _as_if_on_cuda(monkeypatch, "gloo")
+    x, idx = torch.arange(5.0), torch.arange(3)
+    prog = pjit.jit(_scaled)
+    prog(x, idx)
+    prog(x, idx)
+    kept = dict(pjit.COUNTS)
+    prog.clear()
+    assert pjit.COUNTS == kept and not prog._programs
+    prog(x, idx)
+    got = _deltas(kept)
+    assert (got["warmups"], got["captures"], got["replays"]) == (1, 1, 0)
