@@ -193,6 +193,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ranked); and on parity.RESID_CASES' states (K2_CASES, no ray ranked to
    every ray ranked) in each option. Since remat is on
    by default, phase 12's path C step launches K6 twice a bounce.
+18. the material gather's backward (``csrc/material_rows.cu``, the
+   backward of ``ops/shading.material_rows``): on the cotangent each table
+   builder hands it (the bunny's wavefront table, a [T, 34] gradient's
+   columns; Cornell's mega table, a transposed slice), recorded from a
+   backward through the builder, against a float64 ``index_add_``
+   (within 1e-6 of the sum of |cotangent| by material) and against the
+   plain ``index_put_`` it replaces (within that plus the plain serial
+   sum's own rounding, n 2^-24 of the sum of |cotangent| for n rows),
+   bitwise equal to a second call; device time beside the plain version's
+   and ``index_add_``'s (float atomics, run to run bits reported) and its
+   bound; ``material_rows.LAUNCHES`` of one eager bunny config 3 step, one
+   Cornell 1080p x 9 step and three replays of the compiled bunny step,
+   each counted from 0: one launch a step.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -218,14 +231,14 @@ import time
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
 KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
-           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid")
+           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_fwd_resid": _CSRC + "megakernel.cu",
            "bounce_bwd_resid": _CSRC + "megakernel_bwd.cu",
            "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
-           "bvh_walk": _CSRC + "bvh.cu"}
+           "bvh_walk": _CSRC + "bvh.cu", "material_rows_bwd": _CSRC + "material_rows.cu"}
 # The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
 # a jnp while_loop.
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
@@ -235,7 +248,10 @@ REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "me
             # with save_resid, _bounce_bwd_kernel reading the rows.
             "bounce_fwd_resid": _TPU + "megakernel.py:1041",
             "bounce_bwd_resid": _TPU + "megakernel.py:1329",
-            "bvh_walk": "mini_opencl_raytracer_tpu/ops/bvh.py:173 _intersect_one"}
+            "bvh_walk": "mini_opencl_raytracer_tpu/ops/bvh.py:173 _intersect_one",
+            # Nor the material gather's backward: the VJP of jnp.take (a
+            # scatter-add) in the JAX package's build_shading_table.
+            "material_rows_bwd": "mini_opencl_raytracer_tpu/ops/shading.py:111 jnp.take's VJP"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -2059,6 +2075,93 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
     return row
 
 
+def phase18(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, cfg3,
+            main_cfg) -> dict:
+    """18. The material gather's backward (module docstring, phase 18).
+    Returns the kernel's summary row, from the bunny's cotangent and step."""
+    from mini_opencl_raytracer_tpu_torch.jit import jit
+    from mini_opencl_raytracer_tpu_torch.ops import shading
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import material_rows as pmr
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as mk
+    t_phase = time.perf_counter()
+    loss_fn = lambda im: im.mean()
+    names = ("diffuse", "specular", "emission", "roughness")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    row = {}
+    for label, scene, build_table in (
+            ("bunny, wavefront table", bunny,
+             lambda g, m: shading.build_shading_table(g, m).table),
+            ("Cornell, mega table", cornell, mk.build_mega_table)):
+        # The cotangent as the builder hands it over, recorded in a
+        # backward through the table.
+        seen, reduce = [], pmr.reduce_by_material
+        leaves = {k: getattr(scene.materials, k).detach().requires_grad_(True) for k in names}
+        table = build_table(scene.geometry, dataclasses.replace(scene.materials, **leaves))
+        pmr.reduce_by_material = lambda c, m, n: seen.append((c, m, n)) or reduce(c, m, n)
+        try:
+            torch.autograd.grad(table, list(leaves.values()),
+                                torch.randn(table.shape, generator=gen, device=dev))
+        finally:
+            pmr.reduce_by_material = reduce
+        (cot, mi, M), = seen
+        T = mi.shape[0]
+        got = pmr.reduce_by_material(cot, mi, M)
+        repeatable(f"[18 material] {label}", [got], [pmr.reduce_by_material(cot, mi, M)])
+        plain = pmr.reduce_plain(cot, mi, M)
+        lib = [cot.new_zeros((M, 10)).index_add_(0, mi, cot) for _ in range(2)]
+        ref = torch.zeros((M, 10), dtype=torch.float64, device=dev).index_add_(0, mi, cot.double())
+        scale = torch.zeros_like(ref).index_add_(0, mi, cot.double().abs())
+        rows_of = torch.bincount(mi, minlength=M).double()[:, None]
+        d_ref = (got.double() - ref).abs()
+        d_plain = (got.double() - plain.double()).abs()
+        rel = lambda d: (d / scale.clamp_min(1e-30)).max().item()
+        if not ((d_ref <= 1e-6 * scale).all() and
+                (d_plain <= (1e-6 + rows_of * 2.0**-24) * scale).all()):
+            raise AssertionError(f"[18 material] {label}: the reduction differs from the "
+                                 f"float64 sum by {rel(d_ref):.2e} and from index_put_ by "
+                                 f"{rel(d_plain):.2e} of the sum of |cotangent|")
+        ms = device_ms(lambda: pmr.reduce_by_material(cot, mi, M))
+        plain_ms = device_ms(lambda: pmr.reduce_plain(cot, mi, M))
+        lib_ms = device_ms(lambda: cot.new_zeros((M, 10)).index_add_(0, mi, cot))
+        G = -(-T // pmr.rows_per_block(M))
+        b = bound(T * (10 * 4 + 8) + 2 * G * M * 10 * 4 + M * 10 * 4, T * 10)
+        log(f"[18 material] {label}: T {T}, M {M}, {int(rows_of.max().item())} rows on one "
+            f"material; cotangent [T, 10] strides {tuple(cot.stride())}; against float64 "
+            f"{rel(d_ref):.2e}, against index_put_ {rel(d_plain):.2e} of the sum of |cotangent|, "
+            f"max abs {d_plain.max().item():.3e}; two calls bitwise; kernel {ms:.4f} ms "
+            f"(both launches, {G} blocks), index_put_ {plain_ms:.3f} ms, index_add_ "
+            f"{lib_ms:.4f} ms (two calls bitwise: {torch.equal(lib[0], lib[1])}); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / ms:.1%} of the kernel "
+            f"({card})")
+        if not row:
+            row = {"err": d_plain.max().item(), "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound": b}
+
+    # One launch a training step of the main paths, counted from 0.
+    c_step = jit(lambda s, a: grad.loss_and_grads(s, cam, cfg3, loss_fn, accel=a))
+    steps = (("eager bunny 512x512 x 2 step (config 3, the bunny-512-b2 cells' shape)", 1,
+              lambda: grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3)),
+             ("eager Cornell 1920x1080 x 9 step (mega)", 1,
+              lambda: grad.loss_and_grads(cornell, cam, main_cfg, loss_fn)),
+             ("3 replays of the compiled bunny config 3 step", 3,
+              lambda: [c_step(bunny, acc3) for _ in range(3)]))
+    for label, n, step in steps:
+        step()
+        torch.cuda.synchronize()
+        reset_counts(pmr.LAUNCHES)
+        step()
+        torch.cuda.synchronize()
+        if pmr.LAUNCHES != {"material_rows_bwd": n}:
+            raise AssertionError(f"[18 material] {label}: launches {pmr.LAUNCHES}, "
+                                 f"expected {n} material_rows_bwd")
+        log(f"[18 material] {label}: launches {dict(pmr.LAUNCHES)}")
+        if label.startswith("eager bunny"):
+            row["launches"] = pmr.LAUNCHES["material_rows_bwd"]
+    c_step.clear()
+    log(f"[18 material] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2880,12 +2983,20 @@ def main() -> int:
         times[name] = (r["ms"], r["plain_ms"])
         bounds[name] = r["bound"]
 
+    # 18. The material gather's backward.
+    r = phase18(mrt, torch, grad, dev, card, cam, cornell, bunny, acc3, cfg3, main_cfg)
+    launches["material_rows_bwd"] = r["launches"]
+    max_err["material_rows_bwd"] = r["err"]
+    times["material_rows_bwd"] = (r["ms"], r["plain_ms"])
+    bounds["material_rows_bwd"] = r["bound"]
+    library = {"material_rows_bwd": r["library_ms"]}
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
-         "library_ms": None}
+         "library_ms": library.get(name)}
         for name in KERNELS]}))
     log(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(card)

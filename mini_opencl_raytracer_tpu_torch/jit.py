@@ -92,11 +92,11 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .models.scene import Lights
 from .ops import lights as lights_mod
-from .ops.cuda import bvh, clustered, megakernel, panel
+from .ops.cuda import bvh, clustered, material_rows, megakernel, panel
 from .parallel import comm
 
 _COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, bvh.LAUNCHES,
-           comm.BYTES)
+           material_rows.LAUNCHES, comm.BYTES)
 _LEAF = "tensor"
 _CONST = "const"
 # (function, staged groups) already announced by Compiled._announce.

@@ -59,6 +59,9 @@ _SIGNATURES = {
     # csrc/bvh.cu: (R, leaves, leaf_size, cull, node_lo, node_hi, pv0, pv1,
     #  pv2, o, d, t_init, t_out, slot, stream)
     "mrt_bvh_walk": ([_I] * 4 + [_P] * 11, _I),
+    # csrc/material_rows.cu: (T, M, rows, f64, cot, row stride, column
+    #  stride, mat, part, d_packed, stream)
+    "mrt_material_rows_bwd": ([_I] * 4 + [_P] + [ctypes.c_longlong] * 2 + [_P] * 4, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -43,7 +43,7 @@ from ...config import RenderConfig
 from ...models.scene import Geometry, Materials
 from ..bvh import morton3d
 from ..intersect import Hit, ray_triangle_edges
-from ..shading import ShadingTable, build_shading_table
+from ..shading import ShadingTable, build_shading_table, pack_materials
 from . import build
 from .megakernel import _check
 
@@ -301,9 +301,7 @@ def _refresh_attrs(cg: ClusteredGeometry, materials: Materials) -> ClusteredGeom
     """The attrs with their material columns (kd, ks, ke, ns) taken from
     the live materials, so a prebuilt accel tracks material updates
     during optimisation."""
-    mat_tab = torch.cat([materials.diffuse, materials.specular,
-                         materials.emission, materials.roughness[:, None]],
-                        dim=1).detach().to(torch.float32)      # [M, 10]
+    mat_tab = pack_materials(materials).detach().to(torch.float32)      # [M, 10]
     live = mat_tab[cg.slot_mat.to(torch.int64)]
     attrs = torch.cat([cg.attrs[:, :ShadingTable.KD], live,
                        cg.attrs[:, ShadingTable.NS + 1:]], dim=1).contiguous()

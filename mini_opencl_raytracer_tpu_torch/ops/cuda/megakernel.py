@@ -71,7 +71,7 @@ from ..camera import rays_from_basis, tan_half_fov
 from ..integrator import shade_hit
 from ..intersect import closest_hit_edges, occluded_edges
 from ..linalg import cross, vmax
-from ..shading import winner_attributes
+from ..shading import material_rows, winner_attributes
 from . import build
 
 # Launches per kernel; the residual variants count apart.
@@ -172,12 +172,10 @@ def build_mega_table(geometry: Geometry, materials: Materials) -> torch.Tensor:
     the triangle's material, one attribute per row, zero padded."""
     g, m = geometry, materials
     T = g.num_triangles
-    mi = g.mat_idx.to(torch.int64)
     rows = torch.cat([
         g.v0.T, (g.v1 - g.v0).T, (g.v2 - g.v0).T,
         g.n0.T, g.n1.T, g.n2.T,
-        m.diffuse[mi].T, m.specular[mi].T, m.emission[mi].T,
-        m.roughness[mi][None, :],
+        material_rows(m, g.mat_idx).T,
     ], dim=0).to(torch.float32)
     return torch.nn.functional.pad(rows, (0, _tri_pad(T) - T, 0, _C_PAD - _C))
 

@@ -7,6 +7,11 @@ plain form on a GPU. The winner's (t, u, v) are recomputed on its row and
 interpolated as kernel_bvh.cl:144-147 does. Where the intersector already
 fetched the rows (``Hit.rows``, the clustered kernel), ``_PrecomputedRows``
 uses them and gives the table the gather's gradient.
+
+The table's material columns come from ``material_rows``, the one rule
+for the per-triangle material gather (the mega path's table uses it too):
+one gather of the packed ``[M, 10]`` material block whose backward, on
+CUDA, is the deterministic reduction of ``csrc/material_rows.cu``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from ..models.scene import Geometry, Materials
 from . import known
+from .cuda import material_rows as _mr
 from .intersect import Hit, ray_triangle_edges
 
 
@@ -46,6 +52,44 @@ class _PrecomputedRows(torch.autograd.Function):
         return d_table, None, None
 
 
+def pack_materials(materials: Materials) -> torch.Tensor:
+    """[M, 10] material block: Kd, Ks, Ke, Ns, the table's KD..NS columns."""
+    return torch.cat([materials.diffuse, materials.specular, materials.emission,
+                      materials.roughness[:, None]], dim=1)
+
+
+class _MaterialRows(torch.autograd.Function):
+    """``packed[m]``, whose backward sums the cotangent rows by material
+    with the CUDA reduction (``ops/cuda/material_rows``) in place of
+    ``index_put_``'s. No gradient reaches ``m``."""
+
+    @staticmethod
+    def forward(ctx, packed, m):
+        ctx.save_for_backward(m)
+        ctx.num_materials = packed.shape[0]
+        return packed[m]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cot):
+        (m,) = ctx.saved_tensors
+        return _mr.reduce_by_material(cot, m, ctx.num_materials), None
+
+
+def material_rows(materials: Materials, mat_idx: torch.Tensor) -> torch.Tensor:
+    """[T, 10] per-triangle material columns (Kd, Ks, Ke, Ns) by
+    ``mat_idx`` [T]. On a CUDA device: one gather of ``pack_materials``,
+    whose backward is the kernel's reduction and reaches the four leaves
+    through the cat. On the CPU: the plain autograd gather of each leaf,
+    which keeps its gradients' bits (there one ``index_put_`` over [T, 10]
+    sums in another order than four)."""
+    m = mat_idx.to(torch.int64)
+    if m.is_cuda:
+        return _MaterialRows.apply(pack_materials(materials), m)
+    return torch.cat([materials.diffuse[m], materials.specular[m], materials.emission[m],
+                      materials.roughness[m][:, None]], dim=1)
+
+
 class ShadingTable(NamedTuple):
     """[T, C] concatenated per-triangle shading attributes + column map."""
 
@@ -62,13 +106,11 @@ class ShadingTable(NamedTuple):
 def build_shading_table(geometry: Geometry,
                         materials: Materials) -> ShadingTable:
     """Fold geometry corners + per-triangle material data into one table."""
-    m = geometry.mat_idx.to(torch.int64)
     cols = [
         geometry.v0, geometry.v1, geometry.v2,
         geometry.n0, geometry.n1, geometry.n2,
         geometry.uv0, geometry.uv1, geometry.uv2,
-        materials.diffuse[m], materials.specular[m], materials.emission[m],
-        materials.roughness[m][:, None],
+        material_rows(materials, geometry.mat_idx),
     ]
     return ShadingTable(table=torch.cat(cols, dim=1))
 

@@ -1,6 +1,6 @@
 """The CUDA kernels (the bounce kernels forward and backward, the panel
-and cluster-traversal intersectors, the LBVH walk) against their plain
-versions on a GPU, and the compiled programs (jit.py) against eager,
+and cluster-traversal intersectors, the LBVH walk, the material gather's
+backward) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
 the parallel entry points included on an NCCL group of one process.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
@@ -33,6 +33,7 @@ from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays, rays_from_
 from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
 from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
+from mini_opencl_raytracer_tpu_torch.ops.cuda import material_rows as pmr
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import panel as ppanel
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
@@ -785,7 +786,8 @@ def _compiled_case(name: str, dev):
 
 def _counts():
     from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as pbk
-    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES, **pbk.LAUNCHES}
+    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES, **pbk.LAUNCHES,
+            **pmr.LAUNCHES}
 
 
 def _since(before):
@@ -1102,3 +1104,128 @@ def test_remat_bitwise_on_card(backend):
         for (k, a), (_, b) in zip(pgrad._leaves(out[False][part]),
                                   pgrad._leaves(out[True][part])):
             assert torch.equal(a, b), k
+
+
+# The material gather's backward (csrc/material_rows.cu).
+
+MATERIAL_ROWS_CASES = ("bunny", "bunny float64", "M=1", "M=6", "M=2048", "M=2049",
+                       "M=5000 float64", "T=36", "T=1037", "T=1037 transposed",
+                       "T=300000 contiguous")
+
+
+def _material_rows_case(name: str, dev):
+    """(mat_idx [T] int64, M, layout of the cotangent, dtype): "table"
+    reads columns 24-33 of a [T, 34] gradient (the wavefront's),
+    "transposed" rows 24-33 of a [32, T_pad] one (the mega path's). M =
+    2048 fills one slice of the kernel's materials (kSliceMats), 2049 and
+    5000 take two and three."""
+    gen = torch.Generator().manual_seed(len(name))
+    words = name.split()
+    dtype = torch.float64 if words[-1] == "float64" else torch.float32
+    layout = words[-1] if words[-1] in ("transposed", "contiguous") else "table"
+    if words[0] == "bunny":   # the bunny-512-b2 configuration's: 69,702 of 69,732 on one
+        return P.bunny_scene(device=dev).geometry.mat_idx.to(torch.int64), 6, layout, dtype
+    if name == "T=36":
+        return (P.cornell_scene(device=dev).geometry.mat_idx.to(torch.int64), 6, layout,
+                dtype)
+    M = int(words[0][2:]) if words[0][:2] == "M=" else 6
+    T = int(words[0][2:]) if words[0][:2] == "T=" else (50_000 if M <= 6 else 200_000)
+    return torch.randint(0, M, (T,), generator=gen).to(dev), M, layout, dtype
+
+
+def _material_cot(values: torch.Tensor, layout: str) -> torch.Tensor:
+    """values [T, 10] as a view of the layout autograd hands over."""
+    T = values.shape[0]
+    if layout == "contiguous":
+        return values.contiguous()
+    if layout == "table":
+        base = torch.zeros((T, 34), dtype=values.dtype, device=values.device)
+        base[:, 24:] = values
+        return base[:, 24:]
+    base = torch.zeros((32, T + 40), dtype=values.dtype, device=values.device)
+    base[16:26, :T] = values.T
+    return base[16:26, :T].T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MATERIAL_ROWS_CASES)
+def test_material_rows_kernel_on_card(name):
+    """The reduction against a float64 index_add_: exactly equal on
+    integer-valued cotangents (every partial sum is exact in float32), and
+    within 1e-6 of the sum of |cotangent| by material on normal ones; one
+    material_rows_bwd launch a call, whatever M and the dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    mi, M, layout, dtype = _material_rows_case(name, dev)
+    T = mi.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(T + M)
+    n0 = dict(pmr.LAUNCHES)
+    for kind in ("integers", "normal"):
+        values = torch.randn((T, 10), generator=gen, device=dev, dtype=dtype)
+        if kind == "integers":
+            values = torch.round(values * 4).clamp(-8, 8)
+        got = pmr.reduce_by_material(_material_cot(values, layout), mi, M)
+        ref = torch.zeros((M, 10), dtype=torch.float64, device=dev).index_add_(
+            0, mi, values.double())
+        assert got.shape == (M, 10) and got.dtype == dtype
+        if kind == "integers":
+            assert torch.equal(got.double(), ref)
+        else:
+            scale = torch.zeros_like(ref).index_add_(0, mi, values.double().abs())
+            assert ((got.double() - ref).abs() <= 1e-6 * scale).all()
+    torch.cuda.synchronize()
+    assert pmr.LAUNCHES == dict(n0, material_rows_bwd=n0["material_rows_bwd"] + 2)
+
+
+@pytest.mark.cuda
+def test_material_rows_kernel_is_deterministic_on_card():
+    """Two calls on the bunny's indices give the same bits, and so do two
+    calls over three slices of materials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for name in ("bunny", "M=5000 float64"):
+        mi, M, layout, dtype = _material_rows_case(name, dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cot = _material_cot(torch.randn((mi.shape[0], 10), generator=gen, device=dev,
+                                        dtype=dtype), layout)
+        a = pmr.reduce_by_material(cot, mi, M)
+        b = pmr.reduce_by_material(cot, mi, M)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder", ["shading table", "mega table"])
+def test_material_rows_backward_replays_bitwise_on_card(builder):
+    """The leaves' gradients through a table builder: a captured graph's
+    replays equal the eager call bit for bit, one material_rows_bwd a
+    call, replays included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.ops import shading
+    dev = torch.device("cuda")
+    scene = P.bunny_scene(device=dev) if builder == "shading table" else P.cornell_scene(device=dev)
+    names = ("diffuse", "specular", "emission", "roughness")
+
+    def grads(materials, geometry, cot):
+        leaves = {k: getattr(materials, k).detach().requires_grad_(True) for k in names}
+        mats = dataclasses.replace(materials, **leaves)
+        table = (shading.build_shading_table(geometry, mats).table if builder == "shading table"
+                 else pmk.build_mega_table(geometry, mats))
+        return torch.autograd.grad(table, [leaves[k] for k in names], cot)
+
+    shape = ((scene.num_triangles, 34) if builder == "shading table"
+             else tuple(pmk.build_mega_table(scene.geometry, scene.materials).shape))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+    compiled = jit.jit(grads)
+    with jit.disable_jit():
+        eager = [grads(scene.materials, scene.geometry, c) for c in cots]
+    n0 = pmr.LAUNCHES["material_rows_bwd"]
+    got = [compiled(scene.materials, scene.geometry, c) for c in cots + cots[:1]]
+    torch.cuda.synchronize()
+    assert pmr.LAUNCHES["material_rows_bwd"] - n0 == len(got)
+    for g, e in zip(got, eager + eager[:1]):
+        assert all(torch.equal(x, y) for x, y in zip(g, e))
