@@ -71,8 +71,12 @@ captured. With no profiler recording a span is one shared no-op context.
 ``warmup_s`` and ``captures`` / ``capture_s`` (host seconds, the device
 synchronised on both sides of each, on a key's first call only), and
 ``eager``, the calls that ran without a graph (on the CPU, or on CUDA
-over a gloo group). The benchmark (``portbench/metrics/jit_*``) reads the
-spans from its trace and ``COUNTS`` after its window.
+over a gloo group); and ``clustered_closest_rays`` / ``clustered_any_rays``,
+the rays handed to K6 (``clustered.RAYS``) that a key's capture counted,
+added per replay: over ``replays``, a steady call's rays, which no eager
+call dilutes. The benchmark (``portbench/metrics/jit_*``,
+``k6_ns_per_ray.render``) reads the spans from its trace and ``COUNTS``
+after its window.
 """
 
 from __future__ import annotations
@@ -95,8 +99,10 @@ from .ops import lights as lights_mod
 from .ops.cuda import bvh, clustered, material_rows, megakernel, panel
 from .parallel import comm
 
-_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, bvh.LAUNCHES,
-           material_rows.LAUNCHES, comm.BYTES)
+_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, clustered.RAYS,
+           bvh.LAUNCHES, material_rows.LAUNCHES, comm.BYTES)
+# Where clustered.RAYS sits in _COUNTS: a replay adds its part to COUNTS too.
+_RAYS_AT = next(i for i, c in enumerate(_COUNTS) if c is clustered.RAYS)
 _LEAF = "tensor"
 _CONST = "const"
 # (function, staged groups) already announced by Compiled._announce.
@@ -105,7 +111,8 @@ _ANNOUNCED = set()
 _disabled = False
 # Work of the compiled calls, always counted (see the module note).
 COUNTS = {"replays": 0, "copy_in_bytes": 0, "copy_in_leaves": 0, "warmups": 0,
-          "warmup_s": 0.0, "captures": 0, "capture_s": 0.0, "eager": 0}
+          "warmup_s": 0.0, "captures": 0, "capture_s": 0.0, "eager": 0,
+          **{k + "_rays": 0 for k in clustered.RAYS}}
 # The lightest host range of the profiler's trace that this torch has.
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
 _OFF = contextlib.nullcontext()
@@ -237,6 +244,8 @@ class _Program:
             for counts, added in zip(_COUNTS, self.counts):
                 for k, v in added.items():
                     counts[k] += v
+            for k, v in self.counts[_RAYS_AT].items():
+                COUNTS[k + "_rays"] += v
             return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
 
 

@@ -20,7 +20,8 @@ package's ``ops/pallas/clustered.py:_clustered_kernel``.
 wrappers ``clustered_closest`` and ``clustered_any`` run the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA
 device; there is no fallback between the two. ``LAUNCHES`` counts kernel
-launches.
+launches and ``RAYS`` the rays handed to them (each launch's R, read from
+its shapes on the host).
 
 Tie rule (kernel and plain version): among equal t the lowest original
 triangle id wins, so the result does not depend on the order in which the
@@ -48,6 +49,7 @@ from . import build
 from .megakernel import _check
 
 LAUNCHES = {"clustered_closest": 0, "clustered_any": 0}
+RAYS = {"clustered_closest": 0, "clustered_any": 0}
 
 # Triangles per cluster and clusters per super; children per tree node,
 # the depth of the kernel's traversal stack and the lanes that walk one
@@ -476,6 +478,7 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
                 stream)
         build.check(err, name)
         LAUNCHES[name] += 1
+        RAYS[name] += R
     return t_out, slot, rows
 
 

@@ -835,6 +835,49 @@ def test_compiled_equals_eager_on_card(name):
 
 
 @pytest.mark.cuda
+def test_k6_rays_counted_per_launch_on_card():
+    """K6's ray counts (clustered.RAYS, by kind) on a compiled render of a
+    large scene with shadow rays: an eager call and each replay add, per
+    kind, the rays of every launch (R = W x H x spp, one closest-hit and
+    one any-hit launch a bounce and frame), and jit.COUNTS gets the
+    replays' rays alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    dev = torch.device("cuda")
+    cfg = P.RenderConfig(width=96, height=64, bounces=2, shadow_rays=True)
+    scene = P.bunny_scene(target_tris=4000, device=dev)
+    cam, accel = P.Camera.default(device=dev), P.build_accel(scene, cfg)
+    R, frames = cfg.width * cfg.height * cfg.spp, 2
+    call = lambda: P.render(scene, cam, cfg, frames=frames, accel=accel)
+    snap = lambda: (dict(pcl.LAUNCHES), dict(pcl.RAYS), dict(jit.COUNTS))
+
+    def since(before):
+        return ({k: pcl.LAUNCHES[k] - v for k, v in before[0].items()},
+                {k: pcl.RAYS[k] - v for k, v in before[1].items()},
+                {k: jit.COUNTS[k] - before[2][k] for k in ("clustered_closest_rays",
+                                                           "clustered_any_rays", "replays")})
+
+    launches = dict.fromkeys(pcl.LAUNCHES, cfg.bounces * frames)
+    rays = {k: n * R for k, n in launches.items()}
+    with torch.no_grad():
+        with jit.disable_jit():
+            before = snap()
+            call()
+            assert since(before) == (launches, rays, {"clustered_closest_rays": 0,
+                                                      "clustered_any_rays": 0, "replays": 0})
+        call()                  # the key's warm-up (eager) and capture
+        before = snap()
+        for _ in range(3):
+            call()
+        assert since(before) == ({k: 3 * n for k, n in launches.items()},
+                                 {k: 3 * n for k, n in rays.items()},
+                                 {"clustered_closest_rays": 3 * rays["clustered_closest"],
+                                  "clustered_any_rays": 3 * rays["clustered_any"],
+                                  "replays": 3})
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["step", "large scene frame"])
 def test_eager_path_makes_no_host_sync_on_card(name):
     """The eager mega step and a large-scene (K6) frame, after one warm-up

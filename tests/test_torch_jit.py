@@ -541,7 +541,53 @@ def test_counts_of_warmup_capture_and_replays(monkeypatch):
     assert got["warmup_s"] > 0 and got["capture_s"] > 0
     assert {k: v for k, v in got.items() if not k.endswith("_s")} == {
         "replays": 3, "copy_in_bytes": 3 * (x.nbytes + idx.nbytes), "copy_in_leaves": 6,
-        "warmups": 1, "captures": 1, "eager": 0}
+        "warmups": 1, "captures": 1, "eager": 0, "clustered_closest_rays": 0,
+        "clustered_any_rays": 0}
+
+
+def test_replays_add_the_captured_k6_rays(monkeypatch):
+    """The rays a capture hands K6 (``clustered.RAYS``, by kind) are added
+    by each replay, as its launches are, and into COUNTS as well; the
+    eager warm-up adds its own to ``RAYS`` alone, and the capture's are
+    undone. On the CPU the plain version counts no launch and no ray."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered
+
+    def launch(x, idx):
+        # What the wrappers count for a closest-hit launch of x's rays and
+        # an any-hit launch of idx's.
+        for kind, n in (("clustered_closest", x.shape[0]), ("clustered_any", idx.shape[0])):
+            clustered.LAUNCHES[kind] += 1
+            clustered.RAYS[kind] += n
+        return x + 1.0
+
+    def since(before):
+        return ({k: clustered.LAUNCHES[k] - v for k, v in before[0].items()},
+                {k: clustered.RAYS[k] - v for k, v in before[1].items()},
+                {k: v for k, v in _deltas(before[2]).items() if k.endswith("_rays")})
+
+    snap = lambda: (dict(clustered.LAUNCHES), dict(clustered.RAYS), dict(pjit.COUNTS))
+    x, idx = torch.arange(5.0), torch.arange(3)
+    _as_if_on_cuda(monkeypatch, "gloo")
+    prog = pjit.jit(launch)
+    before = snap()
+    prog(x, idx)
+    assert since(before) == ({"clustered_closest": 1, "clustered_any": 1},
+                             {"clustered_closest": 5, "clustered_any": 3},
+                             {"clustered_closest_rays": 0, "clustered_any_rays": 0})
+    before = snap()
+    for _ in range(3):
+        prog(x, idx)
+    assert since(before) == ({"clustered_closest": 3, "clustered_any": 3},
+                             {"clustered_closest": 15, "clustered_any": 9},
+                             {"clustered_closest_rays": 15, "clustered_any_rays": 9})
+    monkeypatch.undo()
+    scene = P.bunny_scene(target_tris=4000, device=CPU)
+    cfg = P.RenderConfig(width=8, height=8, bounces=1, shadow_rays=True)
+    before = snap()
+    P.render(scene, P.Camera.default(device=CPU), cfg, accel=P.build_accel(scene, cfg))
+    assert since(before) == (dict.fromkeys(clustered.LAUNCHES, 0),
+                             dict.fromkeys(clustered.RAYS, 0),
+                             {"clustered_closest_rays": 0, "clustered_any_rays": 0})
 
 
 def test_counts_survive_clear(monkeypatch):

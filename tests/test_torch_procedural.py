@@ -7,6 +7,8 @@ sources built with the same flags) gives the same SAH order.
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ import mini_opencl_raytracer_tpu_torch as P
 from mini_opencl_raytracer_tpu_torch import native as pnative
 from mini_opencl_raytracer_tpu_torch.convert import scene_to_numpy
 from mini_opencl_raytracer_tpu_torch.ops import bvh as pbvh
+from portbench.reference import scenes as bench_scenes
 
 torch.set_num_threads(1)
 
@@ -34,7 +37,10 @@ def _arrays(jscene):
 
 
 def _assert_same_scene(js, ps):
-    ref, got = _arrays(js), scene_to_numpy(ps)
+    _assert_same_arrays(_arrays(js), scene_to_numpy(ps))
+
+
+def _assert_same_arrays(ref, got):
     assert got.keys() == ref.keys()
     for k in ref:
         assert got[k].dtype == ref[k].dtype, k
@@ -53,6 +59,17 @@ def test_sponza_scene_bit_identical():
     ps = P.sponza_scene(target_tris=12_000, n_objects=5, device="cpu")
     assert ps.num_triangles == js.num_triangles
     _assert_same_scene(js, ps)
+
+
+def test_sponza_configuration_is_the_program_scene():
+    """The benchmark's frozen configuration sponza-4k-b1 (its scene block
+    through the benchmark's own generator) is the program's sponza_scene
+    at full size, bit for bit: every geometry leaf, the materials and the
+    light."""
+    path = Path(__file__).resolve().parents[1] / "portbench" / "configs" / "sponza-4k-b1.json"
+    ref = bench_scenes.make_scene(json.loads(path.read_text())["scene"])
+    assert ref["geometry.v0"].shape[0] == 259_620
+    _assert_same_arrays(ref, scene_to_numpy(P.sponza_scene(device="cpu")))
 
 
 def test_full_size_scene_counts():
