@@ -206,6 +206,21 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    bound; ``material_rows.LAUNCHES`` of one eager bunny config 3 step, one
    Cornell 1080p x 9 step and three replays of the compiled bunny step,
    each counted from 0: one launch a step.
+19. the wavefront's fused shading (``csrc/shade.cu``: ``hit_attributes``
+   and ``shade_hit`` of one bounce in one kernel where no gradient is
+   taken): every output bitwise equal to ``hit_attributes`` +
+   ``shade_hit`` on the same closest hit (``parity.check_shade``) on
+   ``parity.SHADE_CASES``: the bunny at 512x512 (config 3's shape) at
+   bounce 0 and at a sorted, parked bounce 1 with a radiance carry,
+   sponza at 384x216 (rows from K6), Cornell on K5 and on the LBVH walk
+   (rows from the table), GGX, soft edges, direct specular, backface
+   culling and 30 lights of the three types; then its device time by
+   events over 20 launches against its bound (bytes a ray: o, d, beta,
+   radiance in and out, alive, hit, seed, the winner's 136-byte row) and
+   the plain version's (3 calls), at config 3's bounce 0 and sorted
+   bounce 1 and at sponza 3840x2160's bounce 0 (8.29 M rays); and its
+   launches and rays in three replays of the compiled config 3 render
+   (one a bounce and frame, ``shade.RAYS`` all fused).
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -231,14 +246,15 @@ import time
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
 KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
-           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd")
+           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd", "shade")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_fwd_resid": _CSRC + "megakernel.cu",
            "bounce_bwd_resid": _CSRC + "megakernel_bwd.cu",
            "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
-           "bvh_walk": _CSRC + "bvh.cu", "material_rows_bwd": _CSRC + "material_rows.cu"}
+           "bvh_walk": _CSRC + "bvh.cu", "material_rows_bwd": _CSRC + "material_rows.cu",
+           "shade": _CSRC + "shade.cu"}
 # The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
 # a jnp while_loop.
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
@@ -251,7 +267,10 @@ REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "me
             "bvh_walk": "mini_opencl_raytracer_tpu/ops/bvh.py:173 _intersect_one",
             # Nor the material gather's backward: the VJP of jnp.take (a
             # scatter-add) in the JAX package's build_shading_table.
-            "material_rows_bwd": "mini_opencl_raytracer_tpu/ops/shading.py:111 jnp.take's VJP"}
+            "material_rows_bwd": "mini_opencl_raytracer_tpu/ops/shading.py:111 jnp.take's VJP",
+            # Nor the wavefront's shading: hit_attributes and the shading of
+            # make_bounce_core's bounce_step, which XLA fuses.
+            "shade": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's shading"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -2162,6 +2181,92 @@ def phase18(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, cfg3,
     return row
 
 
+def shade_time(torch, parity, shade, card: str, label: str, scene, cfg, closest, carry,
+               bounce: int) -> dict:
+    """The fused shading of one bounce of ``carry`` bitwise against the plain
+    version, then its time by events over 20 launches, the plain
+    version's over 3, and its bound: per ray d, beta and the radiance in,
+    alive, hit and the seed, the four [R, 3] outputs and alive (o once
+    where it is the camera's broadcast origin), and the 136-byte row of
+    each ray alive with a winner."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda.megakernel import pack_lights
+    from mini_opencl_raytracer_tpu_torch.ops.shading import build_shading_table
+    o, d, beta, rad, alive, seeds = carry
+    with torch.no_grad():
+        hit = closest(o, d)
+        st = build_shading_table(scene.geometry, scene.materials)
+        lv = pack_lights(scene.lights)
+        args = (hit, st.table, o, d, beta, rad, alive, seeds, bounce, lv, cfg)
+        parity.check_shade(f"[19 shade] {label}", shade.shade_rows(*args),
+                           shade.shade_plain(*args))
+        ms = time_ms(lambda: shade.shade_rows(*args), 20)
+        plain_ms = time_ms(lambda: shade.shade_plain(*args), 3)
+    R, need = alive.shape[0], int((alive & hit.hit).sum().item())
+    b = bound(R * (12 * 3 + 2 + 8 + 49) + (12 if o.stride(0) == 0 else 12 * R) + need * 136, 0)
+    log(f"[19 shade] {label}: {R} rays, {int(alive.sum().item())} alive, {need} with a winner, "
+        f"rows from {'K6' if hit.rows is not None else 'the table'}; bitwise; kernel {ms:.4f} "
+        f"ms (events, 20 launches), plain {plain_ms:.3f} ms (3); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), {b['bound_ms'] / ms:.1%} of the kernel ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b}
+
+
+def phase19(mrt, torch, parity, dev, card: str, cam) -> dict:
+    """19. The wavefront's fused shading (module docstring, phase 19).
+    Returns the kernel's summary row: time at sponza 4K's bounce 0,
+    launches of a compiled config 3 render's replay."""
+    from mini_opencl_raytracer_tpu_torch.ops import rng
+    from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
+    t_phase = time.perf_counter()
+    for name in parity.SHADE_CASES:
+        scene, cfg, closest, carry, b = parity.shade_case(name, dev)
+        fused, plain, hit = parity.shade_pair(scene, cfg, closest, carry, b)
+        parity.check_shade(f"[19 shade] {name}", fused, plain)
+        alive = carry[4]
+        log(f"[19 shade] {name}: every output bitwise hit_attributes + shade_hit; "
+            f"{alive.shape[0]} rays, {alive.float().mean().item():.4f} alive, "
+            f"{(alive & hit.hit).float().mean().item():.4f} alive with a winner, "
+            f"{fused[4].float().mean().item():.4f} go on")
+        if name.startswith("bunny"):
+            shade_time(torch, parity, shade, card, name, scene, cfg, closest, carry, b)
+    sponza = mrt.sponza_scene(device=dev)
+    cfg5 = mrt.RenderConfig(width=3840, height=2160, bounces=1)
+    closest, _ = mrt.make_intersectors(sponza, cfg5, accel=mrt.build_accel(sponza, cfg5))
+    pid = _swizzled_ids(cfg5, dev)
+    seeds = rng.pixel_seeds(pid, 5)
+    o, d = generate_rays(cam, cfg5, pid, seeds)
+    R = pid.shape[0]
+    carry = (o, d, torch.ones((R, 3), device=dev), torch.zeros((R, 3), device=dev),
+             torch.ones((R,), dtype=torch.bool, device=dev), seeds)
+    row = shade_time(torch, parity, shade, card, "sponza 3840x2160 bounce 0", sponza, cfg5,
+                     closest, carry, 0)
+    del carry, o, d, seeds
+
+    # One launch a bounce and frame in a compiled config 3 render's replays.
+    bunny = mrt.bunny_scene(device=dev)
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    acc3 = mrt.build_accel(bunny, cfg3)
+    with torch.no_grad():
+        mrt.render(bunny, cam, cfg3, frames=4, accel=acc3)
+        torch.cuda.synchronize()
+        reset_counts(shade.LAUNCHES, shade.RAYS)
+        for _ in range(3):
+            mrt.render(bunny, cam, cfg3, frames=4, accel=acc3)
+        torch.cuda.synchronize()
+    want = 3 * 4 * cfg3.bounces
+    if shade.LAUNCHES != {"shade": want} or shade.RAYS != {
+            "shade_fused": want * cfg3.num_pixels, "shade_plain": 0}:
+        raise AssertionError(f"[19 shade] 3 replays of the config 3 render: launches "
+                             f"{shade.LAUNCHES}, rays {shade.RAYS}; expected {want} launches, "
+                             "every ray fused")
+    log(f"[19 shade] 3 replays of the compiled config 3 render (4 frames): launches "
+        f"{dict(shade.LAUNCHES)}, rays {dict(shade.RAYS)}")
+    row["launches"] = want // 3
+    log(f"[19 shade] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2990,6 +3095,13 @@ def main() -> int:
     times["material_rows_bwd"] = (r["ms"], r["plain_ms"])
     bounds["material_rows_bwd"] = r["bound"]
     library = {"material_rows_bwd": r["library_ms"]}
+
+    # 19. The wavefront's fused shading.
+    r = phase19(mrt, torch, parity, dev, card, cam)
+    launches["shade"] = r["launches"]
+    max_err["shade"] = 0.0
+    times["shade"] = (r["ms"], r["plain_ms"])
+    bounds["shade"] = r["bound"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

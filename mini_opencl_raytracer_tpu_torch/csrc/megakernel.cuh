@@ -112,7 +112,7 @@ __device__ __forceinline__ float dmin(float x, float c) {
 // li * per_light: its distance and, with direct specular, the half
 // vector's inverse length, the Blinn-Phong power and the log of its base.
 // The kernels write and read only the rows K4 replays from
-// (megakernel.cu:shade, kResid): the inverse lengths stay unwritten,
+// (shade.cuh:shade, kResid): the inverse lengths stay unwritten,
 // and a light's rows are written for the rays whose path goes on.
 struct Rows {
   int cov, pick, d_cp, d_sp, d_ct, spec, light, per_light, n;

@@ -94,7 +94,7 @@
 //
 // The residual variant (kResid). K2 with F_RESID stores, per ray with a
 // winner, the values of its shading's transcendentals and of what the RNG
-// draws alone decide (megakernel.cu:shade, ops/known.py). K4 then
+// draws alone decide (shade.cuh:shade, ops/known.py). K4 then
 // reads, instead of computing: the lobe pick, the diffuse and specular
 // draws' terms with their cos / sin / sqrt / exp / log (sample_brdf), the
 // roughness sqrt, the winner's 1 / det, the soft-edge sigmoid, each

@@ -71,8 +71,10 @@ captured. With no profiler recording a span is one shared no-op context.
 ``warmup_s`` and ``captures`` / ``capture_s`` (host seconds, the device
 synchronised on both sides of each, on a key's first call only), and
 ``eager``, the calls that ran without a graph (on the CPU, or on CUDA
-over a gloo group); and ``clustered_closest_rays`` / ``clustered_any_rays``,
-the rays handed to K6 (``clustered.RAYS``) that a key's capture counted,
+over a gloo group); ``clustered_closest_rays`` / ``clustered_any_rays``,
+the rays handed to K6 (``clustered.RAYS``), and ``shade_fused_rays`` /
+``shade_plain_rays``, the rays the wavefront shaded in its fused kernel
+and in PyTorch (``ops/cuda/shade.RAYS``), that a key's capture counted,
 added per replay: over ``replays``, a steady call's rays, which no eager
 call dilutes. The benchmark (``portbench/metrics/jit_*``,
 ``k6_ns_per_ray.render``) reads the spans from its trace and ``COUNTS``
@@ -96,13 +98,13 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .models.scene import Lights
 from .ops import lights as lights_mod
-from .ops.cuda import bvh, clustered, material_rows, megakernel, panel
+from .ops.cuda import bvh, clustered, material_rows, megakernel, panel, shade
 from .parallel import comm
 
 _COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, clustered.RAYS,
-           bvh.LAUNCHES, material_rows.LAUNCHES, comm.BYTES)
-# Where clustered.RAYS sits in _COUNTS: a replay adds its part to COUNTS too.
-_RAYS_AT = next(i for i, c in enumerate(_COUNTS) if c is clustered.RAYS)
+           bvh.LAUNCHES, material_rows.LAUNCHES, shade.LAUNCHES, shade.RAYS, comm.BYTES)
+# Where the ray counts sit in _COUNTS: a replay adds their part to COUNTS too.
+_RAYS_AT = [i for i, c in enumerate(_COUNTS) if c is clustered.RAYS or c is shade.RAYS]
 _LEAF = "tensor"
 _CONST = "const"
 # (function, staged groups) already announced by Compiled._announce.
@@ -112,7 +114,7 @@ _disabled = False
 # Work of the compiled calls, always counted (see the module note).
 COUNTS = {"replays": 0, "copy_in_bytes": 0, "copy_in_leaves": 0, "warmups": 0,
           "warmup_s": 0.0, "captures": 0, "capture_s": 0.0, "eager": 0,
-          **{k + "_rays": 0 for k in clustered.RAYS}}
+          **{k + "_rays": 0 for k in (*clustered.RAYS, *shade.RAYS)}}
 # The lightest host range of the profiler's trace that this torch has.
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
 _OFF = contextlib.nullcontext()
@@ -136,45 +138,47 @@ def flatten(tree) -> Tuple[List[torch.Tensor], Any]:
     (named ones too), lists and dicts are nodes; any other value is a
     constant of the structure and must be hashable."""
     leaves: List[torch.Tensor] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return _LEAF
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return (type(x), names, tuple(walk(getattr(x, n)) for n in names))
-        if isinstance(x, (tuple, list)):
-            return (type(x), None, tuple(walk(v) for v in x))
-        if isinstance(x, dict):
-            names = tuple(x)
-            return (dict, names, tuple(walk(x[n]) for n in names))
-        hash(x)   # a static value must be hashable to key a graph
-        return (_CONST, type(x), x)
 
-    return leaves, walk(tree)
+def _walk(x, leaves: List[torch.Tensor]):
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return _LEAF
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return (type(x), names, tuple(_walk(getattr(x, n), leaves) for n in names))
+    if isinstance(x, (tuple, list)):
+        return (type(x), None, tuple(_walk(v, leaves) for v in x))
+    if isinstance(x, dict):
+        names = tuple(x)
+        return (dict, names, tuple(_walk(x[n], leaves) for n in names))
+    hash(x)   # a static value must be hashable to key a graph
+    return (_CONST, type(x), x)
 
 
 def unflatten(treedef, leaves) -> Any:
-    """Inverse of ``flatten``: the structure with ``leaves`` in order."""
-    it = iter(leaves)
+    """Inverse of ``flatten``: the structure with ``leaves`` in order.
+    Module-level recursion, not a closure that calls itself: such a closure
+    is a reference cycle that would keep ``leaves`` (a replay's output
+    clones) alive until the garbage collector runs."""
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d == _LEAF:
-            return next(it)
-        if d[0] == _CONST:
-            return d[2]
-        cls, names, kids = d
-        vals = [build(k) for k in kids]
-        if cls is dict:
-            return dict(zip(names, vals))
-        if dataclasses.is_dataclass(cls):
-            return cls(**dict(zip(names, vals)))
-        if hasattr(cls, "_fields"):
-            return cls(*vals)
-        return cls(vals)
 
-    return build(treedef)
+def _build(d, it):
+    if d == _LEAF:
+        return next(it)
+    if d[0] == _CONST:
+        return d[2]
+    cls, names, kids = d
+    vals = [_build(k, it) for k in kids]
+    if cls is dict:
+        return dict(zip(names, vals))
+    if dataclasses.is_dataclass(cls):
+        return cls(**dict(zip(names, vals)))
+    if hasattr(cls, "_fields"):
+        return cls(*vals)
+    return cls(vals)
 
 
 def _lights_in(tree) -> Iterator[Lights]:
@@ -244,8 +248,9 @@ class _Program:
             for counts, added in zip(_COUNTS, self.counts):
                 for k, v in added.items():
                     counts[k] += v
-            for k, v in self.counts[_RAYS_AT].items():
-                COUNTS[k + "_rays"] += v
+            for at in _RAYS_AT:
+                for k, v in self.counts[at].items():
+                    COUNTS[k + "_rays"] += v
             return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
 
 

@@ -62,6 +62,10 @@ _SIGNATURES = {
     # csrc/material_rows.cu: (T, M, rows, f64, cot, row stride, column
     #  stride, mat, part, d_packed, stream)
     "mrt_material_rows_bwd": ([_I] * 4 + [_P] + [ctypes.c_longlong] * 2 + [_P] * 4, _I),
+    # csrc/shade.cu: (params, rows, table, tri_idx, hit, alive, seeds, lights,
+    #  then o, d, beta, rad each with its row stride, o_out, d_out, beta_out,
+    #  rad_out, alive_out, stream)
+    "mrt_shade": ([_P] * 8 + [_P, ctypes.c_longlong] * 4 + [_P] * 6, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -81,7 +81,7 @@ LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0
 
 def rows_read(cfg: RenderConfig, num_lights: int) -> Dict[str, List[int]]:
     """The known-value rows (ops/known.layout) that K2 writes and K4 reads
-    (csrc/megakernel.cu:shade), by the rays they belong to: "all" for
+    (csrc/shade.cuh:shade), by the rays they belong to: "all" for
     every ray alive with a winner (1 / det, the coverage, the pick),
     "diffuse" / "specular" for those whose pick row is 0 / 1 (the picked
     lobe's draw terms), "lights" for those whose path goes on (alive after

@@ -703,3 +703,121 @@ def wavefront_rays(scene: Scene, cam: Camera, cfg, closest, any_hit) -> dict:
     return {"primary": (o, d.contiguous()), "bounce1": (o1, d1),
             "bounce1_sorted": (o1[perm].contiguous(), d1[perm].contiguous()),
             "shadow": shadow}
+
+
+# The fused shading (ops/cuda/shade.py, csrc/shade.cu) is held bitwise to
+# hit_attributes + shade_hit on the same closest hit (card tests, smoke
+# phase 19). Each case: (scene, RenderConfig fields, the bounce shaded,
+# whether its carry is coherence-sorted and parked as the sorted wavefront
+# does it). The bunny and sponza run K6 (rows from the intersector),
+# Cornell K5 (``pallas``) or the LBVH walk (``bvh``), without rows.
+SHADE_CASES = {
+    "bunny 512x512 bounce 0": ("bunny", dict(width=512, height=512, bounces=2), 0, False),
+    "bunny 512x512 bounce 1 sorted": ("bunny", dict(width=512, height=512, bounces=2), 1, True),
+    "sponza 384x216 bounce 0": ("sponza", dict(width=384, height=216, bounces=1), 0, False),
+    "cornell pallas": ("cornell", dict(width=256, height=144, backend="pallas"), 1, False),
+    "cornell bvh": ("cornell", dict(width=256, height=144, backend="bvh"), 1, False),
+    "ggx": ("cornell", dict(width=256, height=144, backend="pallas", specular_model="ggx"), 1,
+            False),
+    "soft edges": ("cornell", dict(width=256, height=144, backend="pallas",
+                                   soft_edge_sigma=0.05), 1, False),
+    "direct specular": ("cornell", dict(width=256, height=144, backend="pallas",
+                                        direct_specular=True), 1, False),
+    "backface cull": ("cornell", dict(width=256, height=144, backend="pallas",
+                                      backface_cull=True), 1, False),
+    "30 lights of three types": ("lights", dict(width=256, height=144, backend="pallas"), 1,
+                                 False),
+}
+SHADE_OUTPUTS = ("o", "d", "beta", "radiance", "alive")
+
+
+def _plain_bounce(scene: Scene, cfg, closest, carry, bounce: int):
+    """One bounce of the wavefront in PyTorch: the closest hit, then
+    hit_attributes and shade_hit."""
+    o, d, beta, radiance, alive, seeds = carry
+    hit = closest(o, d)
+    at = hit_attributes(o, d, hit, build_shading_table(scene.geometry, scene.materials),
+                        backface_cull=cfg.backface_cull, soft_sigma=cfg.soft_edge_sigma)
+    return integrator.shade_hit(at, hit.hit, o, d, beta, radiance, alive, seeds, bounce,
+                                scene.lights, cfg)[:5] + (seeds,)
+
+
+def shade_case(name: str, device, small: bool = False):
+    """(scene, cfg, closest, carry, bounce) of one of SHADE_CASES: the
+    carry that ``bounce`` shades in a render_sample of ``cfg`` at frame 5
+    (tile-ordered ids, the default camera; earlier bounces in PyTorch),
+    sorted and parked where the case says, and the scene's closest-hit
+    intersector (``render.make_intersectors`` on ``render.build_accel``).
+    ``small``: the scene and image cut down for the CPU."""
+    from ...config import RenderConfig
+    from ...models.procedural import bunny_scene, sponza_scene
+    from ...render import build_accel, make_intersectors
+    kind, kw, bounce, sort = SHADE_CASES[name]
+    if small:
+        kw = dict(kw, width=32, height=16)
+    cfg = RenderConfig(**kw)
+    dev = torch.device(device)
+    if kind == "bunny":
+        scene = bunny_scene(target_tris=4000 if small else 70_000, device=dev)
+    elif kind == "sponza":
+        scene = sponza_scene(target_tris=24_000 if small else 260_000, device=dev)
+    elif kind == "lights":
+        scene = many_light_scene(dev)
+    else:
+        scene = cornell_scene(device=dev)
+    closest, _ = make_intersectors(scene, cfg, accel=build_accel(scene, cfg))
+    pid = _swizzled_ids(cfg, dev)
+    seeds = rng.pixel_seeds(pid, 5)
+    o, d = generate_rays(Camera.default(device=dev), cfg, pid, seeds)
+    R = pid.shape[0]
+    carry = (o, d, torch.ones((R, 3), device=dev), torch.zeros((R, 3), device=dev),
+             torch.ones((R,), dtype=torch.bool, device=dev), seeds)
+    with torch.no_grad():
+        for b in range(bounce):
+            carry = _plain_bounce(scene, cfg, closest, carry, b)
+        if sort:
+            g = scene.geometry
+            pts = torch.cat([g.v0, g.v1, g.v2])
+            lo, hi = pts.amin(0), pts.amax(0)
+            park_d = torch.full((3,), 3.0 ** -0.5, device=dev)
+            carry = integrator.sort_carry(carry + (torch.arange(R, device=dev),), lo, hi,
+                                          integrator.park_point(lo, hi), park_d)[:6]
+    return scene, cfg, closest, carry, bounce
+
+
+def shade_pair(scene: Scene, cfg, closest, carry, bounce: int):
+    """(fused, plain, hit): the next (o, d, beta, radiance, alive) from
+    ``shade.shade_rows`` and from hit_attributes + shade_hit, on one
+    closest hit of the carry's rays."""
+    from . import shade
+    from .megakernel import pack_lights
+    o, d, beta, radiance, alive, seeds = carry
+    with torch.no_grad():
+        hit = closest(o, d)
+        st = build_shading_table(scene.geometry, scene.materials)
+        fused = shade.shade_rows(hit, st.table, o, d, beta, radiance, alive, seeds, bounce,
+                                 pack_lights(scene.lights), cfg)
+        at = hit_attributes(o, d, hit, st, backface_cull=cfg.backface_cull,
+                            soft_sigma=cfg.soft_edge_sigma)
+        plain = integrator.shade_hit(at, hit.hit, o, d, beta, radiance, alive, seeds, bounce,
+                                     scene.lights, cfg)[:5]
+    return fused, plain, hit
+
+
+def check_shade(label: str, fused, plain) -> None:
+    """The fused shading must equal hit_attributes + shade_hit: every
+    output the same bits (floats compared as int32 words, so a NaN or a
+    signed zero counts too). Raises naming each output that differs and
+    on how many entries."""
+    bad = []
+    for n, k, p in zip(SHADE_OUTPUTS, fused, plain):
+        if k.dtype != p.dtype or k.shape != p.shape:
+            bad.append(f"{n} is {k.dtype} {tuple(k.shape)}, not {p.dtype} {tuple(p.shape)}")
+            continue
+        kb, pb = ((x.contiguous().view(torch.int32) if x.is_floating_point() else x)
+                  for x in (k, p))
+        if not torch.equal(kb, pb):
+            bad.append(f"{n} on {int((kb != pb).sum().item())}")
+    if bad:
+        raise AssertionError(f"{label}: not bitwise hit_attributes + shade_hit: "
+                             f"{', '.join(bad)}")

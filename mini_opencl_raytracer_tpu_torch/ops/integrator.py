@@ -14,7 +14,11 @@ every ray advancing in lockstep under an ``alive`` mask:
 
 ``shade_hit`` is everything after the closest hit. It is shared by the
 wavefront integrator here and by the plain versions of the CUDA bounce
-kernels (ops/cuda/megakernel.py), so both run the same arithmetic.
+kernels (ops/cuda/megakernel.py), so both run the same arithmetic. Where
+``fused_shading`` holds (a CUDA device, float32, no shadow rays, no
+gradient taken), a bounce runs ``hit_attributes`` and ``shade_hit`` as one
+kernel instead (ops/cuda/shade.py, csrc/shade.cu), whose outputs are
+theirs bit for bit.
 
 Above SORT_RAYS_MIN_TRIS triangles (or as ``cfg.sort_rays`` says) the
 wavefront is coherence-sorted between bounces (``_trace_paths_sorted``)
@@ -34,6 +38,7 @@ holding every bounce's autograd graph.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
@@ -139,16 +144,34 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     return o_next, d_next, beta_new, radiance, lo, dl.occ_bits
 
 
+def fused_shading(cfg: RenderConfig, o: torch.Tensor, grad: bool) -> bool:
+    """Whether a bounce shades in one kernel (ops/cuda/shade.py): rays on a
+    CUDA device, float32, no shadow rays (the any-hit call sits inside the
+    light loop) and no gradient taken (``grad``, ``_grad_taken``)."""
+    return (o.is_cuda and cfg.torch_dtype() == torch.float32 and not cfg.shadow_rays
+            and not grad)
+
+
 def make_bounce_core(scene: Scene, cfg: RenderConfig,
                      intersect_fn: Callable[[torch.Tensor, torch.Tensor], Hit],
                      occluder_fn: Optional[Callable] = None):
     """The per-bounce transition: carry = (o, d, beta, radiance, alive,
     seeds), ``bounce`` = global bounce index. Returns the next carry."""
+    # Imported here: ops/cuda/shade imports this module.
+    from .cuda import megakernel, shade
     st = build_shading_table(scene.geometry, scene.materials)
+    scene_grad = _scene_grad(scene)
+    # The [L, 16] lights of the fused kernel, packed at its first bounce.
+    packed_lights = functools.cache(lambda: megakernel.pack_lights(scene.lights))
 
     def bounce_step(carry, bounce: int):
         o, d, beta, radiance, alive, seeds = carry
         hit = intersect_fn(o, d)
+        if fused_shading(cfg, o, _grad_taken(scene_grad, carry)):
+            return shade.shade_rows(hit, st.table, o, d, beta, radiance, alive, seeds,
+                                    bounce, packed_lights(), cfg) + (seeds,)
+        if o.is_cuda:
+            shade.RAYS["shade_plain"] += o.shape[0]
         at = hit_attributes(o, d, hit, st, backface_cull=cfg.backface_cull,
                             soft_sigma=cfg.soft_edge_sigma)
         o, d, beta, radiance, alive, _ = shade_hit(
@@ -168,6 +191,17 @@ def _tensor_leaves(obj):
             yield v
 
 
+def _scene_grad(scene: Scene) -> bool:
+    return any(t.requires_grad for t in _tensor_leaves(scene))
+
+
+def _grad_taken(scene_grad: bool, carry) -> bool:
+    """Whether a bounce takes a gradient: grad mode on, and a leaf of the
+    scene (``scene_grad``) or a tensor of the carry requires grad."""
+    return torch.is_grad_enabled() and (scene_grad or any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in carry))
+
+
 def _remat(scene: Scene, cfg: RenderConfig, fn):
     """``fn(carry, bounce)`` under a per-bounce checkpoint when
     ``cfg.remat`` and a gradient is being taken (grad mode on, and a leaf
@@ -180,11 +214,10 @@ def _remat(scene: Scene, cfg: RenderConfig, fn):
     of ``remat=False`` bit for bit."""
     if not cfg.remat:
         return fn
-    scene_grad = any(t.requires_grad for t in _tensor_leaves(scene))
+    scene_grad = _scene_grad(scene)
 
     def step(carry, bounce: int):
-        if torch.is_grad_enabled() and (scene_grad or any(
-                isinstance(x, torch.Tensor) and x.requires_grad for x in carry)):
+        if _grad_taken(scene_grad, carry):
             return checkpoint(fn, carry, bounce, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(carry, bounce)
@@ -287,6 +320,21 @@ def _result(radiance, stats, with_stats: bool, dtype):
                       else torch.zeros((0,), dtype=dtype, device=radiance.device))
 
 
+def sort_carry(carry, lo, hi, park_o, park_d):
+    """The sorted wavefront's step before a bounce: the carry (o, d, beta,
+    radiance, alive, seeds, ridx) permuted (a stable sort) by the coherence
+    key of its live rays in the scene box [lo, hi], dead lanes last, parked
+    at ``park_o`` along ``park_d``."""
+    o, d, alive = carry[0], carry[1], carry[4]
+    keys = _ray_sort_keys(o.detach(), d.detach(), lo, hi)
+    keys = torch.where(alive, keys, torch.full_like(keys, DEAD_KEY))
+    perm = torch.sort(keys, stable=True).indices
+    o, d, beta, radiance, alive, seeds, ridx = (x[perm] for x in carry)
+    am = alive[:, None]
+    return (torch.where(am, o, park_o), torch.where(am, d, park_d), beta, radiance, alive,
+            seeds, ridx)
+
+
 def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
                         seeds, intersect_fn, occluder_fn, with_stats: bool = False):
     """The wavefront with a permuted carry: bounce 0 runs in the caller's
@@ -309,16 +357,8 @@ def _trace_paths_sorted(scene: Scene, cfg: RenderConfig, origins, directions,
     core = make_bounce_core(scene, cfg, intersect_fn, occluder_fn)
 
     def sorted_step(carry, bounce: int):
-        o, d, beta, radiance, alive, seeds_, ridx = carry
-        keys = _ray_sort_keys(o.detach(), d.detach(), lo, hi)
-        keys = torch.where(alive, keys, torch.full_like(keys, DEAD_KEY))
-        perm = torch.sort(keys, stable=True).indices
-        o, d, beta, radiance, alive, seeds_, ridx = (
-            x[perm] for x in (o, d, beta, radiance, alive, seeds_, ridx))
-        am = alive[:, None]
-        o = torch.where(am, o, park_o)
-        d = torch.where(am, d, park_d)
-        return core((o, d, beta, radiance, alive, seeds_), bounce) + (ridx,)
+        carry = sort_carry(carry, lo, hi, park_o, park_d)
+        return core(carry[:6], bounce) + (carry[6],)
 
     # With remat the sort and the park run inside the checkpoint (as in the
     # JAX package), so a bounce keeps only its permuted carry.

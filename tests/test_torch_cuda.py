@@ -1,6 +1,6 @@
 """The CUDA kernels (the bounce kernels forward and backward, the panel
 and cluster-traversal intersectors, the LBVH walk, the material gather's
-backward) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
+backward, the wavefront's fused shading) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
 the parallel entry points included on an NCCL group of one process.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
@@ -1272,3 +1272,105 @@ def test_material_rows_backward_replays_bitwise_on_card(builder):
     assert pmr.LAUNCHES["material_rows_bwd"] - n0 == len(got)
     for g, e in zip(got, eager + eager[:1]):
         assert all(torch.equal(x, y) for x, y in zip(g, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(parity.SHADE_CASES))
+def test_fused_shading_bitwise_on_card(name):
+    """The wavefront's fused shading (csrc/shade.cu) against
+    hit_attributes + shade_hit on the same closest hit: every output
+    bitwise (parity.check_shade), one launch, on the cases of
+    parity.SHADE_CASES: the bunny at 512x512 at bounce 0 and at a sorted,
+    parked bounce 1 with a radiance carry, sponza at 384x216 (rows from
+    K6), Cornell on K5 and on the LBVH walk (no rows), each flag, 30
+    lights of the three types; and on Cornell the state with its rows 12
+    floats apart, as the pipeline stages hand it over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    scene, cfg, closest, carry, bounce = parity.shade_case(name, torch.device("cuda"))
+    n0 = shade.LAUNCHES["shade"]
+    fused, plain, hit = parity.shade_pair(scene, cfg, closest, carry, bounce)
+    torch.cuda.synchronize()
+    assert shade.LAUNCHES["shade"] == n0 + 1
+    assert (hit.rows is not None) == (parity.SHADE_CASES[name][0] in ("bunny", "sponza"))
+    parity.check_shade(name, fused, plain)
+    if name == "cornell pallas":  # the pipeline stages' state: rows 12 floats apart
+        packed = torch.cat(carry[:4], dim=1)
+        strided = tuple(packed[:, 3 * k:3 * k + 3] for k in range(4)) + carry[4:]
+        again, _, _ = parity.shade_pair(scene, cfg, closest, strided, bounce)
+        parity.check_shade(name + ", strided", again, fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["large scene", "pallas"])
+def test_fused_render_equals_plain_on_card(backend, monkeypatch):
+    """A render whose bounces shade in the kernel equals, bit for bit, the
+    render with every bounce shaded by hit_attributes + shade_hit (the
+    rule turned off), compiled and eager; a training step under grad
+    shades in PyTorch, the kernel not launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    dev = torch.device("cuda")
+    if backend == "pallas":
+        scene = P.cornell_scene(device=dev)
+        cfg = P.RenderConfig(width=256, height=144, bounces=4, backend="pallas",
+                             soft_edge_sigma=0.05, direct_specular=True)
+    else:
+        scene = P.bunny_scene(device=dev)
+        cfg = P.RenderConfig(width=256, height=256, bounces=3)
+    cam, accel = P.Camera.default(device=dev), P.build_accel(scene, cfg)
+    call = lambda: P.render(scene, cam, cfg, frames=2, accel=accel)
+    with torch.no_grad():
+        n0 = shade.LAUNCHES["shade"]
+        with jit.disable_jit():
+            eager = call()
+        compiled = [call() for _ in range(3)]
+        torch.cuda.synchronize()
+        # The eager call, the compiled warm-up and two replays.
+        assert shade.LAUNCHES["shade"] - n0 == 4 * 2 * cfg.bounces
+        monkeypatch.setattr(integrator, "fused_shading", lambda cfg, o, grad: False)
+        with jit.disable_jit():
+            plain = call()
+    for img in [eager] + compiled:
+        assert torch.equal(img, plain)
+    monkeypatch.undo()
+    n0, rays = shade.LAUNCHES["shade"], dict(shade.RAYS)
+    pgrad.loss_and_grads(scene, cam, dataclasses.replace(cfg, width=64, height=64),
+                         lambda im: im.mean(), accel=accel)
+    torch.cuda.synchronize()
+    assert shade.LAUNCHES["shade"] == n0 and shade.RAYS["shade_fused"] == rays["shade_fused"]
+    assert shade.RAYS["shade_plain"] > rays["shade_plain"]
+
+
+@pytest.mark.cuda
+def test_fused_shading_rays_counted_on_card():
+    """A replayed render adds R fused rays a bounce and frame to
+    jit.COUNTS["shade_fused_rays"] (and to shade.RAYS), none to
+    ``shade_plain_rays``; with shadow rays every bounce shades in PyTorch
+    and the count moves to ``shade_plain_rays``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    dev = torch.device("cuda")
+    scene = P.bunny_scene(target_tris=4000, device=dev)
+    cam, frames = P.Camera.default(device=dev), 2
+    for shadow_rays, kind in ((False, "shade_fused"), (True, "shade_plain")):
+        cfg = P.RenderConfig(width=96, height=64, bounces=2, shadow_rays=shadow_rays)
+        accel = P.build_accel(scene, cfg)
+        R = cfg.width * cfg.height * cfg.spp
+        call = lambda: P.render(scene, cam, cfg, frames=frames, accel=accel)
+        with torch.no_grad():
+            call()              # the key's warm-up (eager) and capture
+            before = dict(shade.RAYS), dict(jit.COUNTS)
+            for _ in range(3):
+                call()
+        rays = 3 * R * cfg.bounces * frames
+        assert {k: shade.RAYS[k] - v for k, v in before[0].items()} == (
+            dict.fromkeys(shade.RAYS, 0) | {kind: rays})
+        assert {k: jit.COUNTS[k] - before[1][k] for k in ("shade_fused_rays",
+                                                          "shade_plain_rays")} == (
+            {"shade_fused_rays": 0, "shade_plain_rays": 0} | {kind + "_rays": rays})

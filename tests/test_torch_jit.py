@@ -542,7 +542,12 @@ def test_counts_of_warmup_capture_and_replays(monkeypatch):
     assert {k: v for k, v in got.items() if not k.endswith("_s")} == {
         "replays": 3, "copy_in_bytes": 3 * (x.nbytes + idx.nbytes), "copy_in_leaves": 6,
         "warmups": 1, "captures": 1, "eager": 0, "clustered_closest_rays": 0,
-        "clustered_any_rays": 0}
+        "clustered_any_rays": 0, "shade_fused_rays": 0, "shade_plain_rays": 0}
+
+
+# The ray counts of COUNTS (K6's and the wavefront shading's).
+NO_RAYS = ("clustered_closest_rays", "clustered_any_rays", "shade_fused_rays",
+           "shade_plain_rays")
 
 
 def test_replays_add_the_captured_k6_rays(monkeypatch):
@@ -573,21 +578,88 @@ def test_replays_add_the_captured_k6_rays(monkeypatch):
     prog(x, idx)
     assert since(before) == ({"clustered_closest": 1, "clustered_any": 1},
                              {"clustered_closest": 5, "clustered_any": 3},
-                             {"clustered_closest_rays": 0, "clustered_any_rays": 0})
+                             dict.fromkeys(NO_RAYS, 0))
     before = snap()
     for _ in range(3):
         prog(x, idx)
     assert since(before) == ({"clustered_closest": 3, "clustered_any": 3},
                              {"clustered_closest": 15, "clustered_any": 9},
-                             {"clustered_closest_rays": 15, "clustered_any_rays": 9})
+                             dict.fromkeys(NO_RAYS, 0) | {"clustered_closest_rays": 15,
+                                                          "clustered_any_rays": 9})
     monkeypatch.undo()
     scene = P.bunny_scene(target_tris=4000, device=CPU)
     cfg = P.RenderConfig(width=8, height=8, bounces=1, shadow_rays=True)
     before = snap()
     P.render(scene, P.Camera.default(device=CPU), cfg, accel=P.build_accel(scene, cfg))
     assert since(before) == (dict.fromkeys(clustered.LAUNCHES, 0),
-                             dict.fromkeys(clustered.RAYS, 0),
-                             {"clustered_closest_rays": 0, "clustered_any_rays": 0})
+                             dict.fromkeys(clustered.RAYS, 0), dict.fromkeys(NO_RAYS, 0))
+
+
+def test_replays_add_the_captured_shade_rays(monkeypatch):
+    """The rays a capture shades in the wavefront's fused kernel and in
+    PyTorch (``shade.RAYS``) are added by each replay, as its launches are,
+    and into COUNTS as ``shade_fused_rays`` / ``shade_plain_rays``; the
+    eager warm-up adds its own to ``RAYS`` alone. On the CPU a render
+    shades in PyTorch and counts nothing."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+
+    def launch(x, idx):
+        # What a bounce counts: the kernel's launch over x's rays, and the
+        # plain path's idx rays.
+        shade.LAUNCHES["shade"] += 1
+        shade.RAYS["shade_fused"] += x.shape[0]
+        shade.RAYS["shade_plain"] += idx.shape[0]
+        return x + 1.0
+
+    def since(before):
+        return ({k: shade.LAUNCHES[k] - v for k, v in before[0].items()},
+                {k: shade.RAYS[k] - v for k, v in before[1].items()},
+                {k: v for k, v in _deltas(before[2]).items() if k.endswith("_rays")})
+
+    snap = lambda: (dict(shade.LAUNCHES), dict(shade.RAYS), dict(pjit.COUNTS))
+    x, idx = torch.arange(5.0), torch.arange(3)
+    _as_if_on_cuda(monkeypatch, "gloo")
+    prog = pjit.jit(launch)
+    before = snap()
+    prog(x, idx)
+    assert since(before) == ({"shade": 1}, {"shade_fused": 5, "shade_plain": 3},
+                             dict.fromkeys(NO_RAYS, 0))
+    before = snap()
+    for _ in range(3):
+        prog(x, idx)
+    assert since(before) == ({"shade": 3}, {"shade_fused": 15, "shade_plain": 9},
+                             dict.fromkeys(NO_RAYS, 0) | {"shade_fused_rays": 15,
+                                                          "shade_plain_rays": 9})
+    monkeypatch.undo()
+    scene = P.bunny_scene(target_tris=4000, device=CPU)
+    cfg = P.RenderConfig(width=8, height=8, bounces=2)
+    before = snap()
+    P.render(scene, P.Camera.default(device=CPU), cfg, accel=P.build_accel(scene, cfg))
+    assert since(before) == ({"shade": 0}, dict.fromkeys(shade.RAYS, 0),
+                             dict.fromkeys(NO_RAYS, 0))
+
+
+def test_replay_outputs_freed_without_the_collector(monkeypatch):
+    """A replay's outputs (clones) are freed as soon as the caller drops
+    them, with the garbage collector off: flatten and unflatten make no
+    reference cycle that would hold them until it runs (a window of calls
+    would otherwise hold dozens of images on the device)."""
+    import gc
+    import weakref
+    _as_if_on_cuda(monkeypatch, "gloo")
+    prog = pjit.jit(lambda x, idx: {"img": (x * 2.0, [idx + 1]), "n": 3})
+    x, idx = torch.arange(5.0), torch.arange(3)
+    prog(x, idx)
+    gc.disable()
+    try:
+        for _ in range(2):
+            out = prog(x, idx)
+            refs = [weakref.ref(out["img"][0]), weakref.ref(out["img"][1][0])]
+            assert torch.equal(out["img"][0], x * 2.0) and out["n"] == 3
+            del out
+            assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_counts_survive_clear(monkeypatch):
