@@ -203,7 +203,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    sum's own rounding, n 2^-24 of the sum of |cotangent| for n rows),
    bitwise equal to a second call; device time beside the plain version's
    and ``index_add_``'s (float atomics, run to run bits reported) and its
-   bound; ``material_rows.LAUNCHES`` of one eager bunny config 3 step, one
+   bound; ``build.LAUNCHES["material_rows_bwd"]`` of one eager bunny config 3 step, one
    Cornell 1080p x 9 step and three replays of the compiled bunny step,
    each counted from 0: one launch a step.
 19. the wavefront's fused shading (``csrc/shade.cu``: ``hit_attributes``
@@ -220,7 +220,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    the plain version's (3 calls), at config 3's bounce 0 and sorted
    bounce 1 and at sponza 3840x2160's bounce 0 (8.29 M rays); and its
    launches and rays in three replays of the compiled config 3 render
-   (one a bounce and frame, ``shade.RAYS`` all fused).
+   (one a bounce and frame, ``build.RAYS`` all fused).
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -574,18 +574,29 @@ def reset_counts(*tables) -> None:
             table[key] = 0
 
 
+# The mega path's launch names (ops/cuda/build.LAUNCHES).
+MEGA = ("bounce0_fwd", "bounce_fwd", "bounce_fwd_resid", "bounce0_bwd", "bounce_bwd",
+        "bounce_bwd_resid")
+
+
+def launch_counts(*names) -> dict:
+    """The launches counted under ``names`` (ops/cuda/build.LAUNCHES)."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    return {k: build.LAUNCHES[k] for k in names}
+
+
+def reset_kernel_counts() -> None:
+    """Zero every kernel's launch and ray counts (ops/cuda/build.py)."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    reset_counts(build.LAUNCHES, build.RAYS)
+
+
 def bound(nbytes: float, flops: float) -> dict:
     """The least time of the work on the card: the larger of its bytes
     over the memory rate and its operations over the f32 peak."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def wavefront_rays(mrt, torch, scene, cam, cfg, closest, any_hit):
-    """ops/cuda/parity.wavefront_rays (the signature the scripts call)."""
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
-    return parity.wavefront_rays(scene, cam, cfg, closest, any_hit)
 
 
 def hit_pairs(torch, tris, o, d, limit, cull: bool, live=None) -> int:
@@ -749,11 +760,12 @@ _CLI = "mini_opencl_raytracer_tpu_torch.cli"
 # kernel launch counts on stderr (they start at 0 in a new process).
 _CLI_RUNNER = f"""
 import json, runpy, sys
-from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered, megakernel, panel
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 try:
     runpy.run_module({_CLI!r}, run_name="__main__", alter_sys=True)
 finally:
-    counts = {{**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES}}
+    counts = {{k: v for k, v in build.LAUNCHES.items()
+              if k.startswith(("bounce", "panel", "clustered"))}}
     print("LAUNCHES " + json.dumps(counts), file=sys.stderr)
 """
 
@@ -1051,7 +1063,7 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> dict:
             b = mrt.build_bvh(sc.geometry)
             torch.cuda.synchronize()
             t_build = time.perf_counter() - t0
-            rays = wavefront_rays(mrt, torch, sc, cam, cfg_w, *ref_fns)
+            rays = parity.wavefront_rays(sc, cam, cfg_w, *ref_fns)
             full = lambda o: torch.full((o.shape[0],), cfg_w.t_max, device=dev)
             sets = {kind: rays[kind] + (full(rays[kind][0]),) for kind in ("primary", "bounce1")}
             o_e, d_e = parity.shared_edge_rays(sc.geometry)
@@ -1138,16 +1150,15 @@ def phase14(mrt, torch, parity, cl, dev, card: str, ms_phase5: float) -> dict:
 def kernel_counts() -> dict:
     """Launches of K1-K6 and the walk kernel since the last reset_all,
     nonzero entries only."""
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh, clustered, megakernel, panel
-    counts = {**megakernel.LAUNCHES, **panel.LAUNCHES, **clustered.LAUNCHES, **bvh.LAUNCHES}
-    return {k: v for k, v in counts.items() if v}
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    return {k: v for k, v in build.LAUNCHES.items()
+            if v and k not in ("material_rows_bwd", "shade")}
 
 
 def reset_all() -> None:
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh, clustered, megakernel, panel
     from mini_opencl_raytracer_tpu_torch.parallel import comm
-    reset_counts(megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, bvh.LAUNCHES,
-                 comm.BYTES)
+    reset_kernel_counts()
+    reset_counts(comm.BYTES)
 
 
 def timed_call(torch, label: str, fn, want: dict, reps: int = 1):
@@ -1914,11 +1925,11 @@ def phase17(mrt, torch, grad, parity, mk, rng, dev, card: str, cam, cornell, bun
     step_r()
     step_c()
     torch.cuda.synchronize()
-    reset_counts(mk.LAUNCHES)
+    reset_kernel_counts()
     res_r = step_r()
     torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
-    want = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=1, bounce_fwd_resid=8, bounce0_bwd=1,
+    launches = launch_counts(*MEGA)
+    want = dict(dict.fromkeys(MEGA, 0), bounce0_fwd=1, bounce_fwd_resid=8, bounce0_bwd=1,
                 bounce_bwd_resid=8)
     if launches != want:
         raise AssertionError(f"[17 resid] launches of a step {launches}, expected {want}")
@@ -2167,15 +2178,16 @@ def phase18(mrt, torch, grad, dev, card: str, cam, cornell, bunny, acc3, cfg3,
     for label, n, step in steps:
         step()
         torch.cuda.synchronize()
-        reset_counts(pmr.LAUNCHES)
+        reset_kernel_counts()
         step()
         torch.cuda.synchronize()
-        if pmr.LAUNCHES != {"material_rows_bwd": n}:
-            raise AssertionError(f"[18 material] {label}: launches {pmr.LAUNCHES}, "
+        counts = launch_counts("material_rows_bwd")
+        if counts != {"material_rows_bwd": n}:
+            raise AssertionError(f"[18 material] {label}: launches {counts}, "
                                  f"expected {n} material_rows_bwd")
-        log(f"[18 material] {label}: launches {dict(pmr.LAUNCHES)}")
+        log(f"[18 material] {label}: launches {counts}")
         if label.startswith("eager bunny"):
-            row["launches"] = pmr.LAUNCHES["material_rows_bwd"]
+            row["launches"] = counts["material_rows_bwd"]
     c_step.clear()
     log(f"[18 material] phase 18 in {time.perf_counter() - t_phase:.1f} s")
     return row
@@ -2216,7 +2228,7 @@ def phase19(mrt, torch, parity, dev, card: str, cam) -> dict:
     launches of a compiled config 3 render's replay."""
     from mini_opencl_raytracer_tpu_torch.ops import rng
     from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build, shade
     from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
     t_phase = time.perf_counter()
     for name in parity.SHADE_CASES:
@@ -2250,18 +2262,20 @@ def phase19(mrt, torch, parity, dev, card: str, cam) -> dict:
     with torch.no_grad():
         mrt.render(bunny, cam, cfg3, frames=4, accel=acc3)
         torch.cuda.synchronize()
-        reset_counts(shade.LAUNCHES, shade.RAYS)
+        reset_kernel_counts()
         for _ in range(3):
             mrt.render(bunny, cam, cfg3, frames=4, accel=acc3)
         torch.cuda.synchronize()
     want = 3 * 4 * cfg3.bounces
-    if shade.LAUNCHES != {"shade": want} or shade.RAYS != {
+    counts = launch_counts("shade")
+    rays = {k: build.RAYS[k] for k in ("shade_fused", "shade_plain")}
+    if counts != {"shade": want} or rays != {
             "shade_fused": want * cfg3.num_pixels, "shade_plain": 0}:
         raise AssertionError(f"[19 shade] 3 replays of the config 3 render: launches "
-                             f"{shade.LAUNCHES}, rays {shade.RAYS}; expected {want} launches, "
+                             f"{counts}, rays {rays}; expected {want} launches, "
                              "every ray fused")
     log(f"[19 shade] 3 replays of the compiled config 3 render (4 frames): launches "
-        f"{dict(shade.LAUNCHES)}, rays {dict(shade.RAYS)}")
+        f"{counts}, rays {rays}")
     row["launches"] = want // 3
     log(f"[19 shade] phase 19 in {time.perf_counter() - t_phase:.1f} s")
     return row
@@ -2493,18 +2507,17 @@ def main() -> int:
         # call replays.
         mrt.render(scene, cam, cfg, frames=frames)
         torch.cuda.synchronize()
-        for key in mk.LAUNCHES:
-            mk.LAUNCHES[key] = 0
+        reset_kernel_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         img = mrt.render(scene, cam, cfg, frames=frames)
         end.record()
         torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
+    launches = launch_counts(*MEGA)
     ms_frame = start.elapsed_time(end) / frames
     log(f"[5 forward] launches {launches}")
-    expect = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=frames,
+    expect = dict(dict.fromkeys(MEGA, 0), bounce0_fwd=frames,
                   bounce_fwd=frames * (cfg.bounces - 1))
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
@@ -2572,13 +2585,12 @@ def main() -> int:
     loss_fn = lambda im: im.mean()
     grad.loss_and_grads(scene, cam, cfg, loss_fn)  # warm-up
     torch.cuda.synchronize()
-    for key in mk.LAUNCHES:
-        mk.LAUNCHES[key] = 0
+    reset_kernel_counts()
     loss, g_scene, g_cam = grad.loss_and_grads(scene, cam, cfg, loss_fn)
     torch.cuda.synchronize()
-    per_step = dict(mk.LAUNCHES)
+    per_step = launch_counts(*MEGA)
     log(f"[6 train] launches per step {per_step}; loss {loss.item():.6f}")
-    expect = dict(dict.fromkeys(mk.LAUNCHES, 0), bounce0_fwd=1, bounce_fwd=8, bounce0_bwd=1,
+    expect = dict(dict.fromkeys(MEGA, 0), bounce0_fwd=1, bounce_fwd=8, bounce0_bwd=1,
                   bounce_bwd=8)
     if per_step != expect:
         raise AssertionError(f"launch counts per step {per_step}, expected {expect}")
@@ -2592,14 +2604,13 @@ def main() -> int:
         if not bool((g != 0).any()):
             raise AssertionError(f"gradient of {name} is zero")
     steps = 5
-    for key in mk.LAUNCHES:
-        mk.LAUNCHES[key] = 0
+    reset_kernel_counts()
     start.record()
     for _ in range(steps):
         grad.loss_and_grads(scene, cam, cfg, loss_fn)
     end.record()
     torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
+    launches = launch_counts(*MEGA)
     if launches != {k: v * steps for k, v in expect.items()}:
         raise AssertionError(f"launch counts over {steps} steps: {launches}")
     ms_step = start.elapsed_time(end) / steps
@@ -2727,7 +2738,7 @@ def main() -> int:
             f"({b_old['bound_by']}), {b_old['bound_ms'] / times[name][0]:.1%}")
     log(f"[5/6 count] bounce0_fwd M-T tests per ray at 1080p (main path): "
         f"{k1_mean[cases[0][0]]:.3f} of {T_main} triangles")
-    launches = {k: launches[k] for k in mk.LAUNCHES}
+    launches = {k: launches[k] for k in MEGA}
 
     # 8. K5 against its plain version: the 1080p Cornell wavefront's
     # primary, bounce-1 and shadow rays, then 512x512 with culling.
@@ -2737,8 +2748,8 @@ def main() -> int:
     for label, cfg8 in (("1920x1080", main_cfg),
                         ("512x512 backface_cull", mrt.RenderConfig(backface_cull=True))):
         cull = cfg8.backface_cull
-        rays_b = wavefront_rays(mrt, torch, cornell, cam, cfg8,
-                                *panel.make_intersectors(cornell.geometry, cfg8))
+        rays_b = parity.wavefront_rays(cornell, cam, cfg8,
+                                       *panel.make_intersectors(cornell.geometry, cfg8))
         log(f"[8 kernel] panel (K5), Cornell {label}")
         max_err["panel"] = max(max_err["panel"], check_intersector(
             "panel", torch, parity,
@@ -2782,9 +2793,9 @@ def main() -> int:
                          ("sponza SAH", sponza, accels["sponza"]),
                          ("bunny Morton", bunny,
                           cl.build_clusters(bunny.geometry, materials=bunny.materials))):
-        rays_c = wavefront_rays(mrt, torch, sc, cam, cfg3,
-                                *cl.make_intersectors(sc.geometry, cfg3, accel=cg,
-                                                      materials=sc.materials))
+        rays_c = parity.wavefront_rays(sc, cam, cfg3,
+                                       *cl.make_intersectors(sc.geometry, cfg3, accel=cg,
+                                                             materials=sc.materials))
         log(f"[9 kernel] clustered (K6), {name} ({sc.num_triangles} triangles, "
             f"{cg.num_slots} slots, {cg.num_supers} supers), 512x512")
         max_err["clustered"] = max(max_err["clustered"], check_intersector(
@@ -2861,9 +2872,9 @@ def main() -> int:
             mrt.render(cornell, cam, cfg_p, frames=frames)  # warm-up and capture
             mrt.render(cornell, cam, cfg_b, frames=frames)
             torch.cuda.synchronize()
-            reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+            reset_kernel_counts()
             ms_p = events_ms(lambda: mrt.render(cornell, cam, cfg_p, frames=frames), frames)
-            counts = dict(panel.LAUNCHES)
+            counts = launch_counts("panel_closest", "panel_any")
             ms_m = events_ms(lambda: mrt.render(cornell, cam, cfg_b, frames=frames), frames)
         L = cornell.lights.count
         expect = {"panel_closest": frames * 9,
@@ -2891,7 +2902,7 @@ def main() -> int:
         mrt.render(bunny, cam, dataclasses.replace(cfg3, sort_rays=False), frames=frames,
                    accel=acc3)
         torch.cuda.synchronize()
-        reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+        reset_kernel_counts()
         img3 = None
 
         def run3():
@@ -2899,7 +2910,7 @@ def main() -> int:
             img3 = mrt.render(bunny, cam, cfg3, frames=frames, accel=acc3)
 
         ms3 = events_ms(run3, frames)
-        path_a = dict(cl.LAUNCHES)
+        path_a = launch_counts("clustered_closest", "clustered_any")
         cfg3u = dataclasses.replace(cfg3, sort_rays=False)
         img3u = None
 
@@ -2952,15 +2963,16 @@ def main() -> int:
     torch.cuda.synchronize()
     steps_c = 3
     out_c = []
-    reset_counts(mk.LAUNCHES, panel.LAUNCHES, cl.LAUNCHES)
+    reset_kernel_counts()
     ms_c = events_ms(lambda: out_c.extend(
         grad.loss_and_grads(bunny, cam, cfg3, loss_fn, accel=acc3) for _ in range(steps_c)),
         steps_c)
     # With remat (the default) the backward recomputes each bounce, K6
     # included: twice the forward's launches.
     expect = {"clustered_closest": steps_c * cfg3.bounces * 2, "clustered_any": 0}
-    if cl.LAUNCHES != expect:
-        raise AssertionError(f"path C launches {cl.LAUNCHES}, expected {expect}")
+    path_c = launch_counts("clustered_closest", "clustered_any")
+    if path_c != expect:
+        raise AssertionError(f"path C launches {path_c}, expected {expect}")
     loss_c, gs_c, gc_c = out_c[-1]
     for name, g in list(grad._leaves(gs_c)) + [(f"camera.{k}", v)
                                                for k, v in grad._leaves(gc_c)]:
@@ -3013,11 +3025,11 @@ def main() -> int:
         if kind_r == "primary":
             times["panel"] = (k_ms, p_ms)
             bounds["panel"] = b5
-    big_rays = wavefront_rays(mrt, torch, sponza, cam,
-                              mrt.RenderConfig(width=3840, height=2160, bounces=1),
-                              *cl.make_intersectors(sponza.geometry, cfg3,
-                                                    accel=accels["sponza"],
-                                                    materials=sponza.materials))
+    big_rays = parity.wavefront_rays(sponza, cam,
+                                     mrt.RenderConfig(width=3840, height=2160, bounces=1),
+                                     *cl.make_intersectors(sponza.geometry, cfg3,
+                                                           accel=accels["sponza"],
+                                                           materials=sponza.materials))
     o1, d1 = rays_k6["bounce1"]
     shuffle = torch.randperm(o1.shape[0], generator=torch.Generator(device=dev).manual_seed(5),
                              device=dev)

@@ -24,7 +24,9 @@ build, lazy caches, CUDA module loading, the autograd engine). Then
 inputs, in a memory pool of its own. A later call copies its leaves'
 values into the static inputs, replays, and returns clones of the
 outputs, which the next replay cannot overwrite. A replay adds the
-kernel launches that the capture recorded to the wrappers' ``LAUNCHES``.
+kernel launches that the capture recorded to ``ops/cuda/build.LAUNCHES``,
+and the rays it handed them to ``build.RAYS``: the kernels' counters all
+live there, so a new kernel adds nothing here.
 
 What a graph freezes: every Python value ``fn`` computes with (an int
 frame becomes a constant) and the addresses of tensors it closes over,
@@ -71,12 +73,12 @@ captured. With no profiler recording a span is one shared no-op context.
 ``warmup_s`` and ``captures`` / ``capture_s`` (host seconds, the device
 synchronised on both sides of each, on a key's first call only), and
 ``eager``, the calls that ran without a graph (on the CPU, or on CUDA
-over a gloo group); ``clustered_closest_rays`` / ``clustered_any_rays``,
-the rays handed to K6 (``clustered.RAYS``), and ``shade_fused_rays`` /
-``shade_plain_rays``, the rays the wavefront shaded in its fused kernel
-and in PyTorch (``ops/cuda/shade.RAYS``), that a key's capture counted,
-added per replay: over ``replays``, a steady call's rays, which no eager
-call dilutes. The benchmark (``portbench/metrics/jit_*``,
+over a gloo group); and ``<name>_rays`` for each name of
+``build.RAYS`` (``clustered_closest_rays`` / ``clustered_any_rays``, the
+rays handed to K6; ``shade_fused_rays`` / ``shade_plain_rays``, the rays
+the wavefront shaded in its fused kernel and in PyTorch), the rays that
+a key's capture counted, added per replay: over ``replays``, a steady
+call's rays, which no eager call dilutes. The benchmark (``portbench/metrics/jit_*``,
 ``k6_ns_per_ray.render``) reads the spans from its trace and ``COUNTS``
 after its window.
 """
@@ -98,13 +100,11 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .models.scene import Lights
 from .ops import lights as lights_mod
-from .ops.cuda import bvh, clustered, material_rows, megakernel, panel, shade
+from .ops.cuda import build
 from .parallel import comm
 
-_COUNTS = (megakernel.LAUNCHES, panel.LAUNCHES, clustered.LAUNCHES, clustered.RAYS,
-           bvh.LAUNCHES, material_rows.LAUNCHES, shade.LAUNCHES, shade.RAYS, comm.BYTES)
-# Where the ray counts sit in _COUNTS: a replay adds their part to COUNTS too.
-_RAYS_AT = [i for i, c in enumerate(_COUNTS) if c is clustered.RAYS or c is shade.RAYS]
+# The counters whose captured counts a replay adds again.
+_COUNTERS = (build.LAUNCHES, build.RAYS, comm.BYTES)
 _LEAF = "tensor"
 _CONST = "const"
 # (function, staged groups) already announced by Compiled._announce.
@@ -114,7 +114,7 @@ _disabled = False
 # Work of the compiled calls, always counted (see the module note).
 COUNTS = {"replays": 0, "copy_in_bytes": 0, "copy_in_leaves": 0, "warmups": 0,
           "warmup_s": 0.0, "captures": 0, "capture_s": 0.0, "eager": 0,
-          **{k + "_rays": 0 for k in (*clustered.RAYS, *shade.RAYS)}}
+          **{k + "_rays": 0 for k in build.RAYS}}
 # The lightest host range of the profiler's trace that this torch has.
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
 _OFF = contextlib.nullcontext()
@@ -197,7 +197,7 @@ def _lights_in(tree) -> Iterator[Lights]:
 
 
 def _snapshot():
-    return [dict(c) for c in _COUNTS]
+    return [dict(c) for c in _COUNTERS]
 
 
 @contextlib.contextmanager
@@ -208,8 +208,8 @@ def _capture(graph, device: torch.device, mode: str):
 
 
 class _Program:
-    """One captured graph: its static inputs, outputs, and the launch and
-    byte counts that a replay adds."""
+    """One captured graph: its static inputs, outputs, and the counts that
+    a replay adds."""
 
     def __init__(self, compiled: "Compiled", static: dict, treedef, leaves, types,
                  device: torch.device, mode: str):
@@ -228,12 +228,19 @@ class _Program:
                                f"failed: {e}") from e
         finally:
             after = _snapshot()
-            for counts, b in zip(_COUNTS, before):
+            for counts, b in zip(_COUNTERS, before):
                 counts.update(b)
-        self.counts = [{k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
-                       for a, b in zip(after, before)]
+        # (counter, name, count) of what a replay adds, worked out once.
+        self.adds = [(COUNTS, "replays", 1),
+                     (COUNTS, "copy_in_bytes", sum(t.nbytes for t in self.inputs)),
+                     (COUNTS, "copy_in_leaves", len(self.inputs))]
+        for counts, a, b in zip(_COUNTERS, after, before):
+            self.adds += [(counts, k, a[k] - b[k]) for k in a if a[k] != b[k]]
+            if counts is build.RAYS:
+                self.adds += [(COUNTS, k + "_rays", a[k] - b[k]) for k in a if a[k] != b[k]]
+        for counts, k, _ in self.adds:
+            counts.setdefault(k, 0)
         self.out_leaves, self.out_def = flatten(out)
-        self.in_bytes = sum(t.nbytes for t in self.inputs)
 
     def replay(self, leaves):
         with _span("mrt.jit.copy_in"):
@@ -242,15 +249,8 @@ class _Program:
         with _span("mrt.jit.launch"):
             self.graph.replay()
         with _span("mrt.jit.outputs"):
-            COUNTS["replays"] += 1
-            COUNTS["copy_in_bytes"] += self.in_bytes
-            COUNTS["copy_in_leaves"] += len(self.inputs)
-            for counts, added in zip(_COUNTS, self.counts):
-                for k, v in added.items():
-                    counts[k] += v
-            for at in _RAYS_AT:
-                for k, v in self.counts[at].items():
-                    COUNTS[k + "_rays"] += v
+            for counts, k, v in self.adds:
+                counts[k] += v
             return unflatten(self.out_def, [t.clone() for t in self.out_leaves])
 
 

@@ -7,10 +7,21 @@ build takes seconds, not minutes), written to
 hash of the sources and flags, so a stale library is never loaded. The
 build runs at first use, never at import: importing this module needs
 neither CUDA nor ``nvcc``.
+
+It is also the one seam between the kernel wrappers (``ops/cuda/*.py``)
+and the library: ``launch`` calls an entry point on the current stream,
+checks its error and counts it; ``check_tensor`` and ``refuse_grad`` check
+a wrapper's inputs. ``LAUNCHES`` counts the launches by name and ``RAYS``
+the rays each kind of launch was handed (each launch's R, from its shapes
+on the host; ``shade_plain`` counts the rays the integrator shades in
+PyTorch on a CUDA device instead). A compiled program's replays add what
+its capture counted to both (jit.py), and ``RAYS`` also to ``jit.COUNTS``
+as ``<name>_rays``. Plain runs on the CPU count nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +29,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from ...utils.cache import KERNEL_DIR as BUILD_DIR
 
@@ -68,6 +81,20 @@ _SIGNATURES = {
     "mrt_shade": ([_P] * 8 + [_P, ctypes.c_longlong] * 4 + [_P] * 6, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
+
+# The launches by name, and the entry point each calls; a residual variant
+# of a mega kernel counts apart from the kernel.
+_ENTRIES = {
+    "bounce0_fwd": "mrt_bounce0_fwd", "bounce_fwd": "mrt_bounce_fwd",
+    "bounce_fwd_resid": "mrt_bounce_fwd", "bounce0_bwd": "mrt_bounce0_bwd",
+    "bounce_bwd": "mrt_bounce_bwd", "bounce_bwd_resid": "mrt_bounce_bwd",
+    "panel_closest": "mrt_panel", "panel_any": "mrt_panel",
+    "clustered_closest": "mrt_clustered", "clustered_any": "mrt_clustered",
+    "bvh_walk": "mrt_bvh_walk", "material_rows_bwd": "mrt_material_rows_bwd",
+    "shade": "mrt_shade",
+}
+LAUNCHES = dict.fromkeys(_ENTRIES, 0)
+RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain"), 0)
 
 _LIB: Optional[ctypes.CDLL] = None
 LAST_BUILD_LOG = ""
@@ -151,3 +178,51 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().mrt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@contextlib.contextmanager
+def _on(device):
+    """The device guard of ``device`` and its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device, args: Callable[[int], Sequence],
+           rays: Optional[Tuple[str, int]] = None) -> None:
+    """Launch ``name`` (a key of ``LAUNCHES``) on ``device``'s current
+    stream: ``args(stream)`` gives its entry point's arguments before the
+    stream, a tensor among them passing its data pointer and None a null
+    one. Raises with ``name`` if the entry point returns an error; else
+    counts the launch, and ``rays`` (a key of ``RAYS``, a count)."""
+    entry = getattr(library(), _ENTRIES[name])
+    with _on(device) as stream:
+        err = entry(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args(stream)], stream)
+    check(err, name)
+    LAUNCHES[name] += 1
+    if rays is not None:
+        RAYS[rays[0]] += rays[1]
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (TypeError for the dtype, ValueError otherwise)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(tensors: Dict[str, Optional[torch.Tensor]],
+                why: str = "intersection is not differentiable; detach the inputs") -> None:
+    """A wrapper is not differentiable: raise ValueError, ``why`` after the
+    name, if grad mode is on and one of ``tensors`` requires grad."""
+    if torch.is_grad_enabled():
+        for name, t in tensors.items():
+            if t is not None and t.requires_grad:
+                raise ValueError(f"{name} requires grad: {why}")

@@ -6,7 +6,7 @@ JAX package's LBVH walk (``ops/bvh.py:_intersect_one``, a vmapped
 of a Pallas kernel. Its plain version is ``ops/bvh.walk_plain``, the
 host loop over the live rays. ``walk`` runs the plain version for tensors
 on the CPU and launches the kernel for tensors on a CUDA device; there is
-no fallback between the two. ``LAUNCHES`` counts kernel launches.
+no fallback between the two. ``build.LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -14,8 +14,6 @@ from __future__ import annotations
 import torch
 
 from . import build
-
-LAUNCHES = {"bvh_walk": 0}
 
 # Stack entries of a ray in the kernel (csrc/bvh.cu kMaxStack); a walk
 # needs the tree's depth + 2.
@@ -36,27 +34,16 @@ def walk(o, d, t_init, bvh, backface_cull: bool = False):
         raise ValueError(f"a tree of depth {bvh.depth} outgrows the kernel's stack of "
                          f"{MAX_STACK} entries")
     R, N, S = o.shape[0], bvh.num_nodes, bvh.num_leaves * bvh.leaf_size
-    for n, t, shape in (("o", o, (R, 3)), ("d", d, (R, 3)), ("t_init", t_init, (R,)),
-                        ("node_lo", bvh.node_lo, (N, 3)), ("node_hi", bvh.node_hi, (N, 3)),
-                        ("pv0", bvh.pv0, (S, 3)), ("pv1", bvh.pv1, (S, 3)),
-                        ("pv2", bvh.pv2, (S, 3))):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{n} requires grad: intersection is not differentiable; "
-                             "detach the inputs")
-        if (t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"bvh_walk: {n} is {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected contiguous float32 {shape} on {device}")
+    named = {"o": o, "d": d, "t_init": t_init, "node_lo": bvh.node_lo,
+             "node_hi": bvh.node_hi, "pv0": bvh.pv0, "pv1": bvh.pv1, "pv2": bvh.pv2}
+    build.refuse_grad(named)
+    for n, shape in (("o", (R, 3)), ("d", (R, 3)), ("t_init", (R,)), ("node_lo", (N, 3)),
+                     ("node_hi", (N, 3)), ("pv0", (S, 3)), ("pv1", (S, 3)), ("pv2", (S, 3))):
+        build.check_tensor(named[n], n, torch.float32, shape, device)
     t_out = torch.empty((R,), dtype=torch.float32, device=device)
     slot = torch.empty((R,), dtype=torch.int64, device=device)
     if R:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = build.library().mrt_bvh_walk(
-                R, bvh.num_leaves, bvh.leaf_size, int(backface_cull),
-                bvh.node_lo.data_ptr(), bvh.node_hi.data_ptr(), bvh.pv0.data_ptr(),
-                bvh.pv1.data_ptr(), bvh.pv2.data_ptr(), o.data_ptr(), d.data_ptr(),
-                t_init.data_ptr(), t_out.data_ptr(), slot.data_ptr(), stream)
-        build.check(err, "bvh_walk")
-        LAUNCHES["bvh_walk"] += 1
+        build.launch("bvh_walk", device, lambda _: (
+            R, bvh.num_leaves, bvh.leaf_size, int(backface_cull), bvh.node_lo, bvh.node_hi,
+            bvh.pv0, bvh.pv1, bvh.pv2, o, d, t_init, t_out, slot))
     return t_out, slot

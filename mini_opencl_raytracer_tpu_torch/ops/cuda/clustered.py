@@ -19,9 +19,9 @@ package's ``ops/pallas/clustered.py:_clustered_kernel``.
 ``ops/cuda/clustered_walk.py`` a model of its traversal order. The
 wrappers ``clustered_closest`` and ``clustered_any`` run the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA
-device; there is no fallback between the two. ``LAUNCHES`` counts kernel
-launches and ``RAYS`` the rays handed to them (each launch's R, read from
-its shapes on the host).
+device; there is no fallback between the two. ``build.LAUNCHES`` counts
+kernel launches and ``build.RAYS`` the rays handed to them (each launch's
+R, read from its shapes on the host).
 
 Tie rule (kernel and plain version): among equal t the lowest original
 triangle id wins, so the result does not depend on the order in which the
@@ -46,10 +46,7 @@ from ..bvh import morton3d
 from ..intersect import Hit, ray_triangle_edges
 from ..shading import ShadingTable, build_shading_table, pack_materials
 from . import build
-from .megakernel import _check
-
-LAUNCHES = {"clustered_closest": 0, "clustered_any": 0}
-RAYS = {"clustered_closest": 0, "clustered_any": 0}
+from .build import check_tensor
 
 # Triangles per cluster and clusters per super; children per tree node,
 # the depth of the kernel's traversal stack and the lanes that walk one
@@ -65,7 +62,8 @@ _TRI_COLS = 9
 _AABB_COLS = 8
 _BIG = 3.0e38
 _INV_EPS = 1e-20
-_NO_KEY = torch.iinfo(torch.int64).max
+# The plain version's packed (t, triangle id) key of no hit.
+NO_KEY = torch.iinfo(torch.int64).max
 # Bounds on the plain version's intermediates: [rays x clusters] slab
 # panels and [pairs x CLUSTER] Möller–Trumbore panels.
 _PLAIN_SLAB_ELEMS = 1 << 23
@@ -313,7 +311,9 @@ def _refresh_attrs(cg: ClusteredGeometry, materials: Materials) -> ClusteredGeom
 # ---------------------------------------------------------------------------
 # Plain version of the kernel.
 
-def _inverse(d: torch.Tensor) -> torch.Tensor:
+def inverse(d: torch.Tensor) -> torch.Tensor:
+    """1 / d of ray directions, a component of magnitude at most
+    ``_INV_EPS`` taken as ``_INV_EPS``, as csrc/clustered.cu takes it."""
     eps = torch.full_like(d, _INV_EPS)
     return 1.0 / torch.where(torch.abs(d) > _INV_EPS, d, eps)
 
@@ -342,7 +342,7 @@ def run_clustered_plain(cg: ClusteredGeometry, o, d, t_init, backface_cull: bool
     S = cg.num_supers
     C = S * SUPER
     dev = o.device
-    inv = _inverse(d)
+    inv = inverse(d)
     lane = torch.arange(CLUSTER, device=dev)
     t_out = t_init.clone()
     slot_out = torch.full((R,), -1, dtype=torch.int64, device=dev)
@@ -365,19 +365,19 @@ def run_clustered_plain(cg: ClusteredGeometry, o, d, t_init, backface_cull: bool
             ok = t < tc[r][:, None]
             key = ((t.contiguous().view(torch.int32).to(torch.int64) << 32)
                    | cg.slot_to_tri[slots].to(torch.int64))
-            key = torch.where(ok, key, torch.full_like(key, _NO_KEY))
+            key = torch.where(ok, key, torch.full_like(key, NO_KEY))
             kmin, pos = torch.min(key, dim=1)
             pair_key.append(kmin)
             pair_slot.append(c * CLUSTER + pos)
         n = oc.shape[0]
-        best = torch.full((n,), _NO_KEY, dtype=torch.int64, device=dev)
+        best = torch.full((n,), NO_KEY, dtype=torch.int64, device=dev)
         if pair_key:
             pk, ps = torch.cat(pair_key), torch.cat(pair_slot)
             best.scatter_reduce_(0, ray, pk, "amin")
-            win = (pk == best[ray]) & (pk < _NO_KEY)
-            slot = torch.full((n,), _NO_KEY, dtype=torch.int64, device=dev)
+            win = (pk == best[ray]) & (pk < NO_KEY)
+            slot = torch.full((n,), NO_KEY, dtype=torch.int64, device=dev)
             slot.scatter_reduce_(0, ray[win], ps[win], "amin")
-            hit = best < _NO_KEY
+            hit = best < NO_KEY
             t_bits = (best >> 32).to(torch.int32).view(torch.float32)
             t_out[s0:s0 + n] = torch.where(hit, t_bits, tc)
             slot_out[s0:s0 + n] = torch.where(hit, slot, torch.full_like(slot, -1))
@@ -440,11 +440,9 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
             raise ValueError(f"{name}: rows asked for, but the accel was built "
                              "without materials")
         tensors["attrs"] = (cg.attrs, torch.float32, (T_pad, ATTR_COLS))
+    build.refuse_grad({n: t for n, (t, _, _) in tensors.items()})
     for n, (t, dtype, shape) in tensors.items():
-        if t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{n} requires grad: intersection is not "
-                             "differentiable; detach the inputs")
-        _check(t, n, dtype, shape, device)
+        check_tensor(t, n, dtype, shape, device)
     if device.type == "cpu":
         if stats is not None:
             raise ValueError(f"{name}: stats are counted by the kernel only")
@@ -452,7 +450,7 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {device}")
     if stats is not None:
-        _check(stats, "stats", torch.int32, (R, 3), device)
+        check_tensor(stats, "stats", torch.int32, (R, 3), device)
     for n in ("tree", "cl_aabb"):   # the kernel reads their rows as float4 + float2
         if getattr(cg, n).data_ptr() % 16:
             raise ValueError(f"{n} must be 16-byte aligned")
@@ -464,21 +462,11 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
         index = device.index if device.index is not None else torch.cuda.current_device()
         # As many blocks as the card holds at once, no more than the rays need.
         grid = max(1, min(-(-R // (_BLOCK // LANES)), _resident_blocks(index, any_hit)))
-        ptr = lambda t: None if t is None else t.data_ptr()
-        with torch.cuda.device(index):
-            stream = torch.cuda.current_stream(index).cuda_stream
-            counter = _counter(index, stream)
-            err = build.library().mrt_clustered(
-                R, cg.tree.shape[0], cg.cl_count.shape[0], grid, int(backface_cull),
-                int(any_hit), cg.tree.data_ptr(), cg.cl_aabb.data_ptr(), cg.tris.data_ptr(),
-                cg.slot_to_tri.data_ptr(), cg.cl_count.data_ptr(),
-                ptr(cg.attrs if with_rows else None),
-                o.data_ptr(), d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(),
-                slot.data_ptr(), ptr(rows), ptr(stats), counter.data_ptr(),
-                stream)
-        build.check(err, name)
-        LAUNCHES[name] += 1
-        RAYS[name] += R
+        build.launch(name, device, lambda stream: (
+            R, cg.tree.shape[0], cg.cl_count.shape[0], grid, int(backface_cull), int(any_hit),
+            cg.tree, cg.cl_aabb, cg.tris, cg.slot_to_tri, cg.cl_count,
+            cg.attrs if with_rows else None, o, d, t_init, t_out, slot, rows, stats,
+            _counter(index, stream)), rays=(name, R))
     return t_out, slot, rows
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..intersect import ray_triangle_edges
-from .clustered import ARITY, CLUSTER, LANES, ClusteredGeometry, _inverse, _NO_KEY
+from .clustered import ARITY, CLUSTER, LANES, NO_KEY, ClusteredGeometry, inverse
 
 _INF = float("inf")
 _CHUNK = 1 << 15
@@ -45,7 +45,7 @@ class _Walk:
                  any_hit: bool):
         self.cg, self.o, self.d = cg, o, d
         self.cull, self.any = backface_cull, any_hit
-        self.inv = _inverse(d)
+        self.inv = inverse(d)
         R = o.shape[0]
         self.t_init = t_init
         self.best = t_init.clone()
@@ -89,10 +89,10 @@ class _Walk:
         ids = cg.slot_to_tri.to(torch.int64)
         cand = valid & ((t < best[:, None]) | ((t == best[:, None]) & (cur >= 0)[:, None]))
         key = (t.contiguous().view(torch.int32).to(torch.int64) << 32) | ids[slots]
-        kmin, pos = torch.where(cand, key, torch.full_like(key, _NO_KEY)).min(dim=1)
+        kmin, pos = torch.where(cand, key, torch.full_like(key, NO_KEY)).min(dim=1)
         cur_key = torch.where(
             cur >= 0, (best.view(torch.int32).to(torch.int64) << 32) | ids[cur.clamp(min=0)],
-            torch.full_like(cur, _NO_KEY))
+            torch.full_like(cur, NO_KEY))
         take = kmin < cur_key
         self.best[r] = torch.where(take, pick(t, pos), best)
         self.slot[r] = torch.where(take, pick(slots, pos), cur)

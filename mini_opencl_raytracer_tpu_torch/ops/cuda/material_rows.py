@@ -9,7 +9,7 @@ the port of a Pallas kernel. It replaces PyTorch's sort-based
 ``index_put_(accumulate=True)`` (``reduce_plain``, the plain version the
 kernel is held against), which walks each material's rows one after
 another, with a deterministic segmented reduction that takes any number
-of materials, in float32 or float64. ``LAUNCHES`` counts its calls.
+of materials, in float32 or float64. ``build.LAUNCHES`` counts its calls.
 """
 
 from __future__ import annotations
@@ -17,8 +17,6 @@ from __future__ import annotations
 import torch
 
 from . import build
-
-LAUNCHES = {"material_rows_bwd": 0}
 
 COLS = 10
 _BLOCK = 256
@@ -55,11 +53,6 @@ def reduce_by_material(cot: torch.Tensor, mat_idx: torch.Tensor,
     M, rows = num_materials, rows_per_block(num_materials)
     part = torch.empty((-(-T // rows), M * COLS), dtype=cot.dtype, device=device)
     out = torch.empty((M, COLS), dtype=cot.dtype, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.library().mrt_material_rows_bwd(
-            T, M, rows, _F64[cot.dtype], cot.data_ptr(), cot.stride(0), cot.stride(1),
-            mat_idx.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
-    build.check(err, "material_rows_bwd")
-    LAUNCHES["material_rows_bwd"] += 1
+    build.launch("material_rows_bwd", device, lambda _: (
+        T, M, rows, _F64[cot.dtype], cot, cot.stride(0), cot.stride(1), mat_idx, part, out))
     return out

@@ -37,8 +37,8 @@ ops/camera, ops/intersect, ops/shading, ops/brdf, ops/lights and
 ops/integrator, the backward ones ``torch.autograd.grad`` of a replay of
 the bounce that runs no intersection. The wrappers run the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA
-device; there is no fallback between the two. ``LAUNCHES`` counts kernel
-launches (plain runs are not counted).
+device; there is no fallback between the two. ``build.LAUNCHES`` counts
+kernel launches (plain runs are not counted).
 
 Ray state is structure-of-arrays: o, d, beta and radiance as [3, R] f32,
 alive as [R] f32 (1.0 / 0.0), winner index and per-light occlusion bits
@@ -73,10 +73,7 @@ from ..intersect import closest_hit_edges, occluded_edges
 from ..linalg import cross, vmax
 from ..shading import material_rows, winner_attributes
 from . import build
-
-# Launches per kernel; the residual variants count apart.
-LAUNCHES = {"bounce0_fwd": 0, "bounce_fwd": 0, "bounce0_bwd": 0, "bounce_bwd": 0,
-            "bounce_fwd_resid": 0, "bounce_bwd_resid": 0}
+from .build import check_tensor
 
 
 def rows_read(cfg: RenderConfig, num_lights: int) -> Dict[str, List[int]]:
@@ -112,9 +109,9 @@ _KD, _KS, _KE = 18, 21, 24
 _NS = 27
 _C = 28
 _C_PAD = 32
-# Lights vector column layout ([L, 16]).
+# Lights vector column layout ([L, 16]), which csrc/shade.cuh reads.
 _LPOS, _LDIR, _LTYPE, _LINT, _LATT, _LCUT = 0, 3, 6, 7, 8, 9
-_LCOLS = 16
+LIGHT_COLS = 16
 # Triangle record of the accel: v0, e1, e2.
 _TRI_COLS = 9
 # Camera vector: position, right, up, front, 4 pad.
@@ -187,7 +184,7 @@ def pack_lights(lights: Lights) -> torch.Tensor:
             lights.intensity[:, None], lights.attenuation[:, None],
             lights.cos_cutoff[:, None]]
     lv = torch.cat([c.to(torch.float32) for c in cols], dim=1)
-    return torch.nn.functional.pad(lv, (0, _LCOLS - lv.shape[1]))
+    return torch.nn.functional.pad(lv, (0, LIGHT_COLS - lv.shape[1]))
 
 
 def unpack_lights(lv: torch.Tensor) -> Lights:
@@ -364,33 +361,17 @@ def bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds, winner,
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_tables(table_rows, lights, cfg, device, T_pad, tensors):
-    for name, t in tensors.items():
-        if t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(
-                f"{name} requires grad: a bounce wrapper alone is not "
-                "differentiable; go through trace_paths_mega_cam / "
-                "trace_paths_mega (the autograd Functions _Bounce0 and "
-                "_Bounce), or detach the inputs")
+    build.refuse_grad(tensors, "a bounce wrapper alone is not differentiable; go through "
+                      "trace_paths_mega_cam / trace_paths_mega (the autograd Functions "
+                      "_Bounce0 and _Bounce), or detach the inputs")
     if cfg.torch_dtype() != torch.float32:
         raise TypeError(f"the mega path renders in float32, not {cfg.dtype}")
     L = lights.shape[0]
     if L > _MAX_LIGHTS:
         raise ValueError(f"mega path takes at most {_MAX_LIGHTS} lights, got {L}")
-    _check(table_rows, "table_rows", torch.float32, (T_pad, _C_PAD), device)
-    _check(lights, "lights", torch.float32, (L, _LCOLS), device)
+    check_tensor(table_rows, "table_rows", torch.float32, (T_pad, _C_PAD), device)
+    check_tensor(lights, "lights", torch.float32, (L, LIGHT_COLS), device)
 
 
 def _check_common(table_rows, tris, lights, cfg, device, tensors):
@@ -398,7 +379,7 @@ def _check_common(table_rows, tris, lights, cfg, device, tensors):
     if not 0 < T <= _MAX_TRIS:
         raise ValueError(f"mega path takes 1..{_MAX_TRIS} triangles, got {T}")
     _check_tables(table_rows, lights, cfg, device, _tri_pad(T), tensors)
-    _check(tris, "tris", torch.float32, (T, _TRI_COLS), device)
+    check_tensor(tris, "tris", torch.float32, (T, _TRI_COLS), device)
 
 
 def _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot, tensors):
@@ -412,15 +393,16 @@ def _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot, tensors):
         raise ValueError("cot holds the cotangents of (o, d, beta, radiance)")
     named = dict(tensors, **{f"cot[{i}]": c for i, c in enumerate(cot)})
     _check_tables(table_rows, lights, cfg, device, T_pad, named)
-    _check(winner, "winner", torch.int32, (R,), device)
-    _check(occ, "occ", torch.int32, (R,), device)
+    check_tensor(winner, "winner", torch.int32, (R,), device)
+    check_tensor(occ, "occ", torch.int32, (R,), device)
     for i, c in enumerate(cot):
-        _check(c, f"cot[{i}]", torch.float32, (3, R), device)
+        check_tensor(c, f"cot[{i}]", torch.float32, (3, R), device)
     return T_pad
 
 
-def _params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
-            resid: bool = False) -> _Params:
+def params(cfg: RenderConfig, R: int, T: int, L: int, bounce: int,
+           resid: bool = False) -> _Params:
+    """The params struct of K1-K4 and csrc/shade.cu (``MegaParams``)."""
     p = _Params()
     p.num_rays, p.num_tris, p.num_lights = R, T, L
     p.flags = ((_F_SHADOW if cfg.shadow_rays else 0)
@@ -465,15 +447,10 @@ def frame_word(frame, device) -> torch.Tensor:
                       dtype=torch.int32, device=device)
 
 
-def _launch(name: str, fn, device, params, tensors, *ints, ptrs=()):
-    """Launch entry point ``fn``: (params, *ints, *tensor pointers, *ptrs,
-    stream); a None among ``tensors`` and ``ptrs`` passes null."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.addressof(params), *ints,
-                 *[None if t is None else t.data_ptr() for t in tensors], *ptrs, stream)
-    build.check(err, name)
-    LAUNCHES[name] += 1
+def _launch(name: str, device, p: _Params, tensors, *ints):
+    """Launch ``name`` with (params, *ints, *tensors, stream); a None among
+    ``tensors`` passes null."""
+    build.launch(name, device, lambda _: (ctypes.addressof(p), *ints, *tensors))
 
 
 def _empty_state(R: int, device):
@@ -499,8 +476,8 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame,
     _check_common(table_rows, tris, lights, cfg, device,
                   {"table_rows": table_rows, "tris": tris, "lights": lights,
                    "camv": camv})
-    _check(camv, "camv", torch.float32, (_CAM_COLS,), device)
-    _check(pixel_ids, "pixel_ids", torch.int32, (R,), device)
+    check_tensor(camv, "camv", torch.float32, (_CAM_COLS,), device)
+    check_tensor(pixel_ids, "pixel_ids", torch.int32, (R,), device)
     if device.type == "cpu":
         if stats is not None:
             raise ValueError("bounce0_fwd: stats are counted by the kernel only")
@@ -509,15 +486,13 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame,
     if device.type != "cuda":
         raise ValueError(f"bounce0_fwd runs on cpu or cuda, not {device}")
     if stats is not None:
-        _check(stats, "stats", torch.int32, (R,), device)
+        check_tensor(stats, "stats", torch.int32, (R,), device)
     out = _empty_state(R, device) + (
         torch.empty((R,), dtype=torch.int32, device=device),)
     if R:
-        params = _params(cfg, R, tris.shape[0], lights.shape[0], 0)
-        _launch("bounce0_fwd", build.library().mrt_bounce0_fwd, device, params,
+        _launch("bounce0_fwd", device, params(cfg, R, tris.shape[0], lights.shape[0], 0),
                 (frame_word(frame, device), table_rows, tris, lights, camv, pixel_ids)
-                + out,
-                ptrs=(None if stats is None else stats.data_ptr(),))
+                + out + (stats,))
     return out
 
 
@@ -537,9 +512,9 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
                   {"table_rows": table_rows, "tris": tris, "lights": lights,
                    "o": o, "d": d, "beta": beta})
     for name, t in (("o", o), ("d", d), ("beta", beta)):
-        _check(t, name, torch.float32, (3, R), device)
-    _check(alive, "alive", torch.float32, (R,), device)
-    _check(seeds, "seeds", torch.int32, (R,), device)
+        check_tensor(t, name, torch.float32, (3, R), device)
+    check_tensor(alive, "alive", torch.float32, (R,), device)
+    check_tensor(seeds, "seeds", torch.int32, (R,), device)
     if device.type == "cpu":
         return bounce_fwd_plain(table_rows, tris, lights, o, d, beta, alive,
                                 seeds, bounce, cfg, save_resid=save_resid)
@@ -553,9 +528,8 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
         resid = known.Resid(torch.empty((n, R), dtype=torch.float32, device=device),
                             torch.empty((R,), **i32), (torch.empty if R else torch.zeros)(1, **i32))
     if R:
-        params = _params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid)
-        _launch("bounce_fwd_resid" if save_resid else "bounce_fwd",
-                build.library().mrt_bounce_fwd, device, params,
+        _launch("bounce_fwd_resid" if save_resid else "bounce_fwd", device,
+                params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid),
                 (table_rows, tris, lights, o, d, beta, alive, seeds) + out + tuple(resid))
     return out + (resid,) if save_resid else out
 
@@ -575,7 +549,7 @@ def bwd_plan(R: int, T_pad: int, L: int, sms: int, first: bool) -> BwdPlan:
     there are tiles of ``_BLOCK`` rays; the scratch is ``grid`` partial
     rows, a function of T_pad, L and the grid only."""
     grid = max(1, min(-(-R // _BLOCK), _BLOCKS_PER_SM * sms))
-    cols = T_pad * _C_PAD + L * _LCOLS + (_CAM_COLS if first else 0)
+    cols = T_pad * _C_PAD + L * LIGHT_COLS + (_CAM_COLS if first else 0)
     return BwdPlan(grid, cols, T_pad <= _SMEM_ROWS)
 
 
@@ -584,12 +558,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _bwd_launch(name: str, fn, device, params, plan: BwdPlan, tensors, ptrs=()) -> None:
-    """Launch a backward entry point with its plan and its partials."""
+def _bwd_launch(name: str, device, p: _Params, plan: BwdPlan, tensors, extra=()) -> None:
+    """Launch a backward entry point with its plan and its partials:
+    ``tensors`` end with the tuple of outputs, ``extra`` follows them."""
     part = torch.empty((plan.grid, plan.part_cols), dtype=torch.float32,
                        device=device)
-    _launch(name, fn, device, params, tensors[:-1] + (part,) + tensors[-1],
-            plan.grid, int(plan.smem_table), ptrs=ptrs)
+    _launch(name, device, p, tensors[:-1] + (part,) + tensors[-1] + tuple(extra),
+            plan.grid, int(plan.smem_table))
 
 
 def _device_index(device) -> int:
@@ -606,8 +581,8 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame, winner, occ,
     T_pad = _check_bwd(table_rows, lights, cfg, device, R, winner, occ, cot,
                        {"table_rows": table_rows, "lights": lights,
                         "camv": camv})
-    _check(camv, "camv", torch.float32, (_CAM_COLS,), device)
-    _check(pixel_ids, "pixel_ids", torch.int32, (R,), device)
+    check_tensor(camv, "camv", torch.float32, (_CAM_COLS,), device)
+    check_tensor(pixel_ids, "pixel_ids", torch.int32, (R,), device)
     if device.type == "cpu":
         return bounce0_bwd_plain(table_rows, lights, camv, pixel_ids, frame,
                                  winner, occ, cot, cfg)
@@ -616,12 +591,11 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame, winner, occ,
     L = lights.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
     new = torch.empty if R else torch.zeros   # the kernels write every entry
-    out = (new((T_pad, _C_PAD), **f32), new((L, _LCOLS), **f32),
+    out = (new((T_pad, _C_PAD), **f32), new((L, LIGHT_COLS), **f32),
            new((_CAM_COLS,), **f32))
     if R:
         plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), True)
-        _bwd_launch("bounce0_bwd", build.library().mrt_bounce0_bwd, device,
-                    _params(cfg, R, T_pad, L, 0), plan,
+        _bwd_launch("bounce0_bwd", device, params(cfg, R, T_pad, L, 0), plan,
                     (frame_word(frame, device), table_rows, lights, camv, pixel_ids,
                      winner, occ)
                     + tuple(cot) + (out,))
@@ -641,14 +615,14 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
                        {"table_rows": table_rows, "lights": lights, "o": o,
                         "d": d, "beta": beta})
     for name, t in (("o", o), ("d", d), ("beta", beta)):
-        _check(t, name, torch.float32, (3, R), device)
-    _check(alive, "alive", torch.float32, (R,), device)
-    _check(seeds, "seeds", torch.int32, (R,), device)
+        check_tensor(t, name, torch.float32, (3, R), device)
+    check_tensor(alive, "alive", torch.float32, (R,), device)
+    check_tensor(seeds, "seeds", torch.int32, (R,), device)
     if resid is not None:
-        _check(resid.rows, "resid.rows", torch.float32,
+        check_tensor(resid.rows, "resid.rows", torch.float32,
                (known.num_rows(cfg, lights.shape[0]), R), device)
-        _check(resid.rank, "resid.rank", torch.int32, (R,), device)
-        _check(resid.count, "resid.count", torch.int32, (1,), device)
+        check_tensor(resid.rank, "resid.rank", torch.int32, (R,), device)
+        check_tensor(resid.count, "resid.count", torch.int32, (1,), device)
     if device.type == "cpu":
         return bounce_bwd_plain(table_rows, lights, o, d, beta, alive, seeds,
                                 winner, occ, cot, bounce, cfg, resid=resid)
@@ -658,16 +632,15 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
     f32 = dict(dtype=torch.float32, device=device)
     new = torch.empty if R else torch.zeros   # the kernels write every entry
     out = (new((3, R), **f32), new((3, R), **f32), new((3, R), **f32),
-           new((T_pad, _C_PAD), **f32), new((L, _LCOLS), **f32))
+           new((T_pad, _C_PAD), **f32), new((L, LIGHT_COLS), **f32))
     if R:
         plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), False)
         res = resid is not None
-        _bwd_launch("bounce_bwd_resid" if res else "bounce_bwd", build.library().mrt_bounce_bwd,
-                    device,
-                    _params(cfg, R, T_pad, L, bounce, resid=res), plan,
+        _bwd_launch("bounce_bwd_resid" if res else "bounce_bwd", device,
+                    params(cfg, R, T_pad, L, bounce, resid=res), plan,
                     (table_rows, lights, o, d, beta, alive, None if res else seeds,
                      winner, occ) + tuple(cot) + (out,),
-                    ptrs=(resid.rows.data_ptr(), resid.rank.data_ptr()) if res else (None, None))
+                    (resid.rows, resid.rank) if res else (None, None))
     return out
 
 

@@ -9,7 +9,8 @@ its plain PyTorch version: the same arithmetic (ops/intersect
 .ray_triangle_edges) and the same tie rule (lowest index among equal t).
 The wrappers ``panel_closest`` and ``panel_any`` run the plain version for
 tensors on the CPU and launch the kernel for tensors on a CUDA device;
-there is no fallback between the two. ``LAUNCHES`` counts kernel launches.
+there is no fallback between the two. ``build.LAUNCHES`` counts kernel
+launches.
 The kernel culls the records per warp of rays before its exact test
 (``csrc/bundle.cuh``); ``bundle_cull.cull_hits`` models that, counts
 included, and ``stats=`` returns the kernel's per-ray count of exact tests.
@@ -25,9 +26,7 @@ from ...config import RenderConfig
 from ...models.scene import Geometry
 from ..intersect import Hit, ray_triangle_edges
 from . import build
-from .megakernel import _check
-
-LAUNCHES = {"panel_closest": 0, "panel_any": 0}
+from .build import check_tensor
 
 # Records of the (v0, e1, e2) layout, padded as the JAX package pads.
 _TRI_COLS = 9
@@ -89,12 +88,11 @@ def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool, stat
     if not 0 < T <= MAX_TRIS or tris.dim() != 2:
         raise ValueError(f"{name} takes [1..{MAX_TRIS}, {_TRI_COLS}] records, "
                          f"got {tuple(tris.shape)}")
-    for n, t, shape in (("tris", tris, (T, _TRI_COLS)), ("o", o, (R, 3)),
-                        ("d", d, (R, 3)), ("t_init", t_init, (R,))):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{n} requires grad: intersection is not "
-                             "differentiable; detach the inputs")
-        _check(t, n, torch.float32, shape, device)
+    named = {"tris": tris, "o": o, "d": d, "t_init": t_init}
+    build.refuse_grad(named)
+    for n, shape in (("tris", (T, _TRI_COLS)), ("o", (R, 3)), ("d", (R, 3)),
+                     ("t_init", (R,))):
+        check_tensor(named[n], n, torch.float32, shape, device)
     if device.type == "cpu":
         if stats is not None:
             raise ValueError(f"{name}: stats are counted by the kernel only")
@@ -102,18 +100,12 @@ def _run(name: str, any_hit: bool, tris, o, d, t_init, backface_cull: bool, stat
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {device}")
     if stats is not None:
-        _check(stats, "stats", torch.int32, (R,), device)
+        check_tensor(stats, "stats", torch.int32, (R,), device)
     t_out = torch.empty((R,), dtype=torch.float32, device=device)
     idx = torch.empty((R,), dtype=torch.int32, device=device)
     if R:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = build.library().mrt_panel(
-                R, T, int(backface_cull), int(any_hit), tris.data_ptr(), o.data_ptr(),
-                d.data_ptr(), t_init.data_ptr(), t_out.data_ptr(), idx.data_ptr(),
-                None if stats is None else stats.data_ptr(), stream)
-        build.check(err, name)
-        LAUNCHES[name] += 1
+        build.launch(name, device, lambda _: (R, T, int(backface_cull), int(any_hit), tris,
+                                              o, d, t_init, t_out, idx, stats))
     return t_out, idx
 
 

@@ -13,11 +13,11 @@ the JAX package leaves this work to XLA's fusion. ``shade_plain``
 (``hit_attributes`` then ``shade_hit``) is its plain version, which the
 wrapper runs for tensors on the CPU.
 
-``LAUNCHES`` counts the kernel's launches; ``RAYS`` the rays each path
-shaded, counted on the host from shapes: ``shade_fused`` the kernel's,
-``shade_plain`` those the integrator shaded in PyTorch on a CUDA device.
-A captured program's replays add both as they add the launches (jit.py,
-``COUNTS`` ``shade_fused_rays`` / ``shade_plain_rays``).
+``build.LAUNCHES`` counts the kernel's launches; ``build.RAYS`` the rays
+each path shaded, counted on the host from shapes: ``shade_fused`` the
+kernel's, ``shade_plain`` those the integrator shaded in PyTorch on a CUDA
+device. A captured program's replays add both as they add the launches
+(jit.py, ``COUNTS`` ``shade_fused_rays`` / ``shade_plain_rays``).
 """
 
 from __future__ import annotations
@@ -31,10 +31,8 @@ from ..integrator import shade_hit
 from ..intersect import Hit
 from ..shading import ShadingTable, hit_attributes
 from . import build
-from .megakernel import _LCOLS, _check, _params, unpack_lights
-
-LAUNCHES = {"shade": 0}
-RAYS = {"shade_fused": 0, "shade_plain": 0}
+from .build import check_tensor
+from .megakernel import LIGHT_COLS, params, unpack_lights
 
 
 def shade_plain(hit: Hit, table, o, d, beta, radiance, alive, seeds, bounce: int,
@@ -77,23 +75,21 @@ def shade_rows(hit: Hit, table: torch.Tensor, o, d, beta, radiance, alive, seeds
     R = alive.shape[0]
     named = {"o": o, "d": d, "beta": beta, "radiance": radiance, "table": table,
              "lights": lights, "rows": hit.rows}
-    for name, t in named.items():
-        if t is not None and t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{name} requires grad: shade_rows takes no gradient")
+    build.refuse_grad(named, "shade_rows takes no gradient")
     for name in ("o", "d", "beta", "radiance"):
         _check_rows(named[name], name, R, device)
-    _check(alive, "alive", torch.bool, (R,), device)
-    _check(hit.hit, "hit", torch.bool, (R,), device)
-    _check(seeds, "seeds", torch.int64, (R,), device)
-    _check(lights, "lights", torch.float32, (lights.shape[0], _LCOLS), device)
+    check_tensor(alive, "alive", torch.bool, (R,), device)
+    check_tensor(hit.hit, "hit", torch.bool, (R,), device)
+    check_tensor(seeds, "seeds", torch.int64, (R,), device)
+    check_tensor(lights, "lights", torch.float32, (lights.shape[0], LIGHT_COLS), device)
     cols = ShadingTable.COLS
     if hit.rows is not None:
-        _check(hit.rows, "rows", torch.float32, (R, cols), device)
+        check_tensor(hit.rows, "rows", torch.float32, (R, cols), device)
         if hit.rows.data_ptr() % 16:
             raise ValueError("rows must be 16-byte aligned")
     else:
-        _check(table, "table", torch.float32, (table.shape[0], cols), device)
-        _check(hit.tri_idx, "tri_idx", torch.int64, (R,), device)
+        check_tensor(table, "table", torch.float32, (table.shape[0], cols), device)
+        check_tensor(hit.tri_idx, "tri_idx", torch.int64, (R,), device)
     if device.type == "cpu":
         return shade_plain(hit, table, o, d, beta, radiance, alive, seeds, bounce, lights, cfg)
     if device.type != "cuda":
@@ -102,18 +98,11 @@ def shade_rows(hit: Hit, table: torch.Tensor, o, d, beta, radiance, alive, seeds
     out = tuple(torch.empty((R, 3), **f32) for _ in range(4)) + (
         torch.empty((R,), dtype=torch.bool, device=device),)
     if R:
-        params = _params(cfg, R, 0, lights.shape[0], bounce)
+        p = params(cfg, R, 0, lights.shape[0], bounce)
         rows = hit.rows
-        ptr = lambda t: None if t is None else t.data_ptr()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = build.library().mrt_shade(
-                ctypes.addressof(params), ptr(rows), ptr(table if rows is None else None),
-                ptr(hit.tri_idx if rows is None else None), hit.hit.data_ptr(),
-                alive.data_ptr(), seeds.data_ptr(), lights.data_ptr(),
-                *[v for t in (o, d, beta, radiance) for v in (t.data_ptr(), t.stride(0))],
-                *[t.data_ptr() for t in out], stream)
-        build.check(err, "shade")
-        LAUNCHES["shade"] += 1
-        RAYS["shade_fused"] += R
+        build.launch("shade", device, lambda _: (
+            ctypes.addressof(p), rows, table if rows is None else None,
+            hit.tri_idx if rows is None else None, hit.hit, alive, seeds, lights,
+            *[v for t in (o, d, beta, radiance) for v in (t, t.stride(0))], *out),
+            rays=("shade_fused", R))
     return out

@@ -158,7 +158,7 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
     """The per-bounce transition: carry = (o, d, beta, radiance, alive,
     seeds), ``bounce`` = global bounce index. Returns the next carry."""
     # Imported here: ops/cuda/shade imports this module.
-    from .cuda import megakernel, shade
+    from .cuda import build, megakernel, shade
     st = build_shading_table(scene.geometry, scene.materials)
     scene_grad = _scene_grad(scene)
     # The [L, 16] lights of the fused kernel, packed at its first bounce.
@@ -171,7 +171,7 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
             return shade.shade_rows(hit, st.table, o, d, beta, radiance, alive, seeds,
                                     bounce, packed_lights(), cfg) + (seeds,)
         if o.is_cuda:
-            shade.RAYS["shade_plain"] += o.shape[0]
+            build.RAYS["shade_plain"] += o.shape[0]
         at = hit_attributes(o, d, hit, st, backface_cull=cfg.backface_cull,
                             soft_sigma=cfg.soft_edge_sigma)
         o, d, beta, radiance, alive, _ = shade_hit(

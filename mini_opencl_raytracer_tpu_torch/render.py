@@ -232,13 +232,6 @@ def _accumulate_frames(scene, camera, cfg, frames, accel, device) -> RenderState
     return state
 
 
-def compiles(scene: Scene, cfg: RenderConfig) -> bool:
-    """Whether the entry points run ``scene`` under ``cfg`` as compiled
-    programs on a CUDA device: every backend, as in the JAX package (the
-    LBVH walk is a kernel, csrc/bvh.cu)."""
-    return True
-
-
 def _render(scene, camera, accel, cfg, frames):
     return to_image(_accumulate_frames(scene, camera, cfg, frames, accel, None),
                     cfg.gamma)

@@ -23,7 +23,7 @@ config 3 (3 steps), and the mega path's Cornell 1920x1080 x 9 forward
 (4 frames) and training step, and path B's Cornell 1920x1080 x 9
 forward on the panel (``backend="pallas"``, 4 frames). Scenes, accels and rays are built with each
 checkout's own package (``device="cuda"``); the ray sets come from this
-script's ``chip_smoke.wavefront_rays``. Needs a CUDA device.
+checkout's ``ops/cuda/parity.wavefront_rays``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ def child(root: str, kernels_only: bool) -> None:
     from mini_opencl_raytracer_tpu_torch import grad
     from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
     from mini_opencl_raytracer_tpu_torch.ops.cuda import panel
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 
     assert mrt.__file__.startswith(root), mrt.__file__
     smoke = _smoke()
@@ -66,12 +67,12 @@ def child(root: str, kernels_only: bool) -> None:
     bunny, sponza = mrt.bunny_scene(device=dev), mrt.sponza_scene(device=dev)
     cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
     acc = {"bunny": mrt.build_accel(bunny, cfg3), "sponza": mrt.build_accel(sponza, cfg3)}
-    rays = smoke.wavefront_rays(mrt, torch, bunny, cam, cfg3, *cl.make_intersectors(
+    rays = parity.wavefront_rays(bunny, cam, cfg3, *cl.make_intersectors(
         bunny.geometry, cfg3, accel=acc["bunny"], materials=bunny.materials))
-    big = smoke.wavefront_rays(mrt, torch, sponza, cam,
-                               mrt.RenderConfig(width=3840, height=2160, bounces=1),
-                               *cl.make_intersectors(sponza.geometry, cfg3, accel=acc["sponza"],
-                                                     materials=sponza.materials))
+    big = parity.wavefront_rays(sponza, cam,
+                                mrt.RenderConfig(width=3840, height=2160, bounces=1),
+                                *cl.make_intersectors(sponza.geometry, cfg3, accel=acc["sponza"],
+                                                      materials=sponza.materials))
     o1, d1 = rays["bounce1"]
     shuffle = torch.randperm(o1.shape[0], generator=torch.Generator(device=dev).manual_seed(5),
                              device=dev)
@@ -90,8 +91,8 @@ def child(root: str, kernels_only: bool) -> None:
     cornell = mrt.cornell_scene(device=dev)
     cfg_b = mrt.RenderConfig(width=1920, height=1080, bounces=9)
     tri5 = panel.pack_triangles(cornell.geometry)
-    r5 = smoke.wavefront_rays(mrt, torch, cornell, cam, cfg_b,
-                              *panel.make_intersectors(cornell.geometry, cfg_b))
+    r5 = parity.wavefront_rays(cornell, cam, cfg_b,
+                               *panel.make_intersectors(cornell.geometry, cfg_b))
     for kind in ("primary", "bounce1", "bounce1_sorted"):
         o, d = r5[kind]
         ti = torch.full((o.shape[0],), cfg_b.t_max, device=dev)

@@ -38,6 +38,7 @@ def main() -> int:
     import mini_opencl_raytracer_tpu_torch as mrt
     from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
     from mini_opencl_raytracer_tpu_torch.ops.cuda import panel
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -46,8 +47,8 @@ def main() -> int:
     scene, cam = mrt.cornell_scene(device=dev), mrt.Camera.default(device=dev)
     cfg = mrt.RenderConfig(width=args.width, height=args.height)
     tris = panel.pack_triangles(scene.geometry)
-    rays = smoke.wavefront_rays(mrt, torch, scene, cam, cfg,
-                                *panel.make_intersectors(scene.geometry, cfg))
+    rays = parity.wavefront_rays(scene, cam, cfg,
+                                 *panel.make_intersectors(scene.geometry, cfg))
     print(f"Cornell {cfg.width}x{cfg.height}, {tris.shape[0]} records ({args.device})")
     for name in ("primary", "bounce1", "bounce1_sorted", "shadow"):
         o, d = rays[name][:2]

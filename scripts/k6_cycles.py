@@ -28,6 +28,7 @@ def main() -> int:
     import mini_opencl_raytracer_tpu_torch as mrt
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as cl
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 
     if build._LIB is not None:
         raise RuntimeError("the kernel library is already loaded without the cycle counts")
@@ -40,7 +41,7 @@ def main() -> int:
     bunny, cam = mrt.bunny_scene(device=dev), mrt.Camera.default(device=dev)
     cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
     cg = mrt.build_accel(bunny, cfg3)
-    rays = smoke.wavefront_rays(mrt, torch, bunny, cam, cfg3, *cl.make_intersectors(
+    rays = parity.wavefront_rays(bunny, cam, cfg3, *cl.make_intersectors(
         bunny.geometry, cfg3, accel=cg, materials=bunny.materials))
     card = smoke.card_line()
     for kind in ("primary", "bounce1", "bounce1_sorted"):

@@ -1,0 +1,61 @@
+"""The kernel-call seam of the port (``ops/cuda/build.py``) on the CPU.
+
+``build.launch`` is the one way a wrapper calls an entry point of the
+kernel library. Here the library is a stand-in whose entry returns a
+chosen error code, and the device guard a stand-in stream, so the
+launch's order of work shows without a card: the arguments (tensors by
+their data pointers) and the stream go to the entry, an error raises
+under the launch's name before anything is counted, and a launch that
+succeeds counts once, with the rays it was given. The kernels themselves
+run on the card: tests/test_torch_cuda.py.
+"""
+
+import contextlib
+
+import pytest
+import torch
+
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+
+STREAM = 42
+
+
+class _Library:
+    """The library's place: ``mrt_clustered`` records its arguments and
+    returns ``err``."""
+
+    def __init__(self, err: int):
+        self.err, self.calls = err, []
+
+    def mrt_clustered(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def mrt_error_string(self, err):
+        return b"stand-in error"
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_checks_then_counts(monkeypatch, err):
+    """The entry gets ``args(stream)`` with each tensor as its data
+    pointer, then the stream. A nonzero error raises with the launch's
+    name and counts nothing; 0 counts one launch and the given rays."""
+    lib = _Library(err)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "_on", lambda device: contextlib.nullcontext(STREAM))
+    t = torch.zeros(3)
+    before = dict(build.LAUNCHES), dict(build.RAYS)
+
+    def launch():
+        build.launch("clustered_any", torch.device("cuda", 0),
+                     lambda stream: (7, t, None, stream), rays=("clustered_any", 9))
+
+    if err:
+        with pytest.raises(RuntimeError, match="clustered_any: CUDA error 700"):
+            launch()
+        assert (build.LAUNCHES, build.RAYS) == before
+    else:
+        launch()
+        assert build.LAUNCHES == before[0] | {"clustered_any": before[0]["clustered_any"] + 1}
+        assert build.RAYS == before[1] | {"clustered_any": before[1]["clustered_any"] + 9}
+    assert lib.calls == [(7, t.data_ptr(), None, STREAM, STREAM)]

@@ -29,7 +29,6 @@ from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
 from mini_opencl_raytracer_tpu_torch.ops.intersect import ray_triangle_edges
 from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
 
-import chip_smoke
 from test_torch_panel import _arrays, assert_same_winners
 
 torch.set_num_threads(1)
@@ -47,8 +46,8 @@ def ray_sets():
     cornell = P.cornell_scene(device="cpu")
     cam = P.Camera.default(device="cpu")
     cfg = P.RenderConfig(width=64, height=64)
-    rays = chip_smoke.wavefront_rays(P, torch, cornell, cam, cfg,
-                                     *ppanel.make_intersectors(cornell.geometry, cfg))
+    rays = parity.wavefront_rays(cornell, cam, cfg,
+                                 *ppanel.make_intersectors(cornell.geometry, cfg))
     tris = ppanel.pack_triangles(cornell.geometry)
     out = {}
     for name in WAVEFRONT:

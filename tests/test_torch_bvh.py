@@ -10,14 +10,12 @@ t within 1e-6 relative (the same float32 Möller–Trumbore, summed in
 another order); and ``render(backend="bvh")`` at 16x16 x 2 against JAX's
 bvh render within atol 2e-5, rtol 1e-4 (tests/test_torch_render.py's
 tolerance: the same shading in another operation order), through the
-compiled ``render`` (``render.compiles`` is true for every backend).
+compiled ``render``.
 The walk's tie rule on rays at shared edges (Cornell, a soup of quads):
 its t is the dense minimum bitwise, and a tie within one leaf goes to the
 first slot; the kernel's wrapper on the CPU is the plain walk. The
 kernel itself runs on the card: tests/test_torch_cuda.py.
 """
-
-import importlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -30,6 +28,7 @@ from mini_opencl_raytracer_tpu.ops import bvh as jbvh
 from mini_opencl_raytracer_tpu_torch.config import BVHConfig
 from mini_opencl_raytracer_tpu_torch.ops import bvh as pbvh
 from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as bvh_kernel
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 from mini_opencl_raytracer_tpu_torch.ops.intersect import ray_triangle
 
@@ -219,12 +218,9 @@ def test_render_bvh_matches_jax(cornell_p):
     assert torch.equal(P.render(cornell_p, cam, cfg, frames=1), got)
 
 
-def test_render_compiles_every_backend(cornell_p):
-    """render() is the compiled program on every backend, bvh included,
-    and its bvh image over two frames is JAX's jitted render's."""
-    prender = importlib.import_module("mini_opencl_raytracer_tpu_torch.render")
-    for backend in ("auto", "mega", "pallas", "bvh", "bruteforce"):
-        assert prender.compiles(cornell_p, P.RenderConfig(backend=backend))
+def test_compiled_bvh_render_matches_jax(cornell_p):
+    """render(), the compiled program, on the bvh backend: its image over
+    two frames is JAX's jitted render's."""
     kw = dict(width=16, height=16, bounces=2, backend="bvh")
     ref = np.asarray(J.render(J.cornell_scene(), J.Camera.default(), J.RenderConfig(**kw),
                               frames=2))
@@ -262,10 +258,10 @@ def test_walk_on_the_cpu_is_the_plain_walk(cornell_p, cornell_bvh):
     nothing; the plain walk counts leaf_size M-T tests a leaf entered."""
     o, d = (torch.from_numpy(a) for a in _random_rays(256))
     t_init = torch.full((256,), 1e5)
-    n0 = dict(bvh_kernel.LAUNCHES)
+    n0 = build.LAUNCHES["bvh_walk"]
     got = bvh_kernel.walk(o, d, t_init, cornell_bvh)
     stats = torch.zeros(256, dtype=torch.int64)
     ref = pbvh.walk_plain(o, d, t_init, cornell_bvh, False, stats=stats)
     assert all(torch.equal(x, y) for x, y in zip(got, ref))
-    assert bvh_kernel.LAUNCHES == n0
+    assert build.LAUNCHES["bvh_walk"] == n0
     assert (stats % cornell_bvh.leaf_size == 0).all() and (stats[got[0] < 1e5] > 0).all()

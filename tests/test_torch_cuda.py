@@ -30,6 +30,7 @@ from mini_opencl_raytracer_tpu_torch import grad as pgrad
 from mini_opencl_raytracer_tpu_torch import native as pnative
 from mini_opencl_raytracer_tpu_torch.ops import integrator, known, rng
 from mini_opencl_raytracer_tpu_torch.ops.camera import generate_rays, rays_from_basis
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 from mini_opencl_raytracer_tpu_torch.ops.cuda import bundle_cull as bc
 from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered as pcl
 from mini_opencl_raytracer_tpu_torch.ops.cuda.clustered_walk import walk
@@ -54,15 +55,15 @@ def test_kernels_match_plain_on_card(kw):
     table, tris, lv = pmk._tables(P.cornell_scene(device=dev), cfg, None)
     camv = pmk.camera_vector(P.Camera.default(device=dev))
     pid = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
-    n0 = dict(pmk.LAUNCHES)
+    n0 = {k: v for k, v in build.LAUNCHES.items() if k.startswith("bounce")}
     k0 = pmk.bounce0_fwd(table, tris, lv, camv, pid, 1, cfg)
     p0 = pmk.bounce0_fwd_plain(table, tris, lv, camv, pid, 1, cfg)
     state = (k0[0], k0[1], k0[2], k0[3], k0[7])
     k1 = pmk.bounce_fwd(table, tris, lv, *state, 1, cfg)
     p1 = pmk.bounce_fwd_plain(table, tris, lv, *state, 1, cfg)
     torch.cuda.synchronize()
-    assert pmk.LAUNCHES == dict(n0, bounce0_fwd=n0["bounce0_fwd"] + 1,
-                                bounce_fwd=n0["bounce_fwd"] + 1)
+    assert {k: build.LAUNCHES[k] for k in n0} == dict(
+        n0, bounce0_fwd=n0["bounce0_fwd"] + 1, bounce_fwd=n0["bounce_fwd"] + 1)
     parity.check_bounce("bounce0_fwd", k0, p0)
     parity.check_bounce("bounce_fwd", k1, p1)
 
@@ -87,18 +88,18 @@ def test_backward_kernels_match_plain_on_card(kw):
     gen = torch.Generator(device=dev).manual_seed(7)
     f0 = pmk.bounce0_fwd(table, tris, lv, camv, pid, 1, cfg)
     cot0 = parity.cotangents(f0[2], gen)
-    n0 = dict(pmk.LAUNCHES)
+    n0 = dict(build.LAUNCHES)
     k0 = pmk.bounce0_bwd(table, lv, camv, pid, 1, f0[5], f0[6], cot0, cfg)
     p0 = pmk.bounce0_bwd_plain(table, lv, camv, pid, 1, f0[5], f0[6], cot0, cfg)
     state = (f0[0], f0[1], f0[2], f0[3], f0[7])
     f1 = pmk.bounce_fwd(table, tris, lv, *state, 1, cfg)
     cot1 = parity.cotangents(f1[2], gen)
-    n1 = dict(pmk.LAUNCHES)
+    n1 = dict(build.LAUNCHES)
     k1 = pmk.bounce_bwd(table, lv, *state[:4], f0[7], f1[5], f1[6], cot1, 1, cfg)
     p1 = pmk.bounce_bwd_plain(table, lv, *state[:4], f0[7], f1[5], f1[6], cot1, 1, cfg)
     torch.cuda.synchronize()
-    assert pmk.LAUNCHES["bounce0_bwd"] == n0["bounce0_bwd"] + 1
-    assert pmk.LAUNCHES["bounce_bwd"] == n1["bounce_bwd"] + 1
+    assert build.LAUNCHES["bounce0_bwd"] == n0["bounce0_bwd"] + 1
+    assert build.LAUNCHES["bounce_bwd"] == n1["bounce_bwd"] + 1
     parity.check_grads("bounce0_bwd", k0, p0, parity.BOUNCE0_GRADS)
     parity.check_grads("bounce_bwd", k1, p1, parity.BOUNCE_GRADS)
 
@@ -325,15 +326,15 @@ def test_panel_kernel_matches_plain_on_card(cull):
     for o, d in _camera_and_room_rays(dev):
         R = o.shape[0]
         t_init = torch.full((R,), 1e5, device=dev)
-        n0 = dict(ppanel.LAUNCHES)
+        n0 = {k: build.LAUNCHES[k] for k in ("panel_closest", "panel_any")}
         k = ppanel.panel_closest(tris, o, d, t_init, cull)
         p = ppanel.run_panel_plain(tris, o, d, t_init, cull)
         limit = torch.full((R,), 6.0, device=dev)
         k_any = ppanel.panel_any(tris, o, d, limit, cull)
         p_any = ppanel.run_panel_plain(tris, o, d, limit, cull)[1] >= 0
         torch.cuda.synchronize()
-        assert ppanel.LAUNCHES == {"panel_closest": n0["panel_closest"] + 1,
-                                   "panel_any": n0["panel_any"] + 1}
+        assert {k: build.LAUNCHES[k] for k in n0} == {"panel_closest": n0["panel_closest"] + 1,
+                                                      "panel_any": n0["panel_any"] + 1}
         parity.check_hits("panel_closest", k, p)
         parity.check_any("panel_any", k_any, p_any)
 
@@ -379,10 +380,10 @@ def test_clustered_kernel_matches_plain_on_card(layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    build = pcl.build_accel if layout == "sah" else pcl.build_clusters
+    make_accel = pcl.build_accel if layout == "sah" else pcl.build_clusters
     bunny = P.bunny_scene(target_tris=4000, device=dev)
     for geo, mats in ((bunny.geometry, bunny.materials), (_ragged_soup(dev), None)):
-        cg = build(geo, materials=mats)
+        cg = make_accel(geo, materials=mats)
         pts = torch.cat([geo.v0, geo.v1, geo.v2])
         blocked = []
         for o, d in _camera_and_room_rays(dev):
@@ -390,12 +391,13 @@ def test_clustered_kernel_matches_plain_on_card(layout):
             t_init = torch.full((R,), 1e5, device=dev)
             limit = torch.full((R,), 6.0, device=dev)
             st, st_any = (torch.zeros((R, 3), dtype=torch.int32, device=dev) for _ in range(2))
-            n0 = dict(pcl.LAUNCHES)
+            n0 = {k: build.LAUNCHES[k] for k in ("clustered_closest", "clustered_any")}
             k = pcl.clustered_closest(cg, o, d, t_init, stats=st)
             k_any = pcl.clustered_any(cg, o, d, limit, stats=st_any)
             torch.cuda.synchronize()
-            assert pcl.LAUNCHES == {"clustered_closest": n0["clustered_closest"] + 1,
-                                    "clustered_any": n0["clustered_any"] + 1}
+            assert {k: build.LAUNCHES[k] for k in n0} == {
+                "clustered_closest": n0["clustered_closest"] + 1,
+                "clustered_any": n0["clustered_any"] + 1}
             p = pcl.run_clustered_plain(cg, o, d, t_init, False, with_rows=mats is not None)
             p_any = pcl.run_clustered_plain(cg, o, d, limit, False)[1] >= 0
             parity.check_hits("clustered_closest", k, p)
@@ -462,10 +464,10 @@ def test_sorted_wavefront_bitwise_on_card():
     cam = P.Camera.default(device=dev)
     kw = dict(width=64, height=64, bounces=4, shadow_rays=True)
     accel = P.build_accel(scene, P.RenderConfig(**kw))
-    n0 = pcl.LAUNCHES["clustered_closest"]
+    n0 = build.LAUNCHES["clustered_closest"]
     imgs = [P.render_sample(scene, cam, P.RenderConfig(sort_rays=s, **kw), accel=accel)
             for s in (True, False)]
-    assert pcl.LAUNCHES["clustered_closest"] == n0 + 8
+    assert build.LAUNCHES["clustered_closest"] == n0 + 8
     assert torch.equal(imgs[0], imgs[1])
 
 
@@ -637,11 +639,11 @@ def test_bounce_fwd_edge_cases_on_card(name):
         cases = [(name,) + parity.k2_case(name, dev)]
     for label, scene, cfg, state, b in cases:
         table, tris, lv = pmk._tables(scene, cfg, None)
-        n0 = pmk.LAUNCHES["bounce_fwd"]
+        n0 = build.LAUNCHES["bounce_fwd"]
         k = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
         p = pmk.bounce_fwd_plain(table, tris, lv, *state, b, cfg)
         torch.cuda.synchronize()
-        assert pmk.LAUNCHES["bounce_fwd"] == n0 + 1
+        assert build.LAUNCHES["bounce_fwd"] == n0 + 1
         assert parity.check_bitwise(f"bounce_fwd, {label}", k, p) == 0.0
 
 
@@ -704,10 +706,10 @@ def test_cli_render_on_card(tmp_path):
     ck, out = str(tmp_path / "st.npz"), str(tmp_path / "img.npy")
     args = ["render", "--width", "128", "--height", "128", "--bounces", "9",
             "--device", "cuda"]
-    n0 = dict(pmk.LAUNCHES)
+    n0 = dict(build.LAUNCHES)
     assert cli.main(args + ["--frames", "2", "--checkpoint", ck, "--out", out]) == 0
-    assert pmk.LAUNCHES["bounce0_fwd"] - n0["bounce0_fwd"] == 2
-    assert pmk.LAUNCHES["bounce_fwd"] - n0["bounce_fwd"] == 16
+    assert build.LAUNCHES["bounce0_fwd"] - n0["bounce0_fwd"] == 2
+    assert build.LAUNCHES["bounce_fwd"] - n0["bounce_fwd"] == 16
     assert cli.main(args + ["--frames", "2", "--resume", ck, "--out", out]) == 0
     cam = P.Camera.from_angles([0.0, -25.0, 8.5], 1.571, 1.571, device=dev)
     cfg = P.RenderConfig(width=128, height=128, bounces=9)
@@ -785,9 +787,7 @@ def _compiled_case(name: str, dev):
 
 
 def _counts():
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import bvh as pbk
-    return {**pmk.LAUNCHES, **ppanel.LAUNCHES, **pcl.LAUNCHES, **pbk.LAUNCHES,
-            **pmr.LAUNCHES}
+    return dict(build.LAUNCHES)
 
 
 def _since(before):
@@ -836,7 +836,7 @@ def test_compiled_equals_eager_on_card(name):
 
 @pytest.mark.cuda
 def test_k6_rays_counted_per_launch_on_card():
-    """K6's ray counts (clustered.RAYS, by kind) on a compiled render of a
+    """K6's ray counts (build.RAYS, by kind) on a compiled render of a
     large scene with shadow rays: an eager call and each replay add, per
     kind, the rays of every launch (R = W x H x spp, one closest-hit and
     one any-hit launch a bounce and frame), and jit.COUNTS gets the
@@ -850,15 +850,17 @@ def test_k6_rays_counted_per_launch_on_card():
     cam, accel = P.Camera.default(device=dev), P.build_accel(scene, cfg)
     R, frames = cfg.width * cfg.height * cfg.spp, 2
     call = lambda: P.render(scene, cam, cfg, frames=frames, accel=accel)
-    snap = lambda: (dict(pcl.LAUNCHES), dict(pcl.RAYS), dict(jit.COUNTS))
+    k6 = ("clustered_closest", "clustered_any")
+    snap = lambda: ({k: build.LAUNCHES[k] for k in k6}, {k: build.RAYS[k] for k in k6},
+                    dict(jit.COUNTS))
 
     def since(before):
-        return ({k: pcl.LAUNCHES[k] - v for k, v in before[0].items()},
-                {k: pcl.RAYS[k] - v for k, v in before[1].items()},
+        return ({k: build.LAUNCHES[k] - v for k, v in before[0].items()},
+                {k: build.RAYS[k] - v for k, v in before[1].items()},
                 {k: jit.COUNTS[k] - before[2][k] for k in ("clustered_closest_rays",
                                                            "clustered_any_rays", "replays")})
 
-    launches = dict.fromkeys(pcl.LAUNCHES, cfg.bounces * frames)
+    launches = dict.fromkeys(k6, cfg.bounces * frames)
     rays = {k: n * R for k, n in launches.items()}
     with torch.no_grad():
         with jit.disable_jit():
@@ -926,11 +928,11 @@ def test_bvh_kernel_matches_plain_on_card(scene):
                                          parity.shared_edge_rays(sc.geometry))]
     for o, d, t_init in sets + [rays["shadow"]]:
         for cull in (False, True):
-            n0 = pbk.LAUNCHES["bvh_walk"]
+            n0 = build.LAUNCHES["bvh_walk"]
             got = pbk.walk(o, d, t_init, b, cull)
             ref = pbvh.walk_plain(o, d, t_init, b, cull)
             torch.cuda.synchronize()
-            assert pbk.LAUNCHES["bvh_walk"] == n0 + 1
+            assert build.LAUNCHES["bvh_walk"] == n0 + 1
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
             assert (got[0] < t_init).any()
 
@@ -1090,13 +1092,13 @@ def test_resid_kernels_match_plain_on_card(option):
     for name in parity.RESID_CASES:
         scene, cfg, state, b = parity.resid_case(name, option, dev)
         table, tris, lv = pmk._tables(scene, cfg, None)
-        n0 = dict(pmk.LAUNCHES)
+        n0 = dict(build.LAUNCHES)
         kr = pmk.bounce_fwd(table, tris, lv, *state, b, cfg, save_resid=True)
         kc = pmk.bounce_fwd(table, tris, lv, *state, b, cfg)
         pl = pmk.bounce_fwd_plain(table, tris, lv, *state, b, cfg, save_resid=True)
         torch.cuda.synchronize()
-        assert pmk.LAUNCHES["bounce_fwd_resid"] == n0["bounce_fwd_resid"] + 1
-        assert pmk.LAUNCHES["bounce_fwd"] == n0["bounce_fwd"] + 1
+        assert build.LAUNCHES["bounce_fwd_resid"] == n0["bounce_fwd_resid"] + 1
+        assert build.LAUNCHES["bounce_fwd"] == n0["bounce_fwd"] + 1
         assert all(torch.equal(x, y) for x, y in zip(kr[:7], kc)), name
         parity.check_bitwise(name, kr[:7], pl[:7])
         rows = parity.check_resid_rows(name, kr[7], pl[7], kr[3], cfg, lv.shape[0])
@@ -1104,7 +1106,7 @@ def test_resid_kernels_match_plain_on_card(option):
         cot = parity.cotangents(kc[2], gen)
         args = (table, lv, *state, kc[5], kc[6], cot, b, cfg)
         g_r = pmk.bounce_bwd(*args, resid=kr[7])
-        assert pmk.LAUNCHES["bounce_bwd_resid"] == n0["bounce_bwd_resid"] + 1
+        assert build.LAUNCHES["bounce_bwd_resid"] == n0["bounce_bwd_resid"] + 1
         parity.check_resid_bwd(name, g_r, pmk.bounce_bwd(*args), cfg)
         parity.check_grads(name, g_r, pmk.bounce_bwd_plain(*args, resid=pl[7]),
                            parity.BOUNCE_GRADS)
@@ -1131,15 +1133,15 @@ def test_remat_bitwise_on_card(backend):
     out, n = {}, {}
     for remat in (False, True):
         c = dataclasses.replace(cfg, remat=remat)
-        n0 = {**ppanel.LAUNCHES, **pcl.LAUNCHES}
+        names = ("panel_closest", "panel_any", "clustered_closest", "clustered_any")
+        n0 = {k: build.LAUNCHES[k] for k in names}
         torch.use_deterministic_algorithms(True)
         try:
             out[remat] = pgrad.loss_and_grads(scene, cam, c, lambda im: im.mean(), accel=accel)
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-        n[remat] = {k: v - n0[k] for k, v in {**ppanel.LAUNCHES, **pcl.LAUNCHES}.items()
-                    if v != n0[k]}
+        n[remat] = {k: build.LAUNCHES[k] - v for k, v in n0.items() if build.LAUNCHES[k] != v}
     key = "panel_closest" if backend == "pallas" else "clustered_closest"
     assert n[False] == {key: cfg.bounces} and n[True] == {key: 2 * cfg.bounces}
     assert torch.equal(out[False][0], out[True][0])
@@ -1203,7 +1205,7 @@ def test_material_rows_kernel_on_card(name):
     mi, M, layout, dtype = _material_rows_case(name, dev)
     T = mi.shape[0]
     gen = torch.Generator(device=dev).manual_seed(T + M)
-    n0 = dict(pmr.LAUNCHES)
+    n0 = build.LAUNCHES["material_rows_bwd"]
     for kind in ("integers", "normal"):
         values = torch.randn((T, 10), generator=gen, device=dev, dtype=dtype)
         if kind == "integers":
@@ -1218,7 +1220,7 @@ def test_material_rows_kernel_on_card(name):
             scale = torch.zeros_like(ref).index_add_(0, mi, values.double().abs())
             assert ((got.double() - ref).abs() <= 1e-6 * scale).all()
     torch.cuda.synchronize()
-    assert pmr.LAUNCHES == dict(n0, material_rows_bwd=n0["material_rows_bwd"] + 2)
+    assert build.LAUNCHES["material_rows_bwd"] == n0 + 2
 
 
 @pytest.mark.cuda
@@ -1266,10 +1268,10 @@ def test_material_rows_backward_replays_bitwise_on_card(builder):
     compiled = jit.jit(grads)
     with jit.disable_jit():
         eager = [grads(scene.materials, scene.geometry, c) for c in cots]
-    n0 = pmr.LAUNCHES["material_rows_bwd"]
+    n0 = build.LAUNCHES["material_rows_bwd"]
     got = [compiled(scene.materials, scene.geometry, c) for c in cots + cots[:1]]
     torch.cuda.synchronize()
-    assert pmr.LAUNCHES["material_rows_bwd"] - n0 == len(got)
+    assert build.LAUNCHES["material_rows_bwd"] - n0 == len(got)
     for g, e in zip(got, eager + eager[:1]):
         assert all(torch.equal(x, y) for x, y in zip(g, e))
 
@@ -1287,12 +1289,11 @@ def test_fused_shading_bitwise_on_card(name):
     floats apart, as the pipeline stages hand it over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
     scene, cfg, closest, carry, bounce = parity.shade_case(name, torch.device("cuda"))
-    n0 = shade.LAUNCHES["shade"]
+    n0 = build.LAUNCHES["shade"]
     fused, plain, hit = parity.shade_pair(scene, cfg, closest, carry, bounce)
     torch.cuda.synchronize()
-    assert shade.LAUNCHES["shade"] == n0 + 1
+    assert build.LAUNCHES["shade"] == n0 + 1
     assert (hit.rows is not None) == (parity.SHADE_CASES[name][0] in ("bunny", "sponza"))
     parity.check_shade(name, fused, plain)
     if name == "cornell pallas":  # the pipeline stages' state: rows 12 floats apart
@@ -1312,7 +1313,6 @@ def test_fused_render_equals_plain_on_card(backend, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from mini_opencl_raytracer_tpu_torch import jit
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
     dev = torch.device("cuda")
     if backend == "pallas":
         scene = P.cornell_scene(device=dev)
@@ -1324,37 +1324,36 @@ def test_fused_render_equals_plain_on_card(backend, monkeypatch):
     cam, accel = P.Camera.default(device=dev), P.build_accel(scene, cfg)
     call = lambda: P.render(scene, cam, cfg, frames=2, accel=accel)
     with torch.no_grad():
-        n0 = shade.LAUNCHES["shade"]
+        n0 = build.LAUNCHES["shade"]
         with jit.disable_jit():
             eager = call()
         compiled = [call() for _ in range(3)]
         torch.cuda.synchronize()
         # The eager call, the compiled warm-up and two replays.
-        assert shade.LAUNCHES["shade"] - n0 == 4 * 2 * cfg.bounces
+        assert build.LAUNCHES["shade"] - n0 == 4 * 2 * cfg.bounces
         monkeypatch.setattr(integrator, "fused_shading", lambda cfg, o, grad: False)
         with jit.disable_jit():
             plain = call()
     for img in [eager] + compiled:
         assert torch.equal(img, plain)
     monkeypatch.undo()
-    n0, rays = shade.LAUNCHES["shade"], dict(shade.RAYS)
+    n0, rays = build.LAUNCHES["shade"], dict(build.RAYS)
     pgrad.loss_and_grads(scene, cam, dataclasses.replace(cfg, width=64, height=64),
                          lambda im: im.mean(), accel=accel)
     torch.cuda.synchronize()
-    assert shade.LAUNCHES["shade"] == n0 and shade.RAYS["shade_fused"] == rays["shade_fused"]
-    assert shade.RAYS["shade_plain"] > rays["shade_plain"]
+    assert build.LAUNCHES["shade"] == n0 and build.RAYS["shade_fused"] == rays["shade_fused"]
+    assert build.RAYS["shade_plain"] > rays["shade_plain"]
 
 
 @pytest.mark.cuda
 def test_fused_shading_rays_counted_on_card():
     """A replayed render adds R fused rays a bounce and frame to
-    jit.COUNTS["shade_fused_rays"] (and to shade.RAYS), none to
+    jit.COUNTS["shade_fused_rays"] (and to build.RAYS), none to
     ``shade_plain_rays``; with shadow rays every bounce shades in PyTorch
     and the count moves to ``shade_plain_rays``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from mini_opencl_raytracer_tpu_torch import jit
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
     dev = torch.device("cuda")
     scene = P.bunny_scene(target_tris=4000, device=dev)
     cam, frames = P.Camera.default(device=dev), 2
@@ -1365,12 +1364,12 @@ def test_fused_shading_rays_counted_on_card():
         call = lambda: P.render(scene, cam, cfg, frames=frames, accel=accel)
         with torch.no_grad():
             call()              # the key's warm-up (eager) and capture
-            before = dict(shade.RAYS), dict(jit.COUNTS)
+            before = dict(build.RAYS), dict(jit.COUNTS)
             for _ in range(3):
                 call()
         rays = 3 * R * cfg.bounces * frames
-        assert {k: shade.RAYS[k] - v for k, v in before[0].items()} == (
-            dict.fromkeys(shade.RAYS, 0) | {kind: rays})
+        assert {k: build.RAYS[k] - before[0][k] for k in ("shade_fused", "shade_plain")} == (
+            {"shade_fused": 0, "shade_plain": 0} | {kind: rays})
         assert {k: jit.COUNTS[k] - before[1][k] for k in ("shade_fused_rays",
                                                           "shade_plain_rays")} == (
             {"shade_fused_rays": 0, "shade_plain_rays": 0} | {kind + "_rays": rays})

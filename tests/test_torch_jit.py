@@ -50,6 +50,7 @@ from mini_opencl_raytracer_tpu.ops import rng as jrng
 from mini_opencl_raytracer_tpu_torch import jit as pjit
 from mini_opencl_raytracer_tpu_torch.ops import lights as plights
 from mini_opencl_raytracer_tpu_torch.ops import rng as prng
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 from mini_opencl_raytracer_tpu_torch.parallel import comm, shard
 from mini_opencl_raytracer_tpu_torch.parallel import mesh as pmesh
 from mini_opencl_raytracer_tpu_torch.utils import metrics
@@ -550,93 +551,78 @@ NO_RAYS = ("clustered_closest_rays", "clustered_any_rays", "shade_fused_rays",
            "shade_plain_rays")
 
 
-def test_replays_add_the_captured_k6_rays(monkeypatch):
-    """The rays a capture hands K6 (``clustered.RAYS``, by kind) are added
-    by each replay, as its launches are, and into COUNTS as well; the
+@pytest.mark.parametrize("counted, render_kw", [
+    # K6: a closest-hit launch of x's rays and an any-hit launch of idx's.
+    ((("clustered_closest", "clustered_closest"), ("clustered_any", "clustered_any")),
+     dict(bounces=1, shadow_rays=True)),
+    # A bounce's shading: the kernel's launch over x's rays, and the plain
+    # path's idx rays.
+    ((("shade", "shade_fused"), (None, "shade_plain")), dict(bounces=2)),
+], ids=["k6", "shading"])
+def test_replays_add_the_captured_rays(monkeypatch, counted, render_kw):
+    """The rays a capture counts in ``build.RAYS`` (K6's by kind; those the
+    wavefront shades in its fused kernel and in PyTorch) are added by each
+    replay, as its launches are, and into COUNTS as ``<kind>_rays``; the
     eager warm-up adds its own to ``RAYS`` alone, and the capture's are
-    undone. On the CPU the plain version counts no launch and no ray."""
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import clustered
-
+    undone. On the CPU a render counts no launch and no ray."""
     def launch(x, idx):
-        # What the wrappers count for a closest-hit launch of x's rays and
-        # an any-hit launch of idx's.
-        for kind, n in (("clustered_closest", x.shape[0]), ("clustered_any", idx.shape[0])):
-            clustered.LAUNCHES[kind] += 1
-            clustered.RAYS[kind] += n
+        # What the wrappers count for (launch name, ray kind) of each.
+        for (name, kind), n in zip(counted, (x.shape[0], idx.shape[0])):
+            if name:
+                build.LAUNCHES[name] += 1
+            build.RAYS[kind] += n
         return x + 1.0
 
     def since(before):
-        return ({k: clustered.LAUNCHES[k] - v for k, v in before[0].items()},
-                {k: clustered.RAYS[k] - v for k, v in before[1].items()},
+        return ({k: v - before[0][k] for k, v in build.LAUNCHES.items() if v != before[0][k]},
+                {k: v - before[1][k] for k, v in build.RAYS.items() if v != before[1][k]},
                 {k: v for k, v in _deltas(before[2]).items() if k.endswith("_rays")})
 
-    snap = lambda: (dict(clustered.LAUNCHES), dict(clustered.RAYS), dict(pjit.COUNTS))
+    snap = lambda: (dict(build.LAUNCHES), dict(build.RAYS), dict(pjit.COUNTS))
+    names = [name for name, _ in counted if name]
+    (_, first), (_, second) = counted
     x, idx = torch.arange(5.0), torch.arange(3)
     _as_if_on_cuda(monkeypatch, "gloo")
     prog = pjit.jit(launch)
     before = snap()
     prog(x, idx)
-    assert since(before) == ({"clustered_closest": 1, "clustered_any": 1},
-                             {"clustered_closest": 5, "clustered_any": 3},
+    assert since(before) == (dict.fromkeys(names, 1), {first: 5, second: 3},
                              dict.fromkeys(NO_RAYS, 0))
     before = snap()
     for _ in range(3):
         prog(x, idx)
-    assert since(before) == ({"clustered_closest": 3, "clustered_any": 3},
-                             {"clustered_closest": 15, "clustered_any": 9},
-                             dict.fromkeys(NO_RAYS, 0) | {"clustered_closest_rays": 15,
-                                                          "clustered_any_rays": 9})
+    assert since(before) == (dict.fromkeys(names, 3), {first: 15, second: 9},
+                             dict.fromkeys(NO_RAYS, 0) | {first + "_rays": 15,
+                                                          second + "_rays": 9})
     monkeypatch.undo()
     scene = P.bunny_scene(target_tris=4000, device=CPU)
-    cfg = P.RenderConfig(width=8, height=8, bounces=1, shadow_rays=True)
+    cfg = P.RenderConfig(width=8, height=8, **render_kw)
     before = snap()
     P.render(scene, P.Camera.default(device=CPU), cfg, accel=P.build_accel(scene, cfg))
-    assert since(before) == (dict.fromkeys(clustered.LAUNCHES, 0),
-                             dict.fromkeys(clustered.RAYS, 0), dict.fromkeys(NO_RAYS, 0))
+    assert since(before) == ({}, {}, dict.fromkeys(NO_RAYS, 0))
 
 
-def test_replays_add_the_captured_shade_rays(monkeypatch):
-    """The rays a capture shades in the wavefront's fused kernel and in
-    PyTorch (``shade.RAYS``) are added by each replay, as its launches are,
-    and into COUNTS as ``shade_fused_rays`` / ``shade_plain_rays``; the
-    eager warm-up adds its own to ``RAYS`` alone. On the CPU a render
-    shades in PyTorch and counts nothing."""
-    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+def test_replays_carry_a_new_ray_counter(monkeypatch):
+    """A kind of rays that only ``build.RAYS`` names, with nothing of it in
+    jit.py, is carried by three replays into ``RAYS`` and into COUNTS as
+    ``<kind>_rays``."""
+    monkeypatch.setitem(build.RAYS, "probe", 0)
 
-    def launch(x, idx):
-        # What a bounce counts: the kernel's launch over x's rays, and the
-        # plain path's idx rays.
-        shade.LAUNCHES["shade"] += 1
-        shade.RAYS["shade_fused"] += x.shape[0]
-        shade.RAYS["shade_plain"] += idx.shape[0]
+    def launch(x):
+        build.RAYS["probe"] += x.shape[0]
         return x + 1.0
 
-    def since(before):
-        return ({k: shade.LAUNCHES[k] - v for k, v in before[0].items()},
-                {k: shade.RAYS[k] - v for k, v in before[1].items()},
-                {k: v for k, v in _deltas(before[2]).items() if k.endswith("_rays")})
-
-    snap = lambda: (dict(shade.LAUNCHES), dict(shade.RAYS), dict(pjit.COUNTS))
-    x, idx = torch.arange(5.0), torch.arange(3)
     _as_if_on_cuda(monkeypatch, "gloo")
     prog = pjit.jit(launch)
-    before = snap()
-    prog(x, idx)
-    assert since(before) == ({"shade": 1}, {"shade_fused": 5, "shade_plain": 3},
-                             dict.fromkeys(NO_RAYS, 0))
-    before = snap()
-    for _ in range(3):
-        prog(x, idx)
-    assert since(before) == ({"shade": 3}, {"shade_fused": 15, "shade_plain": 9},
-                             dict.fromkeys(NO_RAYS, 0) | {"shade_fused_rays": 15,
-                                                          "shade_plain_rays": 9})
-    monkeypatch.undo()
-    scene = P.bunny_scene(target_tris=4000, device=CPU)
-    cfg = P.RenderConfig(width=8, height=8, bounces=2)
-    before = snap()
-    P.render(scene, P.Camera.default(device=CPU), cfg, accel=P.build_accel(scene, cfg))
-    assert since(before) == ({"shade": 0}, dict.fromkeys(shade.RAYS, 0),
-                             dict.fromkeys(NO_RAYS, 0))
+    x = torch.arange(5.0)
+    try:
+        prog(x)
+        assert build.RAYS["probe"] == 5 and pjit.COUNTS["probe_rays"] == 0
+        for _ in range(3):
+            prog(x)
+        assert build.RAYS["probe"] == 20 and pjit.COUNTS["probe_rays"] == 15
+    finally:
+        pjit.COUNTS.pop("probe_rays", None)
 
 
 def test_replay_outputs_freed_without_the_collector(monkeypatch):

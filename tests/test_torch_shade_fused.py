@@ -17,6 +17,7 @@ import torch
 
 import mini_opencl_raytracer_tpu_torch as P
 from mini_opencl_raytracer_tpu_torch.ops import integrator, shading
+from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
 from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
@@ -97,12 +98,12 @@ def test_cpu_bounces_shade_in_pytorch(monkeypatch):
         raise AssertionError("shade_rows called on the CPU")
 
     monkeypatch.setattr(shade, "shade_rows", refuse)
-    before = dict(shade.RAYS), dict(shade.LAUNCHES)
+    before = dict(build.RAYS), build.LAUNCHES["shade"]
     scene = P.bunny_scene(target_tris=4000, device=CPU)
     cfg = P.RenderConfig(width=16, height=16, bounces=2)
     with torch.no_grad():
         P.render_sample(scene, P.Camera.default(device=CPU), cfg)
-    assert (shade.RAYS, shade.LAUNCHES) == before
+    assert (build.RAYS, build.LAUNCHES["shade"]) == before
 
 
 @pytest.mark.parametrize("name", list(parity.SHADE_CASES))
