@@ -221,6 +221,17 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    bounce 1 and at sponza 3840x2160's bounce 0 (8.29 M rays); and its
    launches and rays in three replays of the compiled config 3 render
    (one a bounce and frame, ``build.RAYS`` all fused).
+20. the wavefront shading's adjoint (``csrc/shade_bwd.cu``: the VJP of
+   phase 19's kernel, where a gradient is taken): against autograd of
+   ``shade_plain`` on ``parity.SHADE_CASES`` under the gradient gates
+   (``parity.check_grads``), every output bitwise equal to a second call;
+   its device time (``device_ms``, 20 calls) against its bound (bytes a
+   ray: o, d, beta, the four cotangents, alive, hit, seed, the three
+   [R, 3] gradients, and the 136-byte row and its gradient) and the plain
+   version's (3 calls), at config 3's bounce 0 and sorted bounce 1; and
+   per replay of the compiled config 3 step: two forward and one adjoint
+   launch a bounce, ``jit.COUNTS`` 4 x R fused, 2 x R adjoint rays and
+   none shaded in PyTorch.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -246,7 +257,8 @@ import time
 _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
 KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
-           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd", "shade")
+           "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd", "shade",
+           "shade_adjoint")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
@@ -254,7 +266,7 @@ SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megake
            "bounce_bwd_resid": _CSRC + "megakernel_bwd.cu",
            "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
            "bvh_walk": _CSRC + "bvh.cu", "material_rows_bwd": _CSRC + "material_rows.cu",
-           "shade": _CSRC + "shade.cu"}
+           "shade": _CSRC + "shade.cu", "shade_adjoint": _CSRC + "shade_bwd.cu"}
 # The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
 # a jnp while_loop.
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
@@ -270,7 +282,10 @@ REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "me
             "material_rows_bwd": "mini_opencl_raytracer_tpu/ops/shading.py:111 jnp.take's VJP",
             # Nor the wavefront's shading: hit_attributes and the shading of
             # make_bounce_core's bounce_step, which XLA fuses.
-            "shade": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's shading"}
+            "shade": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's shading",
+            # Nor its adjoint: jax.vjp of that shading, which XLA fuses.
+            "shade_adjoint": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's "
+                             "shading, its VJP"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1152,7 +1167,7 @@ def kernel_counts() -> dict:
     nonzero entries only."""
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     return {k: v for k, v in build.LAUNCHES.items()
-            if v and k not in ("material_rows_bwd", "shade")}
+            if v and k not in ("material_rows_bwd", "shade", "shade_adjoint")}
 
 
 def reset_all() -> None:
@@ -2281,6 +2296,77 @@ def phase19(mrt, torch, parity, dev, card: str, cam) -> dict:
     return row
 
 
+def adjoint_time(torch, parity, shade, card: str, label: str, scene, cfg, closest, carry,
+                 bounce: int) -> dict:
+    """The shading's adjoint at one bounce of ``carry`` against its plain
+    version under the gradient gates, bitwise call to call, then its device
+    time (20 calls), the plain version's (events, 3 calls) and its bound:
+    per ray o, d, beta, the four cotangents and the three gradients (o
+    once where it is the camera's broadcast origin), alive, hit and the
+    seed, and the 136-byte row and its gradient (every row's gradient is
+    written)."""
+    gen = torch.Generator(device=carry[0].device).manual_seed(13)
+    args = parity.adjoint_inputs(scene, cfg, closest, carry, gen)
+    got = shade.shade_adjoint(*args, bounce, cfg)
+    again = shade.shade_adjoint(*args, bounce, cfg)
+    stats = parity.check_grads(f"[20 adjoint] {label}", got,
+                               shade.shade_adjoint_plain(*args, bounce, cfg), parity.SHADE_GRADS)
+    for n, a, b in zip(parity.SHADE_GRADS, got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[20 adjoint] {label}: {n} differs between two calls")
+    ms = device_ms(lambda: shade.shade_adjoint(*args, bounce, cfg))
+    plain_ms = time_ms(lambda: shade.shade_adjoint_plain(*args, bounce, cfg), 3)
+    o, alive, hit = args[1], args[4], args[5]
+    R, need = alive.shape[0], int((alive & hit).sum().item())
+    b = bound(R * (12 * 9 + 2 + 8 + 136) + (12 if o.stride(0) == 0 else 12 * R) + need * 136, 0)
+    log(f"[20 adjoint] {label}: {R} rays, {need} with a winner; within the gates "
+        f"(max |diff| {stats['max_abs_err']:.3g}), bitwise call to call; kernel {ms:.4f} ms "
+        f"(device, 20 calls), plain {plain_ms:.3f} ms (3); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), {b['bound_ms'] / ms:.1%} of the kernel ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b, "err": stats["max_abs_err"]}
+
+
+def phase20(mrt, torch, parity, dev, card: str, cam) -> dict:
+    """20. The wavefront shading's adjoint (module docstring, phase 20).
+    Returns the kernel's summary row: time at config 3's bounce 0, launches
+    of a compiled config 3 step's replay."""
+    from mini_opencl_raytracer_tpu_torch import grad, jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build, shade
+    t_phase = time.perf_counter()
+    row, err = None, 0.0
+    for name in parity.SHADE_CASES:
+        scene, cfg, closest, carry, b = parity.shade_case(name, dev)
+        r = adjoint_time(torch, parity, shade, card, name, scene, cfg, closest, carry, b)
+        err = max(err, r["err"])
+        row = row or r
+    bunny = mrt.bunny_scene(device=dev)
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    acc3 = mrt.build_accel(bunny, cfg3)
+    step = jit.jit(lambda s, c, a: grad.loss_and_grads(s, c, cfg3, lambda im: im.mean(),
+                                                       accel=a))
+    step(bunny, cam, acc3)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    keys = ("shade_fused_rays", "shade_adjoint_rays", "shade_plain_rays")
+    before = {k: jit.COUNTS[k] for k in keys}
+    for _ in range(3):
+        step(bunny, cam, acc3)
+    torch.cuda.synchronize()
+    R = cfg3.num_pixels
+    counts = launch_counts("shade", "shade_adjoint")
+    rays = {k: jit.COUNTS[k] - v for k, v in before.items()}
+    want = ({"shade": 3 * 2 * cfg3.bounces, "shade_adjoint": 3 * cfg3.bounces},
+            {"shade_fused_rays": 3 * 2 * cfg3.bounces * R,
+             "shade_adjoint_rays": 3 * cfg3.bounces * R, "shade_plain_rays": 0})
+    if (counts, rays) != want:
+        raise AssertionError(f"[20 adjoint] 3 replays of the config 3 step: launches {counts}, "
+                             f"rays {rays}; expected {want}")
+    log(f"[20 adjoint] 3 replays of the compiled config 3 step: launches {counts}, rays {rays}")
+    row = dict(row, launches=cfg3.bounces, err=err)
+    log(f"[20 adjoint] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3114,6 +3200,13 @@ def main() -> int:
     max_err["shade"] = 0.0
     times["shade"] = (r["ms"], r["plain_ms"])
     bounds["shade"] = r["bound"]
+
+    # 20. The wavefront shading's adjoint.
+    r = phase20(mrt, torch, parity, dev, card, cam)
+    launches["shade_adjoint"] = r["launches"]
+    max_err["shade_adjoint"] = r["err"]
+    times["shade_adjoint"] = (r["ms"], r["plain_ms"])
+    bounds["shade_adjoint"] = r["bound"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -346,7 +346,7 @@ bounce_fwd_kernel(MegaParams p, const float* __restrict__ tab, const float* __re
 }
 
 // The mega path's scene limit (ops/cuda/megakernel.py _MAX_TRIS,
-// _MAX_LIGHTS): the most a block stages.
+// MAX_LIGHTS): the most a block stages.
 constexpr int kMaxTris = 2048, kMaxLights = 30;
 
 size_t smem_bytes(const MegaParams& p) {

@@ -75,8 +75,9 @@ synchronised on both sides of each, on a key's first call only), and
 ``eager``, the calls that ran without a graph (on the CPU, or on CUDA
 over a gloo group); and ``<name>_rays`` for each name of
 ``build.RAYS`` (``clustered_closest_rays`` / ``clustered_any_rays``, the
-rays handed to K6; ``shade_fused_rays`` / ``shade_plain_rays``, the rays
-the wavefront shaded in its fused kernel and in PyTorch), the rays that
+rays handed to K6; ``shade_fused_rays`` / ``shade_adjoint_rays`` /
+``shade_plain_rays``, the rays the wavefront shaded in its fused kernel,
+differentiated in its adjoint kernel and shaded in PyTorch), the rays that
 a key's capture counted, added per replay: over ``replays``, a steady
 call's rays, which no eager call dilutes. The benchmark (``portbench/metrics/jit_*``,
 ``k6_ns_per_ray.render``) reads the spans from its trace and ``COUNTS``

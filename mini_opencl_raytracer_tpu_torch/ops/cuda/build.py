@@ -14,7 +14,8 @@ checks its error and counts it; ``check_tensor`` and ``refuse_grad`` check
 a wrapper's inputs. ``LAUNCHES`` counts the launches by name and ``RAYS``
 the rays each kind of launch was handed (each launch's R, from its shapes
 on the host; ``shade_plain`` counts the rays the integrator shades in
-PyTorch on a CUDA device instead). A compiled program's replays add what
+PyTorch on a CUDA device instead, ``shade_adjoint`` those the shading's
+adjoint kernel differentiates). A compiled program's replays add what
 its capture counted to both (jit.py), and ``RAYS`` also to ``jit.COUNTS``
 as ``<name>_rays``. Plain runs on the CPU count nothing.
 """
@@ -79,6 +80,10 @@ _SIGNATURES = {
     #  then o, d, beta, rad each with its row stride, o_out, d_out, beta_out,
     #  rad_out, alive_out, stream)
     "mrt_shade": ([_P] * 8 + [_P, ctypes.c_longlong] * 4 + [_P] * 6, _I),
+    # csrc/shade_bwd.cu: (params, grid, rows, hit, alive, seeds, lights, then
+    #  o, d, beta, the cotangents co, cd, cbeta, crad each with its row
+    #  stride, part, d_o, d_d, d_beta, d_rows, d_lights, stream)
+    "mrt_shade_bwd": ([_P, _I] + [_P] * 5 + [_P, ctypes.c_longlong] * 7 + [_P] * 7, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -91,10 +96,11 @@ _ENTRIES = {
     "panel_closest": "mrt_panel", "panel_any": "mrt_panel",
     "clustered_closest": "mrt_clustered", "clustered_any": "mrt_clustered",
     "bvh_walk": "mrt_bvh_walk", "material_rows_bwd": "mrt_material_rows_bwd",
-    "shade": "mrt_shade",
+    "shade": "mrt_shade", "shade_adjoint": "mrt_shade_bwd",
 }
 LAUNCHES = dict.fromkeys(_ENTRIES, 0)
-RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain"), 0)
+RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain",
+                      "shade_adjoint"), 0)
 
 _LIB: Optional[ctypes.CDLL] = None
 LAST_BUILD_LOG = ""

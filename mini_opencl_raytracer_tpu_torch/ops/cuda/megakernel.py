@@ -97,8 +97,9 @@ def rows_read(cfg: RenderConfig, num_lights: int) -> Dict[str, List[int]]:
 # dispatch parity (there a TPU VMEM bound; re-deriving it from Hopper's
 # shared memory is queued in ROADMAP.md).
 _MAX_TRIS = 2048
-# The per-light occlusion bitmask is an int32.
-_MAX_LIGHTS = 30
+# The per-light occlusion bitmask is an int32; the adjoints (K3, K4 and
+# the wavefront's shade_adjoint) stage as many lights (kMaxLights).
+MAX_LIGHTS = 30
 _TRI_BLOCK = 64
 
 # Shading-table row layout ([C_PAD, T_pad] attribute rows x triangles, the
@@ -198,9 +199,9 @@ def unpack_lights(lv: torch.Tensor) -> Lights:
 
 def eligible(scene: Scene, cfg: RenderConfig) -> bool:
     """The mega path serves scenes up to _MAX_TRIS triangles and
-    _MAX_LIGHTS lights in float32, as in the JAX package."""
+    MAX_LIGHTS lights in float32, as in the JAX package."""
     return (scene.num_triangles <= _MAX_TRIS
-            and scene.lights.count <= _MAX_LIGHTS
+            and scene.lights.count <= MAX_LIGHTS
             and cfg.torch_dtype() == torch.float32)
 
 
@@ -368,8 +369,8 @@ def _check_tables(table_rows, lights, cfg, device, T_pad, tensors):
     if cfg.torch_dtype() != torch.float32:
         raise TypeError(f"the mega path renders in float32, not {cfg.dtype}")
     L = lights.shape[0]
-    if L > _MAX_LIGHTS:
-        raise ValueError(f"mega path takes at most {_MAX_LIGHTS} lights, got {L}")
+    if L > MAX_LIGHTS:
+        raise ValueError(f"mega path takes at most {MAX_LIGHTS} lights, got {L}")
     check_tensor(table_rows, "table_rows", torch.float32, (T_pad, _C_PAD), device)
     check_tensor(lights, "lights", torch.float32, (L, LIGHT_COLS), device)
 
@@ -554,7 +555,7 @@ def bwd_plan(R: int, T_pad: int, L: int, sms: int, first: bool) -> BwdPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -567,7 +568,7 @@ def _bwd_launch(name: str, device, p: _Params, plan: BwdPlan, tensors, extra=())
             plan.grid, int(plan.smem_table))
 
 
-def _device_index(device) -> int:
+def device_index(device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
@@ -594,7 +595,7 @@ def bounce0_bwd(table_rows, lights, camv, pixel_ids, frame, winner, occ,
     out = (new((T_pad, _C_PAD), **f32), new((L, LIGHT_COLS), **f32),
            new((_CAM_COLS,), **f32))
     if R:
-        plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), True)
+        plan = bwd_plan(R, T_pad, L, sm_count(device_index(device)), True)
         _bwd_launch("bounce0_bwd", device, params(cfg, R, T_pad, L, 0), plan,
                     (frame_word(frame, device), table_rows, lights, camv, pixel_ids,
                      winner, occ)
@@ -634,7 +635,7 @@ def bounce_bwd(table_rows, lights, o, d, beta, alive, seeds, winner, occ, cot,
     out = (new((3, R), **f32), new((3, R), **f32), new((3, R), **f32),
            new((T_pad, _C_PAD), **f32), new((L, LIGHT_COLS), **f32))
     if R:
-        plan = bwd_plan(R, T_pad, L, _sm_count(_device_index(device)), False)
+        plan = bwd_plan(R, T_pad, L, sm_count(device_index(device)), False)
         res = resid is not None
         _bwd_launch("bounce_bwd_resid" if res else "bounce_bwd", device,
                     params(cfg, R, T_pad, L, bounce, resid=res), plan,
@@ -730,7 +731,7 @@ def _tables(scene: Scene, cfg: RenderConfig, accel):
         raise ValueError(
             "megakernel backend requires <= %d triangles, <= %d lights and "
             "float32 (got T=%d, L=%d, dtype=%s)"
-            % (_MAX_TRIS, _MAX_LIGHTS, scene.num_triangles,
+            % (_MAX_TRIS, MAX_LIGHTS, scene.num_triangles,
                scene.lights.count, cfg.dtype))
     table_rows = build_mega_table(scene.geometry, scene.materials).T.contiguous()
     lv = pack_lights(scene.lights).contiguous()

@@ -49,7 +49,9 @@ BOUNCE_FLOATS = ("o", "d", "beta", "alive", "radiance")
 # Outputs of the backward wrappers, and which are per ray.
 BOUNCE0_GRADS = ("d_table", "d_lights", "d_camv")
 BOUNCE_GRADS = ("d_o", "d_d", "d_beta", "d_table", "d_lights")
-PER_RAY = ("d_o", "d_d", "d_beta")
+# The wavefront shading's adjoint (ops/cuda/shade.shade_adjoint).
+SHADE_GRADS = ("d_o", "d_d", "d_beta", "d_rows", "d_lights")
+PER_RAY = ("d_o", "d_d", "d_beta", "d_rows")
 
 
 def check_float(label: str, kernel: torch.Tensor, plain: torch.Tensor) -> dict:
@@ -821,3 +823,20 @@ def check_shade(label: str, fused, plain) -> None:
     if bad:
         raise AssertionError(f"{label}: not bitwise hit_attributes + shade_hit: "
                              f"{', '.join(bad)}")
+
+
+def adjoint_inputs(scene: Scene, cfg, closest, carry, gen: torch.Generator):
+    """(rows, o, d, beta, alive, hit, seeds, lights, cot): the inputs of
+    ``shade.shade_adjoint`` on one closest hit of the carry's rays, the
+    winners' rows (``shading.winner_rows``), the packed lights and seeded
+    standard-normal cotangents of the next (o, d, beta, radiance), [R, 3]
+    each, on the carry's device."""
+    from ..shading import winner_rows
+    from .megakernel import pack_lights
+    o, d, beta, _, alive, seeds = carry
+    with torch.no_grad():
+        hit = closest(o, d)
+        rows = winner_rows(build_shading_table(scene.geometry, scene.materials).table, hit)
+        cot = tuple(torch.randn(beta.shape, generator=gen, device=beta.device)
+                    for _ in range(4))
+    return rows, o, d, beta, alive, hit.hit, seeds, pack_lights(scene.lights), cot

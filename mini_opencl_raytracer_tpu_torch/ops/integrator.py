@@ -14,11 +14,15 @@ every ray advancing in lockstep under an ``alive`` mask:
 
 ``shade_hit`` is everything after the closest hit. It is shared by the
 wavefront integrator here and by the plain versions of the CUDA bounce
-kernels (ops/cuda/megakernel.py), so both run the same arithmetic. Where
-``fused_shading`` holds (a CUDA device, float32, no shadow rays, no
-gradient taken), a bounce runs ``hit_attributes`` and ``shade_hit`` as one
-kernel instead (ops/cuda/shade.py, csrc/shade.cu), whose outputs are
-theirs bit for bit.
+kernels (ops/cuda/megakernel.py), so both run the same arithmetic. A
+bounce shades by one of three routes (``shading_route``), chosen by what
+its input shows: on a CUDA device, in float32 and without shadow rays,
+``hit_attributes`` and ``shade_hit`` run as one kernel (ops/cuda/shade.py,
+csrc/shade.cu), whose outputs are theirs bit for bit: alone where no
+gradient is taken ("fused"), and where one is, with at most
+``megakernel.MAX_LIGHTS`` lights, as an autograd Function whose backward is the
+kernel of csrc/shade_bwd.cu ("adjoint"); anything else runs them in
+PyTorch ("plain").
 
 Above SORT_RAYS_MIN_TRIS triangles (or as ``cfg.sort_rays`` says) the
 wavefront is coherence-sorted between bounces (``_trace_paths_sorted``)
@@ -38,7 +42,6 @@ holding every bounce's autograd graph.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Callable, Optional
 
@@ -144,12 +147,21 @@ def shade_hit(at: HitAttributes, hit: torch.Tensor, o, d, beta, radiance,
     return o_next, d_next, beta_new, radiance, lo, dl.occ_bits
 
 
-def fused_shading(cfg: RenderConfig, o: torch.Tensor, grad: bool) -> bool:
-    """Whether a bounce shades in one kernel (ops/cuda/shade.py): rays on a
-    CUDA device, float32, no shadow rays (the any-hit call sits inside the
-    light loop) and no gradient taken (``grad``, ``_grad_taken``)."""
-    return (o.is_cuda and cfg.torch_dtype() == torch.float32 and not cfg.shadow_rays
-            and not grad)
+def shading_route(cfg: RenderConfig, o: torch.Tensor, grad: bool, num_lights: int) -> str:
+    """How a bounce shades (ops/cuda/shade.py): "fused" (``shade_rows``, one
+    kernel) for rays on a CUDA device, in float32, without shadow rays (the
+    any-hit call sits inside the light loop) and with no gradient taken
+    (``grad``, ``_grad_taken``); "adjoint" (``shade_grad``: that kernel
+    forward, its adjoint kernel backward) where the same holds but a
+    gradient is taken, with at most ``megakernel.MAX_LIGHTS`` lights (the
+    adjoint's shared staging); else "plain" (``hit_attributes`` +
+    ``shade_hit``)."""
+    from .cuda.megakernel import MAX_LIGHTS
+    if not (o.is_cuda and cfg.torch_dtype() == torch.float32 and not cfg.shadow_rays):
+        return "plain"
+    if not grad:
+        return "fused"
+    return "adjoint" if num_lights <= MAX_LIGHTS else "plain"
 
 
 def make_bounce_core(scene: Scene, cfg: RenderConfig,
@@ -161,15 +173,18 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
     from .cuda import build, megakernel, shade
     st = build_shading_table(scene.geometry, scene.materials)
     scene_grad = _scene_grad(scene)
-    # The [L, 16] lights of the fused kernel, packed at its first bounce.
-    packed_lights = functools.cache(lambda: megakernel.pack_lights(scene.lights))
+    # The [L, 16] lights of the kernels, packed here, outside any bounce's
+    # checkpoint, as the table is: their gradient reaches the light leaves.
+    lights = megakernel.pack_lights(scene.lights)
 
     def bounce_step(carry, bounce: int):
         o, d, beta, radiance, alive, seeds = carry
         hit = intersect_fn(o, d)
-        if fused_shading(cfg, o, _grad_taken(scene_grad, carry)):
-            return shade.shade_rows(hit, st.table, o, d, beta, radiance, alive, seeds,
-                                    bounce, packed_lights(), cfg) + (seeds,)
+        route = shading_route(cfg, o, _grad_taken(scene_grad, carry), scene.lights.count)
+        if route != "plain":
+            shade_fn = shade.shade_rows if route == "fused" else shade.shade_grad
+            return shade_fn(hit, st.table, o, d, beta, radiance, alive, seeds, bounce, lights,
+                            cfg) + (seeds,)
         if o.is_cuda:
             build.RAYS["shade_plain"] += o.shape[0]
         at = hit_attributes(o, d, hit, st, backface_cull=cfg.backface_cull,

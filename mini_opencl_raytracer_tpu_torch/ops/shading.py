@@ -165,18 +165,24 @@ def winner_attributes(o, d, hit, v0, e1, e2, n0, n1, n2, kd, ks, ke, ns,
                          ns=ns, coverage=coverage)
 
 
+def winner_rows(table: torch.Tensor, hit: Hit) -> torch.Tensor:
+    """[R, C] rows of the winners of ``hit`` in ``table`` [T, C]: the rows
+    the intersector fetched (``hit.rows``), given the gather's gradient
+    where one reaches the table, else ``take_rows``."""
+    if hit.rows is None:
+        return take_rows(table, hit.tri_idx)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _PrecomputedRows.apply(table, hit.tri_idx, hit.rows)
+    return hit.rows
+
+
 def hit_attributes(o: torch.Tensor, d: torch.Tensor, hit: Hit,
                    st: ShadingTable, backface_cull: bool = False,
                    soft_sigma: float = 0.0) -> HitAttributes:
     """Fetch the winning triangle's row and recompute the intersection on
     it; ``soft_sigma`` > 0 adds the soft edge coverage. Rows the
     intersector fetched (``hit.rows``) are used as they are."""
-    if hit.rows is None:
-        rows = take_rows(st.table, hit.tri_idx)
-    elif st.table.requires_grad and torch.is_grad_enabled():
-        rows = _PrecomputedRows.apply(st.table, hit.tri_idx, hit.rows)
-    else:
-        rows = hit.rows
+    rows = winner_rows(st.table, hit)
 
     def c(off, n=3):
         return rows[:, off:off + n]

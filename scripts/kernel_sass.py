@@ -14,7 +14,12 @@ its mix and its MUFU.RCP count: in the intersection kernels one RCP is one
 Möller–Trumbore test's 1 / det, so instructions / RCP is the static size
 of a test in that loop. Counts are static, not executed instructions.
 ``--listing`` also prints each innermost loop's instructions.
-Needs ``nvcc`` and ``cuobjdump``.
+``--against ROOT`` builds the library of another checkout too (in that
+checkout's ``build/``) and says, per kernel whose name contains
+``--match``, whether its SASS is the same instruction for instruction in
+both (kernels by demangled name; where a source defines a kernel in each
+of two files, as ``finish_kernel``, any copy that matches counts).
+Needs ``nvcc``, ``cuobjdump`` and ``cu++filt``.
 """
 
 from __future__ import annotations
@@ -72,10 +77,45 @@ def sass_mix(lib: Path, match: str):
     return mix, loops
 
 
+def _tool(name: str) -> str:
+    return shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+
+
+def sass_text(lib: Path, match: str) -> dict:
+    """{demangled kernel name: [its SASS lines, one list per copy]} of the
+    kernels whose name contains ``match``."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    code, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = subprocess.run([_tool("cu++filt"), m.group(1)], capture_output=True,
+                                  text=True).stdout.strip() or m.group(1)
+            cur = code.setdefault(name, []) if match in name else None
+            if cur is not None:
+                cur.append([])
+                cur = cur[-1]
+            continue
+        if cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            cur.append(line.strip())
+    return code
+
+
+def build_other(root: Path) -> Path:
+    """Build the kernel library of the checkout at ``root`` in its own
+    process; return its path."""
+    out = subprocess.run([sys.executable, "-c", "from mini_opencl_raytracer_tpu_torch.ops.cuda "
+                          "import build; print(build.build())"], cwd=root, check=True,
+                         capture_output=True, text=True).stdout
+    return Path(out.strip().splitlines()[-1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--match", default="bwd")
     ap.add_argument("--listing", action="store_true")
+    ap.add_argument("--against", metavar="ROOT", type=Path)
     args = ap.parse_args()
     from mini_opencl_raytracer_tpu_torch.ops.cuda import build
     build.library_path().unlink(missing_ok=True)  # rebuild, so that ptxas reports
@@ -95,6 +135,15 @@ def main() -> int:
                   f"{lc['RCP']}{per}; " + ", ".join(f"{k} {lc[k]}" for k in CLASSES))
             if args.listing:
                 print("\n".join(f"    {t}" for t in text))
+    if args.against:
+        other = build_other(args.against.resolve())
+        mine, theirs = sass_text(lib, args.match), sass_text(other, args.match)
+        for name in sorted(set(mine) | set(theirs)):
+            a, b = mine.get(name, []), theirs.get(name, [])
+            same = any(x == y for x in a for y in b)
+            print(f"against {args.against}: {name}: "
+                  f"{'same SASS' if same else 'SASS differs' if a and b else 'in one only'} "
+                  f"({[len(x) for x in a]} / {[len(y) for y in b]} instructions)")
     return 0
 
 

@@ -59,3 +59,36 @@ def test_launch_checks_then_counts(monkeypatch, err):
         assert build.LAUNCHES == before[0] | {"clustered_any": before[0]["clustered_any"] + 1}
         assert build.RAYS == before[1] | {"clustered_any": before[1]["clustered_any"] + 9}
     assert lib.calls == [(7, t.data_ptr(), None, STREAM, STREAM)]
+
+
+def _entry_points():
+    """{name: [C parameter types]} of every ``extern "C"`` function of
+    csrc/*.cu, read from the sources."""
+    import re
+    out = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" [\w\s\*]+?\b(mrt_\w+)\(([^)]*)\)', text):
+            params = [" ".join(p.split()) for p in m.group(2).split(",") if p.strip()]
+            out[m.group(1)] = [re.sub(r"\s*\b\w+$", "", p) if p != "void" else p
+                               for p in params]
+    return out
+
+
+def _ctype(c_type: str):
+    if "*" in c_type:
+        return build._P
+    return {"int": build._I, "long long": __import__("ctypes").c_longlong}[c_type]
+
+
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_signatures_match_the_entry_points(name):
+    """Each entry point's ctypes signature in ``build._SIGNATURES`` has the
+    C function's parameters, in number and kind (a pointer as c_void_p,
+    int as c_int, long long as c_longlong), read from csrc/*.cu; every
+    launch name maps to a declared entry."""
+    entries = _entry_points()
+    assert name in entries, f"{name} is not an extern \"C\" function of csrc/*.cu"
+    argtypes, _ = build._SIGNATURES[name]
+    assert argtypes == [_ctype(t) for t in entries[name]], entries[name]
+    assert set(build._ENTRIES.values()) <= set(build._SIGNATURES)

@@ -1,6 +1,6 @@
 """The CUDA kernels (the bounce kernels forward and backward, the panel
 and cluster-traversal intersectors, the LBVH walk, the material gather's
-backward, the wavefront's fused shading) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
+backward, the wavefront's fused shading and its adjoint) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
 the parallel entry points included on an NCCL group of one process.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
@@ -38,6 +38,7 @@ from mini_opencl_raytracer_tpu_torch.ops.cuda import material_rows as pmr
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
 from mini_opencl_raytracer_tpu_torch.ops.cuda import panel as ppanel
 from mini_opencl_raytracer_tpu_torch.ops.cuda import parity
+from mini_opencl_raytracer_tpu_torch.ops.cuda import shade as pshade
 from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
 
 
@@ -1309,7 +1310,8 @@ def test_fused_render_equals_plain_on_card(backend, monkeypatch):
     """A render whose bounces shade in the kernel equals, bit for bit, the
     render with every bounce shaded by hit_attributes + shade_hit (the
     rule turned off), compiled and eager; a training step under grad
-    shades in PyTorch, the kernel not launched."""
+    shades in the kernel and differentiates in the adjoint kernel (remat:
+    two forward launches a bounce, one adjoint launch), none in PyTorch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from mini_opencl_raytracer_tpu_torch import jit
@@ -1331,18 +1333,22 @@ def test_fused_render_equals_plain_on_card(backend, monkeypatch):
         torch.cuda.synchronize()
         # The eager call, the compiled warm-up and two replays.
         assert build.LAUNCHES["shade"] - n0 == 4 * 2 * cfg.bounces
-        monkeypatch.setattr(integrator, "fused_shading", lambda cfg, o, grad: False)
+        monkeypatch.setattr(integrator, "shading_route", lambda cfg, o, grad, n: "plain")
         with jit.disable_jit():
             plain = call()
     for img in [eager] + compiled:
         assert torch.equal(img, plain)
     monkeypatch.undo()
-    n0, rays = build.LAUNCHES["shade"], dict(build.RAYS)
-    pgrad.loss_and_grads(scene, cam, dataclasses.replace(cfg, width=64, height=64),
-                         lambda im: im.mean(), accel=accel)
+    n0, rays = dict(build.LAUNCHES), dict(build.RAYS)
+    small = dataclasses.replace(cfg, width=64, height=64)
+    pgrad.loss_and_grads(scene, cam, small, lambda im: im.mean(), accel=accel)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["shade"] == n0 and build.RAYS["shade_fused"] == rays["shade_fused"]
-    assert build.RAYS["shade_plain"] > rays["shade_plain"]
+    R = small.width * small.height * small.spp
+    assert {k: build.LAUNCHES[k] - n0[k] for k in ("shade", "shade_adjoint")} == {
+        "shade": 2 * cfg.bounces, "shade_adjoint": cfg.bounces}
+    assert {k: build.RAYS[k] - rays[k] for k in ("shade_fused", "shade_adjoint",
+                                                  "shade_plain")} == {
+        "shade_fused": 2 * cfg.bounces * R, "shade_adjoint": cfg.bounces * R, "shade_plain": 0}
 
 
 @pytest.mark.cuda
@@ -1373,3 +1379,155 @@ def test_fused_shading_rays_counted_on_card():
         assert {k: jit.COUNTS[k] - before[1][k] for k in ("shade_fused_rays",
                                                           "shade_plain_rays")} == (
             {"shade_fused_rays": 0, "shade_plain_rays": 0} | {kind + "_rays": rays})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(parity.SHADE_CASES))
+def test_shade_adjoint_matches_plain_on_card(name):
+    """The wavefront shading's adjoint (csrc/shade_bwd.cu) against autograd
+    of shade_plain, its plain version, on the cases of parity.SHADE_CASES
+    (the bunny and sponza with K6's rows, Cornell without, each flag, 30
+    lights of three types) under K4's gates (parity.check_grads: d o, d d,
+    d beta and the rows' gradient by the scaled forward gate, the light
+    gradient within 2e-3 of its largest); a second call bitwise the first;
+    one launch and R rays counted a call. On Cornell also the state with
+    its rows 12 floats apart, as the pipeline stages hand it over, and a
+    radiance cotangent broadcast along the rays, each bitwise the dense
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    scene, cfg, closest, carry, bounce = parity.shade_case(name, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = parity.adjoint_inputs(scene, cfg, closest, carry, gen)
+    R = carry[4].shape[0]
+    n0, r0 = build.LAUNCHES["shade_adjoint"], build.RAYS["shade_adjoint"]
+    got = [pshade.shade_adjoint(*args, bounce, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["shade_adjoint"] - n0, build.RAYS["shade_adjoint"] - r0) == (2, 2 * R)
+    parity.check_grads(name, got[0], pshade.shade_adjoint_plain(*args, bounce, cfg),
+                       parity.SHADE_GRADS)
+    for n, a, b in zip(parity.SHADE_GRADS, *got):
+        assert torch.equal(a, b), f"{n} differs between two calls"
+    if name == "cornell pallas":
+        rows, o, d, beta, alive, hit, seeds, lv, cot = args
+        packed = torch.cat([o.expand(R, 3), d, beta, beta], dim=1)
+        strided = tuple(packed[:, 3 * k:3 * k + 3] for k in range(3))
+        again = pshade.shade_adjoint(rows, *strided, alive, hit, seeds, lv, cot, bounce, cfg)
+        broad = cot[3][:1].expand(R, 3)
+        dense = cot[:3] + (broad.contiguous(),)
+        want = pshade.shade_adjoint(*args[:8], dense, bounce, cfg)
+        seen = pshade.shade_adjoint(*args[:8], cot[:3] + (broad,), bounce, cfg)
+        for n, a, b, c, e in zip(parity.SHADE_GRADS, got[0], again, want, seen):
+            assert torch.equal(a, b), f"{n}, strided state"
+            assert torch.equal(c, e), f"{n}, broadcast cotangent"
+
+
+@pytest.mark.cuda
+def test_adjoint_step_on_card(monkeypatch):
+    """A compiled training step of a bunny-scale scene (69,732 triangles,
+    256x256 x 2 bounces: K6, sorted, remat) shades through the adjoint
+    route: each replay adds 2 bounces x 2 (forward and recompute) x R fused
+    rays, 2 x R adjoint rays and no ray shaded in PyTorch to jit.COUNTS;
+    its loss and every gradient are within the gradient gate of the same
+    step shaded in PyTorch (the route turned off); and, eager under
+    torch.use_deterministic_algorithms (the table's index_add_ otherwise
+    sums with atomics), remat on and off give the loss and every gradient
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    dev = torch.device("cuda")
+    scene, cam = P.bunny_scene(device=dev), P.Camera.default(device=dev)
+    cfg = P.RenderConfig(width=256, height=256, bounces=2)
+    accel = P.build_accel(scene, cfg)
+    R = cfg.width * cfg.height * cfg.spp
+    loss = lambda im: ((im - 0.25) ** 2).mean()
+    step = jit.jit(lambda s, c, a: pgrad.loss_and_grads(s, c, cfg, loss, accel=a))
+    step(scene, cam, accel)           # the key's warm-up (eager) and capture
+    keys = ("shade_fused_rays", "shade_adjoint_rays", "shade_plain_rays", "replays")
+    before = {k: jit.COUNTS[k] for k in keys}
+    for _ in range(2):
+        got = step(scene, cam, accel)
+    torch.cuda.synchronize()
+    assert {k: jit.COUNTS[k] - v for k, v in before.items()} == {
+        "shade_fused_rays": 2 * 4 * R, "shade_adjoint_rays": 2 * 2 * R,
+        "shade_plain_rays": 0, "replays": 2}
+    monkeypatch.setattr(integrator, "shading_route", lambda cfg, o, grad, n: "plain")
+    with jit.disable_jit():
+        ref = pgrad.loss_and_grads(scene, cam, cfg, loss, accel=accel)
+    monkeypatch.undo()
+    parity.check_grad_sum("loss", got[0], ref[0])
+    for part in (1, 2):
+        for (k, a), (_, b) in zip(pgrad._leaves(got[part]), pgrad._leaves(ref[part])):
+            if a.is_floating_point():
+                parity.check_grad_sum(k, a, b)
+    out = {}
+    for remat in (False, True):
+        torch.use_deterministic_algorithms(True)
+        try:
+            with jit.disable_jit():
+                out[remat] = pgrad.loss_and_grads(scene, cam, dataclasses.replace(
+                    cfg, remat=remat), loss, accel=accel)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert torch.equal(out[False][0], out[True][0])
+    for part in (1, 2):
+        for (k, a), (_, b) in zip(pgrad._leaves(out[False][part]),
+                                  pgrad._leaves(out[True][part])):
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_pipeline_adjoint_grads_on_card(monkeypatch):
+    """The pipeline's stages (parallel/pipeline.py, make_bounce_step: the
+    state handed over with its rows 12 floats apart) differentiate their
+    bounces through the adjoint route: an eager gradient of
+    render_sample_pp on an NCCL group of one process (Cornell 128x128 x 2,
+    2 microbatches) shades no ray in PyTorch, and its every leaf is within
+    the gradient gate of the same call shaded in PyTorch (the route turned
+    off); under torch.use_deterministic_algorithms remat on and off give
+    every leaf bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.parallel import mesh as pmesh, pipeline
+    dev = torch.device("cuda")
+    mesh = pmesh.single_device_mesh(device_type="cuda")
+    scene, cam = P.cornell_scene(device=dev), P.Camera.default(device=dev)
+    cfg = P.RenderConfig(width=128, height=128, bounces=2)
+    R = cfg.width * cfg.height
+
+    def grads(c):
+        with jit.disable_jit():
+            return pgrad.grad_float_leaves(lambda sc: pipeline.render_sample_pp(
+                sc, cam, c, mesh, 0, pp_axis="dp", n_micro=2).mean(), scene)
+
+    try:
+        before = dict(build.RAYS)
+        got = grads(cfg)
+        torch.cuda.synchronize()
+        moved = {k: build.RAYS[k] - before[k]
+                 for k in ("shade_fused", "shade_adjoint", "shade_plain")}
+        assert moved == {"shade_fused": 2 * 2 * R, "shade_adjoint": 2 * R, "shade_plain": 0}
+        monkeypatch.setattr(integrator, "shading_route", lambda cfg, o, grad, n: "plain")
+        ref = grads(cfg)
+        monkeypatch.undo()
+        for (k, a), (_, b) in zip(pgrad._leaves(got), pgrad._leaves(ref)):
+            if a.is_floating_point():
+                parity.check_grad_sum(k, a, b)
+        out = {}
+        for remat in (False, True):
+            torch.use_deterministic_algorithms(True)
+            try:
+                out[remat] = grads(dataclasses.replace(cfg, remat=remat))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        for (k, a), (_, b) in zip(pgrad._leaves(out[False]), pgrad._leaves(out[True])):
+            assert torch.equal(a, b), k
+    finally:
+        pipeline.render_sample_pp.clear()
+        dist.destroy_process_group()

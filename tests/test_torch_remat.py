@@ -66,6 +66,32 @@ def test_remat_grads_bitwise(cornell, backend, sort_rays):
 
 
 @pytest.mark.parametrize("sort_rays", [False, True])
+def test_remat_grads_bitwise_adjoint_route(cornell, monkeypatch, sort_rays):
+    """remat on and off give bitwise equal losses and gradients where every
+    bounce takes the adjoint route (the autograd Function of
+    ops/cuda/shade.py, here with its plain versions): the Function saves
+    its inputs, and the recompute hands it the same ones."""
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import shade
+    calls = []
+    real = shade.shade_grad
+    monkeypatch.setattr(pint, "shading_route",
+                        lambda cfg, o, grad, n: "adjoint" if grad else "plain")
+    monkeypatch.setattr(shade, "shade_grad", lambda *a, **k: calls.append(a[8]) or real(*a, **k))
+    cam = P.Camera.default(device="cpu")
+    out = {}
+    for remat in (False, True):
+        cfg = P.RenderConfig(width=32, height=32, bounces=3, backend="pallas",
+                             sort_rays=sort_rays, remat=remat)
+        loss, gs, gc = pgrad.loss_and_grads(cornell, cam, cfg, lambda im: im.mean())
+        out[remat] = (loss, _all_leaves(gs, gc))
+    assert sorted(calls) == sorted(list(range(3)) * 3)   # remat off once, on twice
+    assert torch.equal(out[False][0], out[True][0])
+    _assert_bitwise(out[False][1], out[True][1])
+    kd = dict(out[True][1])["materials.diffuse"]
+    assert torch.isfinite(kd).all() and kd.abs().sum() > 0
+
+
+@pytest.mark.parametrize("sort_rays", [False, True])
 def test_make_bounce_step_remat_bitwise(cornell, sort_rays):
     """Two steps of make_bounce_step, differentiated w.r.t. the scene's
     float leaves and the rays, with remat on and off."""

@@ -1,10 +1,13 @@
-"""The wavefront's fused shading (ops/cuda/shade.py, csrc/shade.cu) on the
-CPU: the routing rule of ``ops/integrator.make_bounce_core``, the bounce
-wired through the wrapper (whose plain version runs on the CPU), the card
-cases of ops/cuda/parity.py cut down, the wrapper's checks, and the row
-layouts of the shading body that the kernel shares with K1 / K2
-(csrc/shade.cuh). The kernel itself is held bitwise to hit_attributes +
-shade_hit on the card (tests/test_torch_cuda.py, chip_smoke.py phase 19).
+"""The wavefront's fused shading (ops/cuda/shade.py: csrc/shade.cu and its
+adjoint csrc/shade_bwd.cu) on the CPU: the routing rule of
+``ops/integrator.make_bounce_core`` (three routes), the bounce wired
+through the wrappers (whose plain versions run on the CPU), the autograd
+Function's gradients against the unrouted ``hit_attributes`` +
+``shade_hit``, the card cases of ops/cuda/parity.py cut down, the
+wrappers' checks, and the row layouts of the shading body that the kernels
+share with K1-K4 (csrc/shade.cuh, csrc/adjoint.cuh). The kernels
+themselves are held to hit_attributes + shade_hit on the card
+(tests/test_torch_cuda.py, chip_smoke.py phase 19).
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 import mini_opencl_raytracer_tpu_torch as P
+from mini_opencl_raytracer_tpu_torch import grad as pgrad
 from mini_opencl_raytracer_tpu_torch.ops import integrator, shading
 from mini_opencl_raytracer_tpu_torch.ops.cuda import build
 from mini_opencl_raytracer_tpu_torch.ops.cuda import megakernel as pmk
@@ -27,16 +31,22 @@ CPU = torch.device("cpu")
 CSRC = Path(P.__file__).parent / "csrc"
 
 
-@pytest.mark.parametrize("case, fused", [
-    ("cuda", True), ("cpu", False), ("grad", False), ("shadow rays", False),
-    ("float64", False)])
-def test_routing_rule(case, fused):
-    """The kernel shades a bounce only for rays on a CUDA device, in
-    float32, without shadow rays and with no gradient taken."""
-    cfg = P.RenderConfig(shadow_rays=case == "shadow rays",
-                         dtype="float64" if case == "float64" else "float32")
-    o = SimpleNamespace(is_cuda=case != "cpu")
-    assert integrator.fused_shading(cfg, o, grad=case == "grad") is fused
+@pytest.mark.parametrize("case, route", [
+    ("cuda", "fused"), ("cpu", "plain"), ("grad", "adjoint"), ("shadow rays", "plain"),
+    ("float64", "plain"), ("grad, 30 lights", "adjoint"), ("grad, 31 lights", "plain"),
+    ("grad, shadow rays", "plain"), ("grad, float64", "plain"), ("grad, cpu", "plain"),
+    ("31 lights", "fused")])
+def test_routing_rule(case, route):
+    """The kernel shades a bounce for rays on a CUDA device, in float32,
+    without shadow rays: alone where no gradient is taken, as the autograd
+    Function with the adjoint kernel where one is and the scene has at most
+    30 lights (the adjoint's limit); anything else shades in PyTorch."""
+    cfg = P.RenderConfig(shadow_rays="shadow rays" in case,
+                         dtype="float64" if "float64" in case else "float32")
+    o = SimpleNamespace(is_cuda="cpu" not in case)
+    lights = 31 if "31 lights" in case else 30 if "30 lights" in case else 1
+    assert pmk.MAX_LIGHTS == 30
+    assert integrator.shading_route(cfg, o, grad="grad" in case, num_lights=lights) == route
 
 
 @pytest.mark.parametrize("case, taken", [
@@ -44,24 +54,30 @@ def test_routing_rule(case, fused):
     ("carry tensor", True)])
 def test_grad_taken(case, taken):
     """_remat's test: grad mode on, and a scene leaf or a carry tensor
-    requires grad."""
+    requires grad; on a card it picks the adjoint route over the fused
+    one."""
     carry = (torch.zeros(2, 3, requires_grad=case == "carry tensor"), torch.ones(2))
     if case == "no_grad":
         with torch.no_grad():
-            assert integrator._grad_taken(True, carry) is taken
+            got = integrator._grad_taken(True, carry)
     else:
-        assert integrator._grad_taken(case == "scene leaf", carry) is taken
+        got = integrator._grad_taken(case == "scene leaf", carry)
+    assert got is taken
+    route = integrator.shading_route(P.RenderConfig(), SimpleNamespace(is_cuda=True), got, 1)
+    assert route == ("adjoint" if taken else "fused")
 
 
 def _forced(monkeypatch):
-    """Route as on a card (the rule without its device test) and count the
-    wrapper's calls."""
-    calls = []
-    real = shade.shade_rows
-    monkeypatch.setattr(integrator, "fused_shading",
-                        lambda cfg, o, grad: not grad and not cfg.shadow_rays
-                        and cfg.dtype == "float32")
-    monkeypatch.setattr(shade, "shade_rows", lambda *a, **k: calls.append(a[8]) or real(*a, **k))
+    """Route as on a card (the rule without its device test) and record the
+    bounce of each call of the two wrappers."""
+    calls = {"fused": [], "adjoint": []}
+    monkeypatch.setattr(integrator, "shading_route", lambda cfg, o, grad, n: (
+        "plain" if cfg.shadow_rays or cfg.dtype != "float32" else
+        "fused" if not grad else "adjoint" if n <= pmk.MAX_LIGHTS else "plain"))
+    for route, name in (("fused", "shade_rows"), ("adjoint", "shade_grad")):
+        real = getattr(shade, name)
+        monkeypatch.setattr(shade, name, lambda *a, real=real, route=route, **k: (
+            calls[route].append(a[8]) or real(*a, **k)))
     return calls
 
 
@@ -69,7 +85,9 @@ def _forced(monkeypatch):
 def test_routed_bounce_equals_plain(monkeypatch, case):
     """Every bounce routed through shade_rows (its plain version on the
     CPU, on the packed lights) gives the image of hit_attributes +
-    shade_hit bit for bit; under a gradient no bounce is routed."""
+    shade_hit bit for bit; under a gradient every bounce goes through
+    shade_grad instead, twice with remat (the forward and the recompute),
+    whose forward is shade_rows."""
     if case == "bunny sorted":
         scene = P.bunny_scene(target_tris=4000, device=CPU)
         cfg = P.RenderConfig(width=32, height=16, bounces=3, direct_specular=True,
@@ -82,13 +100,49 @@ def test_routed_bounce_equals_plain(monkeypatch, case):
     plain = P.render_sample(scene, cam, cfg, frame=3)
     calls = _forced(monkeypatch)
     assert torch.equal(P.render_sample(scene, cam, cfg, frame=3), plain)
-    assert calls == list(range(cfg.bounces))
+    assert calls == {"fused": list(range(cfg.bounces)), "adjoint": []}
     mats = dataclasses.replace(scene.materials,
                                diffuse=scene.materials.diffuse.detach().requires_grad_(True))
     small = P.RenderConfig(width=16, height=8, bounces=2, backend=cfg.backend)
     P.render_sample(dataclasses.replace(scene, materials=mats), cam, small).mean().backward()
     assert mats.diffuse.grad.abs().sum() > 0
-    assert calls == list(range(cfg.bounces))
+    # The Function's forward is shade_rows.
+    assert calls["fused"][:cfg.bounces] == list(range(cfg.bounces))
+    assert sorted(calls["adjoint"]) == sorted(calls["fused"][cfg.bounces:]) == [0, 0, 1, 1]
+
+
+def _grads(scene, cfg):
+    loss, gs, gc = pgrad.loss_and_grads(scene, P.Camera.default(device=CPU), cfg,
+                                        lambda im: im.mean())
+    return loss, list(pgrad._leaves(gs)) + [("camera." + k, v) for k, v in pgrad._leaves(gc)]
+
+
+@pytest.mark.parametrize("case", ["rows", "rows sorted", "no rows", "no rows sorted"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_adjoint_route_grads_bitwise_plain(monkeypatch, case, remat):
+    """The adjoint route on the CPU (the autograd Function with its plain
+    versions: shade_plain forward, autograd of shade_plain backward) gives
+    the loss and every gradient of the scene and the camera bit for bit as
+    the unrouted hit_attributes + shade_hit: with K6's rows (the bunny) and
+    without (Cornell on K5), the wavefront sorted and unsorted."""
+    sort = case.endswith("sorted")
+    if case.startswith("rows"):
+        scene = P.bunny_scene(target_tris=4000, device=CPU)
+        cfg = P.RenderConfig(width=24, height=16, bounces=3, direct_specular=True,
+                             soft_edge_sigma=0.05, sort_rays=sort, remat=remat)
+    else:
+        scene = parity.two_light_scene(CPU)
+        cfg = P.RenderConfig(width=24, height=16, bounces=3, backend="pallas",
+                             specular_model="ggx", sort_rays=sort, remat=remat)
+    loss, grads = _grads(scene, cfg)
+    calls = _forced(monkeypatch)
+    loss_r, grads_r = _grads(scene, cfg)
+    assert sorted(calls["adjoint"]) == sorted(list(range(cfg.bounces)) * (2 if remat else 1))
+    assert torch.equal(loss, loss_r)
+    for (k, a), (_, b) in zip(grads, grads_r):
+        assert torch.equal(a, b), k
+    assert dict(grads_r)["materials.diffuse"].abs().sum() > 0
+    assert dict(grads_r)["lights.position"].abs().sum() > 0
 
 
 def test_cpu_bounces_shade_in_pytorch(monkeypatch):
@@ -203,3 +257,35 @@ def test_wrapper_refuses(case, error):
         hit.rows = raw[1:].view(hit.rows.shape).copy_(hit.rows)
     with pytest.raises(error):
         shade.shade_rows(hit, table, o, d, beta, radiance, alive, seeds, b, lv, cfg)
+
+
+@pytest.mark.parametrize("case, error", [
+    ("shadow rays", ValueError), ("float64", TypeError), ("31 lights", ValueError),
+    ("grad", ValueError), ("rows unaligned", ValueError), ("three cotangents", ValueError),
+    ("float64 cotangent", ValueError)])
+def test_adjoint_wrapper_refuses(case, error):
+    """What the adjoint kernel does not take, its wrapper refuses, on the
+    CPU as on the card."""
+    scene, cfg, closest, carry, b = parity.shade_case("bunny 512x512 bounce 0", CPU, small=True)
+    o, d, beta, _, alive, seeds = carry
+    with torch.no_grad():
+        hit = closest(o, d)
+    rows = hit.rows.clone()
+    lv = pmk.pack_lights(scene.lights)
+    cot = [torch.ones_like(beta) for _ in range(4)]
+    if case in ("shadow rays", "float64"):
+        cfg = P.RenderConfig(shadow_rays=case == "shadow rays",
+                             dtype="float64" if case == "float64" else "float32")
+    elif case == "31 lights":
+        lv = lv[[0] * 31]
+    elif case == "grad":
+        rows.requires_grad_(True)
+    elif case == "rows unaligned":
+        raw = torch.zeros(rows.numel() + 1)
+        rows = raw[1:].view(rows.shape).copy_(rows)
+    elif case == "three cotangents":
+        cot = cot[:3]
+    else:
+        cot[3] = cot[3].double()
+    with pytest.raises(error):
+        shade.shade_adjoint(rows, o, d, beta, alive, hit.hit, seeds, lv, cot, b, cfg)
