@@ -3,7 +3,11 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. Each lives in a file of its own under the benchmark's folder:
 
-  configs/<config>.json      the configuration (scene, render settings)
+  configs/<config>.json      the configuration (scene, render settings);
+                             its scene's ``lights`` lists "point" or
+                             light records (type, position, direction,
+                             intensity, attenuation, cos_cutoff), as
+                             reference/scenes.py says
   traffic/<traffic>.json     the traffic mix's parameters, with its kind
   traffic/<kind>.py          the code that drives a kind of mix and works
                              out its compared numbers (harness/traffic.py)

@@ -8,6 +8,24 @@ order, built in numpy float32 with fixed numpy seeds, so every run of a
 cell gets the same scene. The arrays are keyed by leaf path
 (``"geometry.v0"``, ``"materials.diffuse"``, ...), the form both the
 program (``scene_from_numpy``) and the plain reference take.
+
+A scene block's ``lights`` is a list of at least one light, in order.
+Each entry is one of two forms:
+
+* the string ``"point"``: the reference renderer's point light,
+  ``POINT_LIGHT``;
+* a record with exactly the keys ``type`` (``"directional"``,
+  ``"point"`` or ``"spot"``, stored as 0 / 1 / 2, the program's
+  ``LIGHT_*``), ``position`` and ``direction`` (3 numbers each), and
+  ``intensity``, ``attenuation`` and ``cos_cutoff`` (one number each).
+  Every key is required, none is added, and each number is finite in
+  float32; no default stands in for a value the record leaves out.
+
+The two forms may be mixed. A bad entry raises ``ValueError`` naming the
+light's index and the key. The values go into ``lights.position``,
+``lights.direction`` (float32, ``[L, 3]``), ``lights.light_type`` (int32),
+``lights.intensity``, ``lights.attenuation`` and ``lights.cos_cutoff``
+(float32, ``[L]``).
 """
 
 from __future__ import annotations
@@ -31,6 +49,10 @@ MATERIAL_NAMES = list(CORNELL_MATERIALS)
 # The reference renderer's point light (kernel_bvh.cl:322-336).
 POINT_LIGHT = {"position": [0.0, -10.0, 16.0], "direction": [-0.5, 0.4, -0.1],
                "type": 1, "intensity": 16.0, "attenuation": 0.8, "cos_cutoff": 0.9}
+
+# A light record's keys, and its type names as the program's LIGHT_*.
+LIGHT_KEYS = ("type", "position", "direction", "intensity", "attenuation", "cos_cutoff")
+LIGHT_TYPES = {"directional": 0, "point": 1, "spot": 2}
 
 GEOMETRY_KEYS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat_idx")
 
@@ -156,10 +178,9 @@ def make_scene(spec: dict) -> Dict[str, np.ndarray]:
     for i, key in enumerate(("diffuse", "specular", "emission", "roughness", "ior")):
         out[f"materials.{key}"] = np.array([v[i] for v in vals], np.float32)
     lights = spec.get("lights", ["point"])
-    for name in lights:
-        if name != "point":
-            raise ValueError(f"unknown light {name!r}")
-    L = [POINT_LIGHT for _ in lights]
+    if not isinstance(lights, list) or not lights:
+        raise ValueError(f"scene.lights: a list of at least one light, not {lights!r}")
+    L = [_light(i, entry) for i, entry in enumerate(lights)]
     out["lights.position"] = np.array([l["position"] for l in L], np.float32)
     out["lights.direction"] = np.array([l["direction"] for l in L], np.float32)
     out["lights.light_type"] = np.array([l["type"] for l in L], np.int32)
@@ -167,6 +188,52 @@ def make_scene(spec: dict) -> Dict[str, np.ndarray]:
     out["lights.attenuation"] = np.array([l["attenuation"] for l in L], np.float32)
     out["lights.cos_cutoff"] = np.array([l["cos_cutoff"] for l in L], np.float32)
     return out
+
+
+def _light(index: int, entry) -> dict:
+    """One entry of a scene block's ``lights`` -> its values, keyed as
+    ``POINT_LIGHT`` (``type`` as its number)."""
+    where = f"scene.lights[{index}]"
+    if isinstance(entry, str):
+        if entry != "point":
+            raise ValueError(f"{where}: unknown light {entry!r} (a light is \"point\" "
+                             f"or a record of the keys {', '.join(LIGHT_KEYS)})")
+        return POINT_LIGHT
+    if not isinstance(entry, dict):
+        raise ValueError(f"{where}: a light is \"point\" or a record, not {entry!r}")
+    for key in LIGHT_KEYS:
+        if key not in entry:
+            raise ValueError(f"{where}: key {key!r} is missing")
+    for key in entry:
+        if key not in LIGHT_KEYS:
+            raise ValueError(f"{where}: key {key!r} is not a light's key "
+                             f"({', '.join(LIGHT_KEYS)})")
+    kind = entry["type"]
+    if not isinstance(kind, str) or kind not in LIGHT_TYPES:
+        raise ValueError(f"{where}: key 'type' is {kind!r}, not one of "
+                         f"{', '.join(LIGHT_TYPES)}")
+    out = {"type": LIGHT_TYPES[kind]}
+    for key in LIGHT_KEYS[1:]:
+        value = entry[key]
+        vector = key in ("position", "direction")
+        if vector and (not isinstance(value, list) or len(value) != 3):
+            raise ValueError(f"{where}: key {key!r} is {value!r}, not a list of 3 numbers")
+        if not all(_finite32(x) for x in (value if vector else [value])):
+            raise ValueError(f"{where}: key {key!r} is {value!r}, not "
+                             f"{'3 numbers' if vector else 'a number'} finite in float32")
+        out[key] = value
+    return out
+
+
+def _finite32(x) -> bool:
+    """A JSON number (not a bool) that float32 holds as a finite value."""
+    if isinstance(x, bool) or not isinstance(x, (int, float)):
+        return False
+    try:
+        with np.errstate(over="ignore"):
+            return bool(np.isfinite(np.float32(x)))
+    except OverflowError:
+        return False
 
 
 def make_camera(spec: dict) -> Dict[str, np.ndarray]:

@@ -7,14 +7,15 @@ run, one JSON line as the last line of standard output.
         --seed 12345 --seconds 25 --trace 0
 
 A run: checks for the card; makes the configuration's scene and the
-traffic's inputs from the seed; sets up the program (its kernels are
-built into ``build/`` in the checkout on the first run and loaded from
-there later), builds its accel, and warms every shape the traffic uses
-(``setup_s`` ends here); drives the traffic for ``--seconds``; reads the
-peak device memory; frees the program's state; holds what the window
-produced against the plain reference (``correct``); and prints the
-cell's end-to-end metrics (``--trace 0``) or its per-layer metrics read
-from a ``torch.profiler`` trace of a shorter window (``--trace 1``).
+traffic's inputs from the seed; sets up the program (its kernels, and
+the bytecode of every module the run imports, are built into ``build/``
+in the checkout on the first run and loaded from there later), builds
+its accel, and warms every shape the traffic uses (``setup_s`` ends
+here); drives the traffic for ``--seconds``; reads the peak device
+memory; frees the program's state; holds what the window produced
+against the plain reference (``correct``); and prints the cell's
+end-to-end metrics (``--trace 0``) or its per-layer metrics read from a
+``torch.profiler`` trace of a shorter window (``--trace 1``).
 
 It fails, and prints no result, without a CUDA device, without the
 program in the checkout, or when the process has loaded JAX or the JAX
@@ -234,5 +235,19 @@ def main(argv=None, device=None) -> int:
     return 0
 
 
+def cache_bytecode() -> None:
+    """Keep the compiled bytecode of every module a run imports in
+    ``build/pycache`` in the checkout, and read it from there. Where the
+    environment forbids writing it beside the sources
+    (``PYTHONDONTWRITEBYTECODE``) and the installed PyTorch ships none,
+    each run would otherwise compile its two thousand modules from source
+    again: seconds of set-up, which swing with the host's load. Only the
+    first run in a checkout writes the cache; it is keyed, as
+    ``__pycache__`` is, by each source's path, size and time."""
+    sys.pycache_prefix = str(ROOT / "build" / "pycache")
+    sys.dont_write_bytecode = False
+
+
 if __name__ == "__main__":
+    cache_bytecode()
     raise SystemExit(main())

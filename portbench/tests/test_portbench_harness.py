@@ -6,16 +6,19 @@ repeat exactly on a tiny scene."""
 
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from portbench.harness import cell as cells
 from portbench.harness import traffic
 from portbench.reference import scenes, tracer
+from portbench.tests.config2 import CONFIG2, CONFIG2_LIGHTS
 
 ROOT = Path(__file__).resolve().parents[2]
 PROGRAM = "mini_opencl_raytracer_tpu_torch"
@@ -80,7 +83,14 @@ def _digest(folder: Path) -> dict:
             for p in sorted(folder.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
-def test_new_files_are_found_by_name(tmp_path):
+@pytest.mark.parametrize("lights,flags", [
+    (["point"], {}),
+    (CONFIG2_LIGHTS, CONFIG2)],
+    ids=["point", "config2-lights"])
+def test_new_files_are_found_by_name(tmp_path, lights, flags):
+    """The new configuration is cornell-1080p-b9's at 48x32 x 2, with the
+    reference renderer's light, or with BASELINE.json config 2's two light
+    records, shadow rays and the direct specular term."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     ignore = shutil.ignore_patterns("__pycache__")
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench", ignore=ignore)
@@ -90,7 +100,8 @@ def test_new_files_are_found_by_name(tmp_path):
     here = tmp_path / "portbench"
     conf = json.loads((here / "configs" / "cornell-1080p-b9.json").read_text())
     conf.update(name="cornell-48x32-b2", render={**conf["render"], "width": 48,
-                                                 "height": 32, "bounces": 2})
+                                                 "height": 32, "bounces": 2, **flags},
+                scene={**conf["scene"], "lights": lights})
     (here / "configs" / "cornell-48x32-b2.json").write_text(json.dumps(conf))
     mix = json.loads((here / "traffic" / "render.json").read_text())
     (here / "traffic" / "still.json").write_text(json.dumps({**mix, "kind": "still",
@@ -117,6 +128,8 @@ def test_new_files_are_found_by_name(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     c = cells.load_cell(tmp_path, "cornell-48x32-b2.still")
     assert c.config["render"]["width"] == 48 and c.traffic["frames"] == 2
+    assert c.config["scene"]["lights"] == lights
+    assert all(c.config["render"][k] is v for k, v in flags.items())
     assert c.kind().Mix.call is not c.kind().Mix.__mro__[1].call
     assert {m["name"] for m in c.end_to_end} == {"image_rays_per_s", "peak_mem_mib", "setup_s"}
     assert [m["name"] for m in c.per_layer if m["name"] == "frames_per_s"]
@@ -163,6 +176,32 @@ def _counts_and_work(kind: str):
     work = cells.load_module(ROOT / "portbench" / "work" / f"{kind}.py").count(ctx)
     return counts, work
 
+
+def test_run_caches_bytecode_in_the_checkout(tmp_path):
+    """Started as a script, with bytecode beside the sources forbidden, a
+    run keeps the bytecode of what it imports, PyTorch among it, in
+    build/pycache in its checkout, writes no __pycache__ beside the
+    harness, and reads the cache again in the next run. (Here a run ends
+    at the look for a card, or, on a machine with one, at the look for the
+    program, which this copy lacks: both after PyTorch's import.)"""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    argv = [sys.executable, "portbench/run.py", "--workload", "cornell-1080p-b9.render",
+            "--seed", "3000000019", "--seconds", "1", "--trace", "0"]
+    env = {**os.environ, "PYTHONDONTWRITEBYTECODE": "1"}
+    torch_dir = Path(torch.__file__).resolve().parent
+    pyc = (tmp_path / "build" / "pycache" / torch_dir.relative_to(torch_dir.anchor)
+           / f"__init__.{sys.implementation.cache_tag}.pyc")
+    stamps = []
+    for _ in range(2):
+        out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                             cwd=str(tmp_path), env=env)
+        assert out.returncode in (3, 4), out.stderr[-4000:]
+        assert pyc.is_file()
+        stamps.append(pyc.stat().st_mtime_ns)
+    assert stamps[0] == stamps[1]
+    assert not list((tmp_path / "portbench").rglob("__pycache__"))
 
 def test_work_counts_repeat_exactly():
     for kind in ("k4", "k6"):
