@@ -77,11 +77,14 @@ over a gloo group); and ``<name>_rays`` for each name of
 ``build.RAYS`` (``clustered_closest_rays`` / ``clustered_any_rays``, the
 rays handed to K6; ``shade_fused_rays`` / ``shade_adjoint_rays`` /
 ``shade_plain_rays``, the rays the wavefront shaded in its fused kernel,
-differentiated in its adjoint kernel and shaded in PyTorch), the rays that
+differentiated in its adjoint kernel and shaded in PyTorch;
+``mega_fwd_rays`` / ``mega_shadow_rays``, the rays handed to K1 / K2 and
+those times the lights where they cast shadow rays), the rays that
 a key's capture counted, added per replay: over ``replays``, a steady
-call's rays, which no eager call dilutes. The benchmark (``portbench/metrics/jit_*``,
-``k6_ns_per_ray.render``) reads the spans from its trace and ``COUNTS``
-after its window.
+call's rays, which no eager call dilutes. The benchmark
+(``portbench/metrics/jit_*``, ``k6_ns_per_ray.render``,
+``k1k2_ns_per_ray.render``) reads the spans from its trace and
+``COUNTS`` after its window.
 """
 
 from __future__ import annotations

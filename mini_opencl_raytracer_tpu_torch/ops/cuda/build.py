@@ -15,9 +15,11 @@ a wrapper's inputs. ``LAUNCHES`` counts the launches by name and ``RAYS``
 the rays each kind of launch was handed (each launch's R, from its shapes
 on the host; ``shade_plain`` counts the rays the integrator shades in
 PyTorch on a CUDA device instead, ``shade_adjoint`` those the shading's
-adjoint kernel differentiates). A compiled program's replays add what
-its capture counted to both (jit.py), and ``RAYS`` also to ``jit.COUNTS``
-as ``<name>_rays``. Plain runs on the CPU count nothing.
+adjoint kernel differentiates; ``mega_fwd`` the rays each K1 / K2 launch
+is handed, ``mega_shadow`` those times the lights where the launch casts
+shadow rays: the any-hit slots it may fill). A compiled program's replays
+add what its capture counted to both (jit.py), and ``RAYS`` also to
+``jit.COUNTS`` as ``<name>_rays``. Plain runs on the CPU count nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -100,7 +102,7 @@ _ENTRIES = {
 }
 LAUNCHES = dict.fromkeys(_ENTRIES, 0)
 RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain",
-                      "shade_adjoint"), 0)
+                      "shade_adjoint", "mega_fwd", "mega_shadow"), 0)
 
 _LIB: Optional[ctypes.CDLL] = None
 LAST_BUILD_LOG = ""
@@ -194,20 +196,20 @@ def _on(device):
 
 
 def launch(name: str, device, args: Callable[[int], Sequence],
-           rays: Optional[Tuple[str, int]] = None) -> None:
+           rays: Optional[Dict[str, int]] = None) -> None:
     """Launch ``name`` (a key of ``LAUNCHES``) on ``device``'s current
     stream: ``args(stream)`` gives its entry point's arguments before the
     stream, a tensor among them passing its data pointer and None a null
     one. Raises with ``name`` if the entry point returns an error; else
-    counts the launch, and ``rays`` (a key of ``RAYS``, a count)."""
+    counts the launch, and ``rays`` ({key of ``RAYS``: count})."""
     entry = getattr(library(), _ENTRIES[name])
     with _on(device) as stream:
         err = entry(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                       for a in args(stream)], stream)
     check(err, name)
     LAUNCHES[name] += 1
-    if rays is not None:
-        RAYS[rays[0]] += rays[1]
+    for kind, n in (rays or {}).items():
+        RAYS[kind] += n
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -466,7 +466,7 @@ def _run(name: str, any_hit: bool, cg: ClusteredGeometry, o, d, t_init,
             R, cg.tree.shape[0], cg.cl_count.shape[0], grid, int(backface_cull), int(any_hit),
             cg.tree, cg.cl_aabb, cg.tris, cg.slot_to_tri, cg.cl_count,
             cg.attrs if with_rows else None, o, d, t_init, t_out, slot, rows, stats,
-            _counter(index, stream)), rays=(name, R))
+            _counter(index, stream)), rays={name: R})
     return t_out, slot, rows
 
 

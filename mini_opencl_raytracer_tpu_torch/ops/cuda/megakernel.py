@@ -448,10 +448,17 @@ def frame_word(frame, device) -> torch.Tensor:
                       dtype=torch.int32, device=device)
 
 
-def _launch(name: str, device, p: _Params, tensors, *ints):
+def _launch(name: str, device, p: _Params, tensors, *ints, rays=None):
     """Launch ``name`` with (params, *ints, *tensors, stream); a None among
-    ``tensors`` passes null."""
-    build.launch(name, device, lambda _: (ctypes.addressof(p), *ints, *tensors))
+    ``tensors`` passes null; ``rays`` as ``build.launch`` counts them."""
+    build.launch(name, device, lambda _: (ctypes.addressof(p), *ints, *tensors), rays=rays)
+
+
+def _fwd_rays(p: _Params) -> Dict[str, int]:
+    """The rays a K1 / K2 launch is handed, and with shadow rays those
+    times the lights (``build.RAYS``' ``mega_fwd`` / ``mega_shadow``)."""
+    shadow = p.num_lights if p.flags & _F_SHADOW else 0
+    return {"mega_fwd": p.num_rays, "mega_shadow": p.num_rays * shadow}
 
 
 def _empty_state(R: int, device):
@@ -491,9 +498,10 @@ def bounce0_fwd(table_rows, tris, lights, camv, pixel_ids, frame,
     out = _empty_state(R, device) + (
         torch.empty((R,), dtype=torch.int32, device=device),)
     if R:
-        _launch("bounce0_fwd", device, params(cfg, R, tris.shape[0], lights.shape[0], 0),
+        p = params(cfg, R, tris.shape[0], lights.shape[0], 0)
+        _launch("bounce0_fwd", device, p,
                 (frame_word(frame, device), table_rows, tris, lights, camv, pixel_ids)
-                + out + (stats,))
+                + out + (stats,), rays=_fwd_rays(p))
     return out
 
 
@@ -529,9 +537,10 @@ def bounce_fwd(table_rows, tris, lights, o, d, beta, alive, seeds,
         resid = known.Resid(torch.empty((n, R), dtype=torch.float32, device=device),
                             torch.empty((R,), **i32), (torch.empty if R else torch.zeros)(1, **i32))
     if R:
-        _launch("bounce_fwd_resid" if save_resid else "bounce_fwd", device,
-                params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid),
-                (table_rows, tris, lights, o, d, beta, alive, seeds) + out + tuple(resid))
+        p = params(cfg, R, tris.shape[0], lights.shape[0], bounce, resid=save_resid)
+        _launch("bounce_fwd_resid" if save_resid else "bounce_fwd", device, p,
+                (table_rows, tris, lights, o, d, beta, alive, seeds) + out + tuple(resid),
+                rays=_fwd_rays(p))
     return out + (resid,) if save_resid else out
 
 

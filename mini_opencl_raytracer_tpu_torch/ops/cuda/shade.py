@@ -127,7 +127,7 @@ def shade_rows(hit: Hit, table: torch.Tensor, o, d, beta, radiance, alive, seeds
             ctypes.addressof(p), rows, table if rows is None else None,
             hit.tri_idx if rows is None else None, hit.hit, alive, seeds, lights,
             *[v for t in (o, d, beta, radiance) for v in (t, t.stride(0))], *out),
-            rays=("shade_fused", R))
+            rays={"shade_fused": R})
     return out
 
 
@@ -193,7 +193,7 @@ def shade_adjoint(rows, o, d, beta, alive, hit, seeds, lights, cot, bounce: int,
         build.launch("shade_adjoint", device, lambda _: (
             ctypes.addressof(p), plan.grid, rows, hit, alive, seeds, lights,
             *[v for t in (o, d, beta) + cot for v in (t, t.stride(0))], part, *out),
-            rays=("shade_adjoint", R))
+            rays={"shade_adjoint": R})
     return out
 
 

@@ -48,7 +48,8 @@ def test_launch_checks_then_counts(monkeypatch, err):
 
     def launch():
         build.launch("clustered_any", torch.device("cuda", 0),
-                     lambda stream: (7, t, None, stream), rays=("clustered_any", 9))
+                     lambda stream: (7, t, None, stream),
+                     rays={"clustered_any": 9, "mega_shadow": 4})
 
     if err:
         with pytest.raises(RuntimeError, match="clustered_any: CUDA error 700"):
@@ -57,7 +58,8 @@ def test_launch_checks_then_counts(monkeypatch, err):
     else:
         launch()
         assert build.LAUNCHES == before[0] | {"clustered_any": before[0]["clustered_any"] + 1}
-        assert build.RAYS == before[1] | {"clustered_any": before[1]["clustered_any"] + 9}
+        assert build.RAYS == before[1] | {"clustered_any": before[1]["clustered_any"] + 9,
+                                          "mega_shadow": before[1]["mega_shadow"] + 4}
     assert lib.calls == [(7, t.data_ptr(), None, STREAM, STREAM)]
 
 

@@ -72,6 +72,30 @@ def test_sponza_configuration_is_the_program_scene():
     _assert_same_arrays(ref, scene_to_numpy(P.sponza_scene(device="cpu")))
 
 
+def test_config2_configuration_is_the_program_scene():
+    """The benchmark's configuration cornell-1080p-b2-shadows is BASELINE.json
+    config 2 as benchmarks/run_all.py:111-130 sets it: its scene block,
+    through the benchmark's own generator, is the program's cornell_scene
+    with config 2's two point lights, bit for bit; its render block gives
+    the RenderConfig of run_all.py:121-123; and the program serves it on
+    the mega path (K1 / K2)."""
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "configs"
+            / "cornell-1080p-b2-shadows.json")
+    conf = json.loads(path.read_text())
+    t = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt)
+    lights = P.Lights(position=t([[0.0, -10.0, 16.0], [4.0, 2.0, 14.0]]),
+                      direction=t([[-0.5, 0.4, -0.1], [0.0, 0.5, -1.0]]),
+                      light_type=t([P.LIGHT_POINT, P.LIGHT_POINT], torch.int32),
+                      intensity=t([16.0, 8.0]), attenuation=t([0.8, 0.8]),
+                      cos_cutoff=t([0.9, 0.9]))
+    scene = P.cornell_scene(lights=lights, device="cpu")
+    _assert_same_arrays(bench_scenes.make_scene(conf["scene"]), scene_to_numpy(scene))
+    cfg = P.RenderConfig(**conf["render"])
+    assert cfg == P.RenderConfig(width=1920, height=1080, bounces=2, shadow_rays=True,
+                                 direct_specular=True)
+    assert P.resolve_backend(scene, cfg) == "mega" == conf["path"]
+
+
 def test_full_size_scene_counts():
     """The BASELINE.json config 3 and 5 scenes at their published sizes."""
     assert P.bunny_scene(device="cpu").num_triangles == 69_732
