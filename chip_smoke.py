@@ -232,6 +232,21 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    per replay of the compiled config 3 step: two forward and one adjoint
    launch a bounce, ``jit.COUNTS`` 4 x R fused, 2 x R adjoint rays and
    none shaded in PyTorch.
+21. the wavefront's raygen (``csrc/raygen.cu``: ``rng.pixel_seeds`` and
+   ``generate_rays`` in one kernel where no gradient of the camera is
+   taken): seeds, origins and directions bitwise ``raygen_plain`` at
+   sponza 3840x2160's and config 3's tile-ordered ids (int and tensor
+   frames); the kernel's device time (``device_ms``, 20 launches) against
+   its bound (24 B a ray: the id read, the seed and d written), the
+   wrapper's and the plain version's times by events (20 and 3 calls);
+   per replay of the compiled config 3 and sponza 4K renders (4 frames):
+   four launches and ``jit.COUNTS`` 4 x R rays from the kernel, none from
+   PyTorch; per replay of the compiled config 3 step: none from the
+   kernel, R from PyTorch (the camera's gradient); and K1's and K3's
+   SASS (``scripts/kernel_sass.py``): instruction counts, and with
+   ``against`` (a parent checkout) whether each is the same instruction
+   for instruction. Alone: a script under ``build/`` that calls
+   ``chip_smoke.phase21(...)`` (see its signature).
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -258,7 +273,7 @@ _CSRC = "mini_opencl_raytracer_tpu_torch/csrc/"
 _TPU = "mini_opencl_raytracer_tpu/ops/pallas/"
 KERNELS = ("bounce0_fwd", "bounce_fwd", "bounce0_bwd", "bounce_bwd", "panel", "clustered",
            "bvh_walk", "bounce_fwd_resid", "bounce_bwd_resid", "material_rows_bwd", "shade",
-           "shade_adjoint")
+           "shade_adjoint", "raygen")
 SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megakernel.cu",
            "bounce0_bwd": _CSRC + "megakernel_bwd.cu",
            "bounce_bwd": _CSRC + "megakernel_bwd.cu",
@@ -266,7 +281,8 @@ SOURCES = {"bounce0_fwd": _CSRC + "megakernel.cu", "bounce_fwd": _CSRC + "megake
            "bounce_bwd_resid": _CSRC + "megakernel_bwd.cu",
            "panel": _CSRC + "panel.cu", "clustered": _CSRC + "clustered.cu",
            "bvh_walk": _CSRC + "bvh.cu", "material_rows_bwd": _CSRC + "material_rows.cu",
-           "shade": _CSRC + "shade.cu", "shade_adjoint": _CSRC + "shade_bwd.cu"}
+           "shade": _CSRC + "shade.cu", "shade_adjoint": _CSRC + "shade_bwd.cu",
+           "raygen": _CSRC + "raygen.cu"}
 # The walk kernel replaces no Pallas kernel: the JAX package's LBVH walk is
 # a jnp while_loop.
 REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "megakernel.py:1041",
@@ -285,7 +301,11 @@ REPLACES = {"bounce0_fwd": _TPU + "megakernel.py:1134", "bounce_fwd": _TPU + "me
             "shade": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's shading",
             # Nor its adjoint: jax.vjp of that shading, which XLA fuses.
             "shade_adjoint": "mini_opencl_raytracer_tpu/ops/integrator.py:321 bounce_step's "
-                             "shading, its VJP"}
+                             "shading, its VJP",
+            # Nor the wavefront's raygen: pixel_seeds and generate_rays in
+            # the JAX package's render_ids, which XLA fuses.
+            "raygen": "mini_opencl_raytracer_tpu/ops/camera.py:22 generate_rays and "
+                      "ops/rng.py:42 pixel_seeds"}
 # The card's peaks for the bound (H100 SXM datasheet: f32 outside the
 # tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -2367,6 +2387,116 @@ def phase20(mrt, torch, parity, dev, card: str, cam) -> dict:
     return row
 
 
+def raygen_time(torch, card: str, label: str, cfg, pid, cam) -> dict:
+    """The raygen kernel on ``pid`` bitwise ``raygen_plain`` at an int and
+    a tensor frame, then its device time over 20 launches (``device_ms``),
+    the wrapper's and the plain version's by events (20 and 3 calls), and
+    its bound: 4 B read and 20 B written a ray."""
+    import ctypes
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build, megakernel, raygen
+    dev = pid.device
+    for fr in (5, torch.full((), 2**32 - 3, dtype=torch.int64, device=dev)):
+        got, want = raygen.raygen_fused(cam, cfg, pid, fr), raygen.raygen_plain(cam, cfg, pid, fr)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("o", "d", "seeds"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[21 raygen] {label}: {name} differs from raygen_plain "
+                                     f"at frame {fr}")
+    R = pid.shape[0]
+    _, d, seeds = got
+    p = megakernel.params(cfg, R, 0, 0, 0)
+    word, camv = megakernel.frame_word(5, dev), megakernel.camera_vector(cam)
+    ms = device_ms(lambda: build.launch("raygen", dev, lambda _: (
+        ctypes.addressof(p), word, camv, pid, seeds, d)))
+    wrapper_ms = time_ms(lambda: raygen.camera_rays(cam, cfg, pid, 5), 20)
+    plain_ms = time_ms(lambda: raygen.raygen_plain(cam, cfg, pid, 5), 3)
+    b = bound(24 * R, 0)
+    log(f"[21 raygen] {label}: {R} rays; o, d and seeds bitwise raygen_plain (int and tensor "
+        f"frames); kernel {ms:.4f} ms (device time, 20 launches), camera_rays {wrapper_ms:.4f} "
+        f"ms (events, 20 calls), plain {plain_ms:.3f} ms (3); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {24 * R / 1e6:.1f} MB), {b['bound_ms'] / ms:.1%} of the kernel "
+        f"({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms, "bound": b}
+
+
+def raygen_sass(against=None) -> None:
+    """K1's and K3's SASS (``scripts/kernel_sass.py``): each kernel's
+    instruction count in this build and, with ``against`` (the root of
+    another checkout, built in its own process), whether each is the same
+    instruction for instruction there."""
+    import importlib.util
+    from pathlib import Path
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    path = Path(__file__).resolve().parent / "scripts" / "kernel_sass.py"
+    spec = importlib.util.spec_from_file_location("kernel_sass", path)
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    lib = build.build()
+    for name, copies in sorted(ks.sass_text(lib, "bounce0").items()):
+        log(f"[21 raygen] sass {name}: {[len(c) for c in copies]} instructions")
+    if against is None:
+        return
+    for name, (same, a, b) in ks.compare(lib, Path(against), "bounce0").items():
+        log(f"[21 raygen] sass against {against}: {name}: "
+            f"{'same SASS' if same else 'SASS differs' if a and b else 'in one only'} "
+            f"({a} / {b} instructions)")
+        if not same:
+            raise AssertionError(f"[21 raygen] {name}: SASS differs from {against}'s")
+
+
+def phase21(mrt, torch, dev, card: str, cam, against=None) -> dict:
+    """21. The wavefront's raygen (module docstring, phase 21). ``against``:
+    the root of a checkout whose K1 / K3 SASS this build's must equal.
+    Returns the kernel's summary row: time at sponza 4K's ids, launches of
+    a compiled render's replay."""
+    from mini_opencl_raytracer_tpu_torch import grad, jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    from mini_opencl_raytracer_tpu_torch.render import _swizzled_ids
+    t_phase = time.perf_counter()
+    cfg5 = mrt.RenderConfig(width=3840, height=2160, bounces=1)
+    cfg3 = mrt.RenderConfig(width=512, height=512, bounces=2)
+    with torch.no_grad():
+        row = raygen_time(torch, card, "sponza 3840x2160", cfg5, _swizzled_ids(cfg5, dev), cam)
+        raygen_time(torch, card, "config 3 512x512", cfg3, _swizzled_ids(cfg3, dev), cam)
+    keys = ("raygen_fused_rays", "raygen_plain_rays")
+    for name, scene, cfg in (("config 3", mrt.bunny_scene(device=dev), cfg3),
+                             ("sponza 4K", mrt.sponza_scene(device=dev), cfg5)):
+        acc = mrt.build_accel(scene, cfg)
+        with torch.no_grad():
+            mrt.render(scene, cam, cfg, frames=4, accel=acc)
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            before = {k: jit.COUNTS[k] for k in keys}
+            mrt.render(scene, cam, cfg, frames=4, accel=acc)
+            torch.cuda.synchronize()
+        got = (launch_counts("raygen"), {k: jit.COUNTS[k] - v for k, v in before.items()})
+        want = ({"raygen": 4}, {"raygen_fused_rays": 4 * cfg.num_pixels, "raygen_plain_rays": 0})
+        if got != want:
+            raise AssertionError(f"[21 raygen] a replay of the {name} render: {got}, "
+                                 f"expected {want}")
+        log(f"[21 raygen] a replay of the compiled {name} render (4 frames): launches "
+            f"{got[0]}, rays {got[1]}")
+        del acc
+    bunny = mrt.bunny_scene(device=dev)
+    acc3 = mrt.build_accel(bunny, cfg3)
+    step = jit.jit(lambda s, c, a: grad.loss_and_grads(s, c, cfg3, lambda im: im.mean(),
+                                                       accel=a))
+    step(bunny, cam, acc3)
+    torch.cuda.synchronize()
+    before = {k: jit.COUNTS[k] for k in keys}
+    step(bunny, cam, acc3)
+    torch.cuda.synchronize()
+    rays = {k: jit.COUNTS[k] - v for k, v in before.items()}
+    if rays != {"raygen_fused_rays": 0, "raygen_plain_rays": cfg3.num_pixels}:
+        raise AssertionError(f"[21 raygen] a replay of the config 3 step: rays {rays}")
+    log(f"[21 raygen] a replay of the compiled config 3 step: rays {rays} (the camera's "
+        "gradient: PyTorch)")
+    raygen_sass(against)
+    row["launches"] = 4
+    log(f"[21 raygen] phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3207,6 +3337,13 @@ def main() -> int:
     max_err["shade_adjoint"] = r["err"]
     times["shade_adjoint"] = (r["ms"], r["plain_ms"])
     bounds["shade_adjoint"] = r["bound"]
+
+    # 21. The wavefront's raygen.
+    r = phase21(mrt, torch, dev, card, cam)
+    launches["raygen"] = r["launches"]
+    max_err["raygen"] = 0.0
+    times["raygen"] = (r["ms"], r["plain_ms"])
+    bounds["raygen"] = r["bound"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

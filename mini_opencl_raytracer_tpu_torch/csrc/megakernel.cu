@@ -74,6 +74,7 @@
 
 #include "bundle.cuh"
 #include "megakernel.cuh"
+#include "raygen.cuh"
 #include "shade.cuh"
 
 namespace {
@@ -207,26 +208,15 @@ bounce0_fwd_kernel(MegaParams p, const uint32_t* __restrict__ frame_cm,
   // Lanes past the last ray stay for the warp's cull, without a ray.
   const bool in = i < p.num_rays;
 
-  // Raygen (ops/camera.rays_from_basis + ops/rng.pixel_seeds); the
-  // frame's premix comes from device memory.
-  const int pid = in ? pixel_ids[i] : 0;
-  const uint32_t seed = mix_u32((uint32_t)pid ^ *frame_cm);
-  const float px = (float)(pid % p.width);
-  const float py = (float)(pid / p.width);
-  const float jx = uniform_cm(seed, p.rg_jx);
-  const float jy = uniform_cm(seed, p.rg_jy);
-  const float x = (2.0f * (px + jx) * p.inv_w - 1.0f) * p.tan_half_fov * p.aspect;
-  const float y = (1.0f - 2.0f * (py + jy) * p.inv_h) * p.tan_half_fov;
-  const V3 d = normalize(x * ld3(cam + kCamRight) + y * ld3(cam + kCamUp) +
-                         ld3(cam + kCamFront));
-  const V3 o = ld3(cam + kCamPos);
+  // Raygen (raygen.cuh); the frame's premix comes from device memory.
+  const Raygen g = raygen(p, cam, in ? pixel_ids[i] : 0, *frame_cm);
 
   int tests = 0;
-  const RayOut r =
-      bounce_body<true>(p, s_tris, s_lights, tab, o, d, mk(1.0f, 1.0f, 1.0f), in, seed, tests);
+  const RayOut r = bounce_body<true>(p, s_tris, s_lights, tab, g.o, g.d, mk(1.0f, 1.0f, 1.0f),
+                                     in, g.seed, tests);
   if (!in) return;
   store(r, i, p.num_rays, o_out, d_out, beta_out, alive_out, rad_out, idx_out, occ_out);
-  seeds_out[i] = (int)seed;
+  seeds_out[i] = (int)g.seed;
   if (stats) stats[i] = tests;
 }
 

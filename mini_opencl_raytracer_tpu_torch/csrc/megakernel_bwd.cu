@@ -104,6 +104,7 @@
 #include <cuda_pipeline.h>
 
 #include "adjoint.cuh"
+#include "raygen.cuh"
 
 namespace {
 
@@ -171,30 +172,8 @@ __device__ __forceinline__ int load_winner(const MegaParams& p, const int* winne
   return w < p.num_tris ? w : -1;
 }
 
-// Raygen of bounce0_fwd_kernel for one pixel, and its adjoint into the
-// camera vector (position, right, up, front), added to cg.
-struct Raygen {
-  V3 o, d, draw;
-  float x, y;
-  uint32_t seed;
-};
-
-__device__ __forceinline__ Raygen raygen(const MegaParams& p, const float* cam, int pid,
-                                         uint32_t frame_cm) {
-  Raygen r;
-  r.seed = mix_u32((uint32_t)pid ^ frame_cm);
-  const float px = (float)(pid % p.width);
-  const float py = (float)(pid / p.width);
-  const float jx = uniform_cm(r.seed, p.rg_jx);
-  const float jy = uniform_cm(r.seed, p.rg_jy);
-  r.x = (2.0f * (px + jx) * p.inv_w - 1.0f) * p.tan_half_fov * p.aspect;
-  r.y = (1.0f - 2.0f * (py + jy) * p.inv_h) * p.tan_half_fov;
-  r.draw = r.x * ld3(cam + kCamRight) + r.y * ld3(cam + kCamUp) + ld3(cam + kCamFront);
-  r.d = normalize(r.draw);
-  r.o = ld3(cam + kCamPos);
-  return r;
-}
-
+// The adjoint of raygen (raygen.cuh) into the camera vector (position,
+// right, up, front), added to cg.
 __device__ __forceinline__ void raygen_adj(const Raygen& r, V3 g_o, V3 g_d,
                                            float (&cg)[kCamGrads]) {
   const V3 g_draw = normalize_adj(r.draw, g_d);

@@ -17,7 +17,9 @@ on the host; ``shade_plain`` counts the rays the integrator shades in
 PyTorch on a CUDA device instead, ``shade_adjoint`` those the shading's
 adjoint kernel differentiates; ``mega_fwd`` the rays each K1 / K2 launch
 is handed, ``mega_shadow`` those times the lights where the launch casts
-shadow rays: the any-hit slots it may fill). A compiled program's replays
+shadow rays: the any-hit slots it may fill; ``raygen_fused`` the rays the
+raygen kernel generated, ``raygen_plain`` those PyTorch generated for the
+wavefront on a CUDA device). A compiled program's replays
 add what its capture counted to both (jit.py), and ``RAYS`` also to
 ``jit.COUNTS`` as ``<name>_rays``. Plain runs on the CPU count nothing.
 """
@@ -86,6 +88,8 @@ _SIGNATURES = {
     #  o, d, beta, the cotangents co, cd, cbeta, crad each with its row
     #  stride, part, d_o, d_d, d_beta, d_rows, d_lights, stream)
     "mrt_shade_bwd": ([_P, _I] + [_P] * 5 + [_P, ctypes.c_longlong] * 7 + [_P] * 7, _I),
+    # csrc/raygen.cu: (params, frame_cm, cam, pixel_ids, seeds, d, stream)
+    "mrt_raygen": ([_P] * 7, _I),
     "mrt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -98,11 +102,12 @@ _ENTRIES = {
     "panel_closest": "mrt_panel", "panel_any": "mrt_panel",
     "clustered_closest": "mrt_clustered", "clustered_any": "mrt_clustered",
     "bvh_walk": "mrt_bvh_walk", "material_rows_bwd": "mrt_material_rows_bwd",
-    "shade": "mrt_shade", "shade_adjoint": "mrt_shade_bwd",
+    "shade": "mrt_shade", "shade_adjoint": "mrt_shade_bwd", "raygen": "mrt_raygen",
 }
 LAUNCHES = dict.fromkeys(_ENTRIES, 0)
 RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain",
-                      "shade_adjoint", "mega_fwd", "mega_shadow"), 0)
+                      "shade_adjoint", "mega_fwd", "mega_shadow", "raygen_fused",
+                      "raygen_plain"), 0)
 
 _LIB: Optional[ctypes.CDLL] = None
 LAST_BUILD_LOG = ""

@@ -29,7 +29,7 @@ from ..jit import jit
 from ..models.scene import Camera, Scene
 from ..ops import rng
 from ..ops.brdf import sample_brdf
-from ..ops.camera import generate_rays
+from ..ops.cuda.raygen import camera_rays
 from ..ops.lights import direct_light
 from ..ops.linalg import dot, vmax
 from ..ops.shading import build_shading_table, hit_attributes
@@ -232,8 +232,7 @@ def render_sample_ep(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
 
     total = torch.zeros((ids.shape[0], 3), dtype=dtype, device=dev)
     for s in range(cfg.spp):
-        seeds = rng.pixel_seeds(ids, rng.sample_frame(frame, cfg.spp, s))
-        o, d = generate_rays(camera, cfg, ids, seeds)
+        o, d, seeds = camera_rays(camera, cfg, ids, rng.sample_frame(frame, cfg.spp, s))
         carry = (o, d, torch.ones_like(o), torch.zeros_like(o),
                  torch.ones((ids.shape[0],), dtype=torch.bool, device=dev), seeds)
         for b in range(cfg.bounces):

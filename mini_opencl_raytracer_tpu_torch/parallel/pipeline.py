@@ -29,7 +29,7 @@ import torch
 from ..models.scene import Camera, Scene
 from ..config import RenderConfig
 from ..ops import rng
-from ..ops.camera import generate_rays
+from ..ops.cuda.raygen import camera_rays
 from ..ops.integrator import make_bounce_step
 from ..ops.linalg import vmax
 from ..jit import jit
@@ -63,8 +63,7 @@ def render_sample_pp(scene: Scene, camera: Camera, cfg: RenderConfig, mesh, fram
     scene, camera = replicated(scene, camera, pp)
     # All microbatches' primary rays, generated once on every stage.
     pixel_ids = torch.arange(R, dtype=torch.int32, device=dev)
-    seeds = rng.pixel_seeds(pixel_ids, rng.sample_frame(frame, 1, 0))
-    o, d = generate_rays(camera, cfg, pixel_ids, seeds)
+    o, d, seeds = camera_rays(camera, cfg, pixel_ids, rng.sample_frame(frame, 1, 0))
     o_mb, d_mb = o.reshape(n_micro, R_mb, 3), d.reshape(n_micro, R_mb, 3)
     s_mb = rng.to_i32_bits(seeds).reshape(n_micro, R_mb)
 

@@ -37,9 +37,9 @@ from .config import BVHConfig, RenderConfig
 from .models.scene import Camera, Scene
 from .ops import bvh as bvh_mod
 from .ops import rng
-from .ops.camera import generate_rays
 from .ops.cuda import intersect as pallas_mod
 from .ops.cuda import megakernel as mega_mod
+from .ops.cuda.raygen import camera_rays
 from .ops.integrator import trace_paths
 from .ops.intersect import intersect_brute, occluded_brute
 from .ops.linalg import vmax
@@ -173,8 +173,7 @@ def render_ids(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_ids: torch
             radiance = mega_mod.trace_paths_mega_cam(scene, cfg, camera,
                                                      pixel_ids, fr, accel=accel)
         else:
-            seeds = rng.pixel_seeds(pixel_ids, fr)
-            o, d = generate_rays(camera, cfg, pixel_ids, seeds)
+            o, d, seeds = camera_rays(camera, cfg, pixel_ids, fr)
             if backend == "mega":
                 radiance = mega_mod.trace_paths_mega(scene, cfg, o, d, seeds,
                                                      accel=accel)

@@ -147,15 +147,13 @@ def bounce_occupancy(scene, camera, cfg, frame: int = 0) -> torch.Tensor:
     lockstep work is spent on dead lanes. Runs the wavefront integrator
     with stats on the configured wavefront backend (``mega`` resolves to
     ``pallas``), rays in scanline order."""
-    from ..ops import rng
-    from ..ops.camera import generate_rays
+    from ..ops.cuda.raygen import camera_rays
     from ..ops.integrator import trace_paths
     from ..render import make_intersectors
 
     closest, any_hit = make_intersectors(scene, cfg)
     pix = torch.arange(cfg.num_pixels, dtype=torch.int32, device=scene.device)
-    seeds = rng.pixel_seeds(pix, frame)
-    o, d = generate_rays(camera.to(scene.device), cfg, pix, seeds)
+    o, d, seeds = camera_rays(camera.to(scene.device), cfg, pix, frame)
     _, stats = trace_paths(scene, cfg, o, d, seeds, closest, any_hit, with_stats=True)
     return stats
 

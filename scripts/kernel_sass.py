@@ -111,6 +111,16 @@ def build_other(root: Path) -> Path:
     return Path(out.strip().splitlines()[-1])
 
 
+def compare(lib: Path, root: Path, match: str) -> dict:
+    """{demangled kernel name: (same SASS, this library's instruction
+    counts, the other's)} of the kernels whose name contains ``match``,
+    against the checkout at ``root`` (built in its own process)."""
+    mine, theirs = sass_text(lib, match), sass_text(build_other(root.resolve()), match)
+    return {name: (any(x == y for x in mine.get(name, []) for y in theirs.get(name, [])),
+                   [len(x) for x in mine.get(name, [])], [len(y) for y in theirs.get(name, [])])
+            for name in sorted(set(mine) | set(theirs))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--match", default="bwd")
@@ -136,14 +146,10 @@ def main() -> int:
             if args.listing:
                 print("\n".join(f"    {t}" for t in text))
     if args.against:
-        other = build_other(args.against.resolve())
-        mine, theirs = sass_text(lib, args.match), sass_text(other, args.match)
-        for name in sorted(set(mine) | set(theirs)):
-            a, b = mine.get(name, []), theirs.get(name, [])
-            same = any(x == y for x in a for y in b)
+        for name, (same, a, b) in compare(lib, args.against, args.match).items():
             print(f"against {args.against}: {name}: "
                   f"{'same SASS' if same else 'SASS differs' if a and b else 'in one only'} "
-                  f"({[len(x) for x in a]} / {[len(y) for y in b]} instructions)")
+                  f"({a} / {b} instructions)")
     return 0
 
 

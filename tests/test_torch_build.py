@@ -94,3 +94,13 @@ def test_signatures_match_the_entry_points(name):
     argtypes, _ = build._SIGNATURES[name]
     assert argtypes == [_ctype(t) for t in entries[name]], entries[name]
     assert set(build._ENTRIES.values()) <= set(build._SIGNATURES)
+
+
+def test_raygen_is_declared():
+    """The wavefront's raygen kernel: launch ``raygen`` calls
+    ``mrt_raygen`` (csrc/raygen.cu), and ``RAYS`` counts the rays it
+    generated and those PyTorch generated on a CUDA device."""
+    assert build._ENTRIES["raygen"] == "mrt_raygen" and "raygen" in build.LAUNCHES
+    assert build._SIGNATURES["mrt_raygen"] == ([build._P] * 7, build._I)
+    assert {"raygen_fused", "raygen_plain"} <= set(build.RAYS)
+    assert (build.CSRC / "raygen.cu").exists() and (build.CSRC / "raygen.cuh").exists()

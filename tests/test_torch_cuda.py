@@ -1,6 +1,7 @@
 """The CUDA kernels (the bounce kernels forward and backward, the panel
 and cluster-traversal intersectors, the LBVH walk, the material gather's
-backward, the wavefront's fused shading and its adjoint) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
+backward, the wavefront's fused shading and its adjoint, the wavefront's
+raygen) against their plain versions on a GPU, and the compiled programs (jit.py) against eager,
 the parallel entry points included on an NCCL group of one process.
 
 Marked ``cuda``; skips without a CUDA device (the kernels have no CPU
@@ -1531,3 +1532,93 @@ def test_pipeline_adjoint_grads_on_card(monkeypatch):
     finally:
         pipeline.render_sample_pp.clear()
         dist.destroy_process_group()
+
+
+# The wavefront raygen's card cases: (width, height, ids): sponza 4K and
+# config 3 in tile order, a scanline slice whose R is not a multiple of the
+# kernel's 256-thread block, shuffled ids, and no rays.
+RAYGEN_CASES = {"sponza 3840x2160": (3840, 2160, "swizzled"),
+                "bunny 512x512": (512, 512, "swizzled"),
+                "R=1000 scanline": (64, 48, 1000), "shuffled 96x64": (96, 64, "shuffled"),
+                "R=0": (64, 48, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["int", "tensor"])
+@pytest.mark.parametrize("name", list(RAYGEN_CASES))
+def test_raygen_matches_plain_on_card(name, frame):
+    """The wavefront's raygen kernel (csrc/raygen.cu) against its plain
+    version on the same device: seeds, origins and directions bit for bit,
+    d and the seeds dense, o the camera's position expanded; one launch and
+    R rays counted (none for R = 0); a second call bitwise the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import raygen
+    dev = torch.device("cuda")
+    w, h, ids = RAYGEN_CASES[name]
+    cfg = P.RenderConfig(width=w, height=h)
+    if ids == "swizzled":
+        pid = _swizzled_ids(cfg, dev)
+    elif ids == "shuffled":
+        gen = torch.Generator().manual_seed(5)
+        pid = torch.randperm(cfg.num_pixels, generator=gen).to(torch.int32).to(dev)
+    else:
+        pid = torch.arange(7, 7 + ids, dtype=torch.int32, device=dev)
+    cam = P.Camera.from_angles((0.5, -20.0, 7.0), pitch=1.4, yaw=1.7, device=dev)
+    fr = torch.full((), 2**32 - 3, dtype=torch.int64, device=dev) if frame == "tensor" else 9
+    R = pid.shape[0]
+    n0, r0 = build.LAUNCHES["raygen"], build.RAYS["raygen_fused"]
+    got = raygen.raygen_fused(cam, cfg, pid, fr)
+    again = raygen.raygen_fused(cam, cfg, pid, fr)
+    want = raygen.raygen_plain(cam, cfg, pid, fr)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["raygen"] - n0, build.RAYS["raygen_fused"] - r0) == (
+        (2, 2 * R) if R else (0, 0))
+    assert got[0].stride() == (0, 1) and got[1].is_contiguous() and got[2].is_contiguous()
+    for label, a, b, c in zip(("o", "d", "seeds"), got, want, again):
+        assert a.shape == b.shape and a.dtype == b.dtype, label
+        assert torch.equal(a, b) and torch.equal(a, c), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bunny", "shadow rays"])
+def test_raygen_render_equals_plain_on_card(case, monkeypatch):
+    """``render(frames=4)`` of a wavefront scene with its rays from the
+    kernel is, bit for bit, the render with the plain route (the parent's
+    raygen: the rule turned off), compiled and eager; four launches a call,
+    and a replay adds 4 R to ``raygen_fused_rays`` and none to
+    ``raygen_plain_rays``. A training step takes the camera's gradient and
+    generates its rays in PyTorch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import raygen
+    dev = torch.device("cuda")
+    scene = P.bunny_scene(target_tris=4000, device=dev)
+    cfg = P.RenderConfig(width=128, height=96, bounces=2, shadow_rays=case == "shadow rays")
+    cam, accel, R = P.Camera.default(device=dev), P.build_accel(scene, cfg), cfg.num_pixels
+    call = lambda: P.render(scene, cam, cfg, frames=4, accel=accel)
+    with torch.no_grad():
+        n0 = build.LAUNCHES["raygen"]
+        with jit.disable_jit():
+            eager = call()
+        compiled = [call() for _ in range(2)]
+        before = dict(jit.COUNTS)
+        compiled.append(call())
+        torch.cuda.synchronize()
+        # The eager call, the compiled warm-up and two replays.
+        assert build.LAUNCHES["raygen"] - n0 == 4 * 4
+        assert {k: jit.COUNTS[k] - before[k] for k in ("raygen_fused_rays",
+                                                       "raygen_plain_rays")} == {
+            "raygen_fused_rays": 4 * R, "raygen_plain_rays": 0}
+        monkeypatch.setattr(raygen, "raygen_route", lambda camera, cfg, ids: "plain")
+        with jit.disable_jit():
+            plain = call()
+    for img in [eager] + compiled:
+        assert torch.equal(img, plain)
+    monkeypatch.undo()
+    rays = dict(build.RAYS)
+    pgrad.loss_and_grads(scene, cam, cfg, lambda im: im.mean(), accel=accel)
+    torch.cuda.synchronize()
+    assert {k: build.RAYS[k] - rays[k] for k in ("raygen_fused", "raygen_plain")} == {
+        "raygen_fused": 0, "raygen_plain": R}
