@@ -247,6 +247,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``against`` (a parent checkout) whether each is the same instruction
    for instruction. Alone: a script under ``build/`` that calls
    ``chip_smoke.phase21(...)`` (see its signature).
+22. the wavefront's shadow rays at the shape of the configuration
+   ``bunny-1080p-b2-shadows`` (``portbench/configs/``: config 3's 69,732
+   triangles, its two point lights, 1920x1080 x 2, shadow rays, direct
+   specular): the rays K6's any-hit mode is handed in an eager
+   ``render_sample`` of frame 0, recorded at ``clustered_any`` (bounce 0
+   in tile order, bounce 1 in the sorted order, one launch a light), each
+   launch's occlusion bitwise ``run_clustered_plain``'s on the same rays
+   and limits, with its device time (``device_ms``, 20 launches); and per
+   replay of the compiled render (4 frames), the counts zeroed just
+   before: K6's launches by mode and ``build.RAYS`` / ``jit.COUNTS``'
+   closest, any-hit, plain-shaded and ``wave_shadow`` rays. Alone: a
+   script under ``build/`` that calls ``chip_smoke.phase22(...)``.
 
 Gates (phases 3, 3b, 4, 7-12, 14, 15): ops/cuda/parity.py. The forward
 intersection kernels' bounds count 45 flops for each (ray, triangle)
@@ -2497,6 +2509,112 @@ def phase21(mrt, torch, dev, card: str, cam, against=None) -> dict:
     return row
 
 
+SHADOWS_CONFIG = "portbench/configs/bunny-1080p-b2-shadows.json"
+
+
+def shadows_scene(mrt, torch, dev, width: int = 1920, height: int = 1080):
+    """(scene, camera, cfg) of the configuration ``SHADOWS_CONFIG``: the
+    program's ``bunny_scene`` lit by the file's light records, its camera,
+    its render block at ``width`` x ``height``."""
+    from pathlib import Path
+    conf = json.loads((Path(__file__).resolve().parent / SHADOWS_CONFIG).read_text())
+    recs = conf["scene"]["lights"]
+    if any(r["type"] != "point" for r in recs):
+        raise AssertionError(f"{SHADOWS_CONFIG}: point lights only, got {recs}")
+    col = lambda k: torch.tensor([r[k] for r in recs], dtype=torch.float32, device=dev)
+    lights = mrt.Lights(position=col("position"), direction=col("direction"),
+                        light_type=torch.full((len(recs),), mrt.LIGHT_POINT,
+                                              dtype=torch.int32, device=dev),
+                        intensity=col("intensity"), attenuation=col("attenuation"),
+                        cos_cutoff=col("cos_cutoff"))
+    cam = mrt.Camera(**{k: torch.tensor(v, dtype=torch.float32, device=dev)
+                        for k, v in conf["camera"].items()})
+    cfg = mrt.RenderConfig(**{**conf["render"], "width": width, "height": height})
+    return mrt.bunny_scene(lights=lights, device=dev), cam, cfg
+
+
+def shadow_launches(mrt, torch, cl, scene, cam, cfg, acc) -> list:
+    """[(cg, o, d, t_init, blocked)] of every launch of K6's any-hit mode
+    in an eager ``render_sample`` of frame 0: the inputs as
+    ``occluded_clustered`` hands them to ``clustered_any``, and its
+    answer, in launch order (bounce by bounce, a light each)."""
+    shots, real = [], cl.clustered_any
+
+    def record(cg, o, d, t_limit, backface_cull=False, stats=None):
+        blocked = real(cg, o, d, t_limit, backface_cull, stats)
+        shots.append((cg, o.clone(), d.clone(), t_limit.clone(), blocked.clone()))
+        return blocked
+
+    cl.clustered_any = record
+    try:
+        with torch.no_grad():
+            mrt.render_sample(scene, cam, cfg, frame=0, accel=acc)
+    finally:
+        cl.clustered_any = real
+    return shots
+
+
+def phase22(mrt, torch, parity, cl, dev, card: str) -> dict:
+    """22. The wavefront's shadow rays at the configuration
+    bunny-1080p-b2-shadows' shape (module docstring, phase 22). Returns
+    K6's any-hit device ms a launch at bounce 0 and 1 (light 0) and the
+    counts of a replay."""
+    from mini_opencl_raytracer_tpu_torch import jit
+    from mini_opencl_raytracer_tpu_torch.ops.cuda import build
+    t_phase = time.perf_counter()
+    scene, cam, cfg = shadows_scene(mrt, torch, dev)
+    R, L, frames = cfg.num_pixels, scene.lights.count, 4
+    if (scene.num_triangles, L, mrt.resolve_backend(scene, cfg)) != (69_732, 2, "pallas"):
+        raise AssertionError(f"[22 shadows] the scene: {scene.num_triangles} triangles, "
+                             f"{L} lights, backend {mrt.resolve_backend(scene, cfg)}")
+    acc = mrt.build_accel(scene, cfg)
+    shots = shadow_launches(mrt, torch, cl, scene, cam, cfg, acc)
+    if [s[1].shape[0] for s in shots] != [R] * (L * cfg.bounces):
+        raise AssertionError(f"[22 shadows] any-hit launches of a sample: "
+                             f"{[s[1].shape[0] for s in shots]}, expected {L * cfg.bounces} "
+                             f"of {R} rays")
+    ms = {}
+    for i, (cg, o, d, t, blocked) in enumerate(shots):
+        b, light = divmod(i, L)
+        label = f"[22 shadows] bounce {b} light {light}"
+        plain = cl.run_clustered_plain(cg, o, d, t, cfg.backface_cull)[1] >= 0
+        again = cl.clustered_any(cg, o, d, t, cfg.backface_cull)
+        torch.cuda.synchronize()
+        st = parity.check_any(label, blocked, plain)
+        parity.check_any(label + " (a second launch)", again, plain)
+        if light == 0:
+            ms[b] = device_ms(lambda: cl.clustered_any(cg, o, d, t, cfg.backface_cull))
+        log(f"{label}: {o.shape[0]} rays, occlusion bitwise run_clustered_plain's (and a "
+            f"second launch's), blocked {st['blocked_frac']:.4f}, limits finite "
+            f"{torch.isfinite(t).float().mean().item():.4f}"
+            + (f"; {ms[b]:.4f} ms (device time, 20 launches), "
+               f"{ms[b] * 1e6 / o.shape[0]:.4f} ns a ray ({card})" if light == 0 else ""))
+    del shots
+    with torch.no_grad():
+        mrt.render(scene, cam, cfg, frames=frames, accel=acc)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        before = dict(jit.COUNTS)
+        mrt.render(scene, cam, cfg, frames=frames, accel=acc)
+        torch.cuda.synchronize()
+    n = cfg.bounces * frames
+    kinds = ("clustered_closest", "clustered_any", "shade_plain", "shade_fused", "wave_shadow")
+    want_rays = {"clustered_closest": R * n, "clustered_any": R * L * n, "shade_plain": R * n,
+                 "shade_fused": 0, "wave_shadow": R * L * n}
+    got = (launch_counts("clustered_closest", "clustered_any"),
+           {k: build.RAYS[k] for k in kinds},
+           {k: jit.COUNTS[k + "_rays"] - before[k + "_rays"] for k in kinds},
+           jit.COUNTS["replays"] - before["replays"])
+    want = ({"clustered_closest": n, "clustered_any": L * n}, want_rays, want_rays, 1)
+    if got != want:
+        raise AssertionError(f"[22 shadows] a replay of the compiled render: {got}, "
+                             f"expected {want}")
+    log(f"[22 shadows] a replay of the compiled render ({frames} frames, counts zeroed "
+        f"before): launches {got[0]}, rays {got[1]} (build.RAYS and jit.COUNTS alike)")
+    log(f"[22 shadows] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return {"any_ms": ms, "launches": got[0], "rays": got[1]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3344,6 +3462,9 @@ def main() -> int:
     max_err["raygen"] = 0.0
     times["raygen"] = (r["ms"], r["plain_ms"])
     bounds["raygen"] = r["bound"]
+
+    # 22. The wavefront's shadow rays at bunny-1080p-b2-shadows' shape.
+    phase22(mrt, torch, parity, cl, dev, card)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

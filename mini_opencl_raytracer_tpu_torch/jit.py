@@ -79,12 +79,13 @@ rays handed to K6; ``shade_fused_rays`` / ``shade_adjoint_rays`` /
 ``shade_plain_rays``, the rays the wavefront shaded in its fused kernel,
 differentiated in its adjoint kernel and shaded in PyTorch;
 ``mega_fwd_rays`` / ``mega_shadow_rays``, the rays handed to K1 / K2 and
-those times the lights where they cast shadow rays), the rays that
-a key's capture counted, added per replay: over ``replays``, a steady
-call's rays, which no eager call dilutes. The benchmark
-(``portbench/metrics/jit_*``, ``k6_ns_per_ray.render``,
-``k1k2_ns_per_ray.render``) reads the spans from its trace and
-``COUNTS`` after its window.
+those times the lights where they cast shadow rays; ``wave_shadow_rays``,
+the shadow-ray slots the wavefront's light loop hands its any-hit
+intersector), the rays that a key's capture counted, added per replay:
+over ``replays``, a steady call's rays, which no eager call dilutes. The
+benchmark (``portbench/metrics/jit_*``, ``k6_ns_per_ray.render``,
+``k6_any_ns_per_ray.render``, ``k1k2_ns_per_ray.render``) reads the
+spans from its trace and ``COUNTS`` after its window.
 """
 
 from __future__ import annotations

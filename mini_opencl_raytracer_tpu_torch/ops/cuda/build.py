@@ -19,9 +19,12 @@ adjoint kernel differentiates; ``mega_fwd`` the rays each K1 / K2 launch
 is handed, ``mega_shadow`` those times the lights where the launch casts
 shadow rays: the any-hit slots it may fill; ``raygen_fused`` the rays the
 raygen kernel generated, ``raygen_plain`` those PyTorch generated for the
-wavefront on a CUDA device). A compiled program's replays
-add what its capture counted to both (jit.py), and ``RAYS`` also to
-``jit.COUNTS`` as ``<name>_rays``. Plain runs on the CPU count nothing.
+wavefront on a CUDA device; ``wave_shadow`` the shadow-ray slots the
+wavefront's light loop hands its any-hit intersector on a CUDA device, the
+rays times the lights of each bounce that casts shadow rays). A compiled
+program's replays add what its capture counted to both (jit.py), and
+``RAYS`` also to ``jit.COUNTS`` as ``<name>_rays``. Plain runs on the CPU
+count nothing.
 """
 
 from __future__ import annotations
@@ -107,7 +110,7 @@ _ENTRIES = {
 LAUNCHES = dict.fromkeys(_ENTRIES, 0)
 RAYS = dict.fromkeys(("clustered_closest", "clustered_any", "shade_fused", "shade_plain",
                       "shade_adjoint", "mega_fwd", "mega_shadow", "raygen_fused",
-                      "raygen_plain"), 0)
+                      "raygen_plain", "wave_shadow"), 0)
 
 _LIB: Optional[ctypes.CDLL] = None
 LAST_BUILD_LOG = ""

@@ -187,6 +187,8 @@ def make_bounce_core(scene: Scene, cfg: RenderConfig,
                             cfg) + (seeds,)
         if o.is_cuda:
             build.RAYS["shade_plain"] += o.shape[0]
+            if cfg.shadow_rays and occluder_fn is not None:
+                build.RAYS["wave_shadow"] += o.shape[0] * scene.lights.count
         at = hit_attributes(o, d, hit, st, backface_cull=cfg.backface_cull,
                             soft_sigma=cfg.soft_edge_sigma)
         o, d, beta, radiance, alive, _ = shade_hit(

@@ -839,45 +839,54 @@ def test_compiled_equals_eager_on_card(name):
 @pytest.mark.cuda
 def test_k6_rays_counted_per_launch_on_card():
     """K6's ray counts (build.RAYS, by kind) on a compiled render of a
-    large scene with shadow rays: an eager call and each replay add, per
-    kind, the rays of every launch (R = W x H x spp, one closest-hit and
-    one any-hit launch a bounce and frame), and jit.COUNTS gets the
+    large scene with shadow rays and two lights: an eager call and each
+    replay add, per kind, the rays of every launch (R = W x H x spp, one
+    closest-hit launch a bounce and frame, one any-hit launch a light,
+    bounce and frame), and the light loop's shadow-ray slots
+    (``wave_shadow``: R x L x bounces x frames); jit.COUNTS gets the
     replays' rays alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from mini_opencl_raytracer_tpu_torch import jit
     dev = torch.device("cuda")
     cfg = P.RenderConfig(width=96, height=64, bounces=2, shadow_rays=True)
-    scene = P.bunny_scene(target_tris=4000, device=dev)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    lights = P.Lights(position=t([[0.0, -10.0, 16.0], [4.0, 2.0, 14.0]]),
+                      direction=t([[-0.5, 0.4, -0.1], [0.0, 0.5, -1.0]]),
+                      light_type=torch.tensor([P.LIGHT_POINT] * 2, dtype=torch.int32,
+                                              device=dev),
+                      intensity=t([16.0, 8.0]), attenuation=t([0.8, 0.8]),
+                      cos_cutoff=t([0.9, 0.9]))
+    scene = P.bunny_scene(target_tris=4000, lights=lights, device=dev)
     cam, accel = P.Camera.default(device=dev), P.build_accel(scene, cfg)
-    R, frames = cfg.width * cfg.height * cfg.spp, 2
+    R, L, frames = cfg.width * cfg.height * cfg.spp, 2, 2
     call = lambda: P.render(scene, cam, cfg, frames=frames, accel=accel)
     k6 = ("clustered_closest", "clustered_any")
-    snap = lambda: ({k: build.LAUNCHES[k] for k in k6}, {k: build.RAYS[k] for k in k6},
+    kinds = k6 + ("wave_shadow",)
+    counted = tuple(k + "_rays" for k in kinds) + ("replays",)
+    snap = lambda: ({k: build.LAUNCHES[k] for k in k6}, {k: build.RAYS[k] for k in kinds},
                     dict(jit.COUNTS))
 
     def since(before):
         return ({k: build.LAUNCHES[k] - v for k, v in before[0].items()},
                 {k: build.RAYS[k] - v for k, v in before[1].items()},
-                {k: jit.COUNTS[k] - before[2][k] for k in ("clustered_closest_rays",
-                                                           "clustered_any_rays", "replays")})
+                {k: jit.COUNTS[k] - before[2][k] for k in counted})
 
-    launches = dict.fromkeys(k6, cfg.bounces * frames)
-    rays = {k: n * R for k, n in launches.items()}
+    n = cfg.bounces * frames
+    launches = {"clustered_closest": n, "clustered_any": L * n}
+    rays = {"clustered_closest": R * n, "clustered_any": R * L * n, "wave_shadow": R * L * n}
     with torch.no_grad():
         with jit.disable_jit():
             before = snap()
             call()
-            assert since(before) == (launches, rays, {"clustered_closest_rays": 0,
-                                                      "clustered_any_rays": 0, "replays": 0})
+            assert since(before) == (launches, rays, dict.fromkeys(counted, 0))
         call()                  # the key's warm-up (eager) and capture
         before = snap()
         for _ in range(3):
             call()
-        assert since(before) == ({k: 3 * n for k, n in launches.items()},
-                                 {k: 3 * n for k, n in rays.items()},
-                                 {"clustered_closest_rays": 3 * rays["clustered_closest"],
-                                  "clustered_any_rays": 3 * rays["clustered_any"],
+        assert since(before) == ({k: 3 * v for k, v in launches.items()},
+                                 {k: 3 * v for k, v in rays.items()},
+                                 {**{k + "_rays": 3 * v for k, v in rays.items()},
                                   "replays": 3})
 
 

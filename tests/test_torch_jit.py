@@ -545,14 +545,14 @@ def test_counts_of_warmup_capture_and_replays(monkeypatch):
         "warmups": 1, "captures": 1, "eager": 0, "clustered_closest_rays": 0,
         "clustered_any_rays": 0, "shade_fused_rays": 0, "shade_plain_rays": 0,
         "shade_adjoint_rays": 0, "mega_fwd_rays": 0, "mega_shadow_rays": 0,
-        "raygen_fused_rays": 0, "raygen_plain_rays": 0}
+        "raygen_fused_rays": 0, "raygen_plain_rays": 0, "wave_shadow_rays": 0}
 
 
-# The ray counts of COUNTS (K6's, the wavefront shading's, K1 / K2's and
-# the wavefront raygen's).
+# The ray counts of COUNTS (K6's, the wavefront shading's, K1 / K2's, the
+# wavefront raygen's and its light loop's shadow-ray slots).
 NO_RAYS = ("clustered_closest_rays", "clustered_any_rays", "shade_fused_rays",
            "shade_plain_rays", "shade_adjoint_rays", "mega_fwd_rays", "mega_shadow_rays",
-           "raygen_fused_rays", "raygen_plain_rays")
+           "raygen_fused_rays", "raygen_plain_rays", "wave_shadow_rays")
 
 
 @pytest.mark.parametrize("counted, render_kw", [
@@ -571,12 +571,17 @@ NO_RAYS = ("clustered_closest_rays", "clustered_any_rays", "shade_fused_rays",
     # The wavefront's raygen: the kernel's launch over x's rays, and the
     # plain route's idx rays.
     ((("raygen", "raygen_fused"), (None, "raygen_plain")), dict(bounces=2)),
-], ids=["k6", "shading", "adjoint", "mega", "raygen"])
+    # The wavefront's light loop: K6's any-hit launch over x's rays, and
+    # the shadow-ray slots it hands its intersector, idx's.
+    ((("clustered_any", "clustered_any"), (None, "wave_shadow")),
+     dict(bounces=2, shadow_rays=True, direct_specular=True)),
+], ids=["k6", "shading", "adjoint", "mega", "raygen", "wave_shadow"])
 def test_replays_add_the_captured_rays(monkeypatch, counted, render_kw):
     """The rays a capture counts in ``build.RAYS`` (K6's by kind; those the
     wavefront shades in its fused kernel, differentiates in its adjoint
     kernel and shades in PyTorch; K1 / K2's and their shadow rays' slots;
-    those the wavefront's raygen kernel and PyTorch generate)
+    those the wavefront's raygen kernel and PyTorch generate; the
+    wavefront's shadow-ray slots)
     are added by each
     replay, as its launches are, and into COUNTS as ``<kind>_rays``; the
     eager warm-up adds its own to ``RAYS`` alone, and the capture's are
